@@ -4,15 +4,21 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each kernel against its plain PyTorch version on the card at the
-serving path's shapes (and times kernel, plain version, a one-call PyTorch
-yardstick and the least time the card could take), serves full-width
-40-layer Granite-3-2B with int4 weights and an int8 KV cache through
-``Engine`` with both kernels' launch counts checked, then compares the
-card's prefill and first decode-step logits with the CPU's on a 2-layer
-cut of the same model.  Each phase prints
-one JSON line; a failed check raises and the script exits non-zero.  The
-last three lines are the ``kernels`` summary, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+shapes its path gives it (and times kernel, plain version, a one-call
+PyTorch yardstick where there is one and the least time the card could
+take), then drives both ported paths with their launch counts checked:
+
+* serving: full-width 40-layer Granite-3-2B with int4 weights and an int8
+  KV cache through ``Engine``, and the card's prefill and first
+  decode-step logits against the CPU's on a 2-layer cut;
+* training: full-width 40-layer Granite-3-2B trained 3 LOTION steps
+  (fused AdamW, decoupled penalty) then evaluated with fp32, RTN and RR
+  weights; 8 layers with the loss-side penalty; and 2 layers trained on
+  the card and on the CPU from the same weights and batches.
+
+Each phase prints one JSON line; a failed check raises and the script
+exits non-zero.  The last three lines are the ``kernels`` summary, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; without one it exits with an error and no result.
 Imports only torch, numpy, the standard library and the port.
@@ -20,7 +26,9 @@ Imports only torch, numpy, the standard library and the port.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -34,6 +42,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+# penalty sums: the kernel adds in double in a fixed tree, the plain version
+# in fp32 in PyTorch's order; the two differ by summation order only
+PENALTY_RTOL = 1e-6
 
 
 def emit(obj) -> None:
@@ -252,6 +264,233 @@ def check_attn(timer, dev):
 
 
 # --------------------------------------------------------------------------
+# phase 3c: the training kernels (quant, lotion_reg, opt_step) against
+# their plain versions at the Granite-3-2B leaf shapes
+# --------------------------------------------------------------------------
+
+# (shape, leaves of Granite-3-2B with that shape, eligible under the
+# default policy): wq/wo, wk/wv, w_up/w_gate, w_down, the tied embedding,
+# the stacked norm scales, the final norm scale
+GRANITE_LEAVES = [((40, 2048, 2048), 2, True), ((40, 2048, 512), 2, True),
+                  ((40, 2048, 8192), 2, True), ((40, 8192, 2048), 1, True),
+                  ((49155, 2048), 1, False), ((40, 2048), 2, False),
+                  ((2048,), 1, False)]
+CHECK_SHAPES = [s for s, _, _ in GRANITE_LEAVES[:6]]
+OTHER_FMT_SHAPES = [(40, 2048, 512), (49155, 2048)]
+# fp32 operations per element, the least each function needs (for the
+# operations side of the bound; the bytes side dominates by far)
+OPS_PER_ELEM = {"quant": 4, "lotion_reg": 10, "opt_step": 16}
+
+
+def _fmt_shape(shape):
+    return "x".join(map(str, shape))
+
+
+def _bitwise(pairs):
+    """Largest |a - b| over (name, got, want) triples and whether every
+    pair is bitwise equal (NaN never appears in these inputs)."""
+    err, same, bad = 0.0, True, []
+    for name, a, b in pairs:
+        eq = torch.equal(a, b)
+        if not eq:
+            bad.append(name)
+            err = max(err, float((a.float() - b.float()).abs().max()))
+        same = same and eq
+    return err, same, bad
+
+
+def _elem_bound(kernel, n, nbytes):
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = OPS_PER_ELEM[kernel] * n / FP32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def check_quant_one(timer, gen, dev, shape, fmt, bs, rr):
+    from repro_torch.kernels.quant import quant_rr, quant_rtn, rr_ref, rtn_ref
+    w = torch.randn(shape, generator=gen, device=dev) * 0.02
+    u = torch.rand(shape, generator=gen, device=dev) if rr else None
+    if rr:
+        def run():
+            return quant_rr(w, u, fmt, bs)
+
+        def plain():
+            return rr_ref(w, u, fmt, bs)
+    else:
+        def run():
+            return quant_rtn(w, fmt, bs)
+
+        def plain():
+            return rtn_ref(w, fmt, bs)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err, same, _ = _bitwise([("cast", got, want)])
+    n = w.numel()
+    row = dict(phase="check", kernel="quant", cast="rr" if rr else "rtn",
+               shape=_fmt_shape(shape), fmt=fmt, block_size=bs,
+               bitwise=same, max_abs_err=err)
+    if not same:
+        emit(row)
+        raise AssertionError(f"quant disagrees: {row}")
+    del got, want
+    b_ms, b_by = _elem_bound("quant", n, n * 4 * (3 if rr else 2))
+    library_ms = None
+    if not rr and bs == -1 and fmt.startswith("int"):
+        qmax = 2 ** (int(fmt[3:]) - 1) - 1
+        library_ms = timer(lambda: torch.fake_quantize_per_tensor_affine(
+            w, 0.01, 0, -qmax, qmax))
+    row.update(ms=timer(run), plain_ms=timer(plain, iters=3),
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+    emit(row)
+    return row
+
+
+def check_quant(timer, dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for shape in CHECK_SHAPES:
+        for bs in (-1, 128):
+            rows.append(check_quant_one(timer, gen, dev, shape, "int4", bs,
+                                        False))
+        rows.append(check_quant_one(timer, gen, dev, shape, "int4", -1, True))
+    for shape in OTHER_FMT_SHAPES:
+        rows.append(check_quant_one(timer, gen, dev, shape, "int4", 128, True))
+        for fmt in ("int8", "fp4"):
+            for bs in (-1, 128):
+                for rr in (False, True):
+                    rows.append(check_quant_one(timer, gen, dev, shape, fmt,
+                                                bs, rr))
+    return rows
+
+
+def check_reg_one(timer, gen, dev, shape, fmt, bs, lam=1e3):
+    """``lam`` as the loss-placement phase folds it into the gradient."""
+    from repro_torch.kernels.lotion_reg import (lotion_penalty_fused_vg,
+                                                 reg_ref)
+    w = torch.randn(shape, generator=gen, device=dev) * 0.02
+    f = torch.rand(shape, generator=gen, device=dev) * 1e-6
+    pen, grad = lotion_penalty_fused_vg(w, f, fmt, bs, lam)
+    pen_ref, grad_ref = reg_ref(w, f, fmt, bs, lam)
+    torch.cuda.synchronize()
+    err, same, _ = _bitwise([("grad", grad, grad_ref)])
+    pen_rel = float((pen - pen_ref).abs() / pen_ref.abs().clamp_min(1e-30))
+    n = w.numel()
+    row = dict(phase="check", kernel="lotion_reg", shape=_fmt_shape(shape),
+               fmt=fmt, block_size=bs, lam=lam, bitwise=same, max_abs_err=err,
+               penalty=float(pen), penalty_rel_err=pen_rel)
+    if not (same and pen_rel <= PENALTY_RTOL):
+        emit(row)
+        raise AssertionError(f"lotion_reg disagrees: {row}")
+    del pen, grad, pen_ref, grad_ref
+    b_ms, b_by = _elem_bound("lotion_reg", n, n * 4 * 3)
+    row.update(ms=timer(lambda: lotion_penalty_fused_vg(w, f, fmt, bs, lam)),
+               plain_ms=timer(lambda: reg_ref(w, f, fmt, bs, lam), iters=3),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    emit(row)
+    return row
+
+
+def check_lotion_reg(timer, dev):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = [check_reg_one(timer, gen, dev, shape, "int4", bs)
+            for shape in CHECK_SHAPES for bs in (-1, 128)]
+    rows += [check_reg_one(timer, gen, dev, shape, fmt, bs)
+             for shape in OTHER_FMT_SHAPES for fmt in ("int8", "fp4")
+             for bs in (-1, 128)]
+    return rows
+
+
+OPT_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
+
+
+def check_opt_one(timer, gen, dev, shape, fmt, bs, *, lam=1e3, core="adamw",
+                  momentum=0.0, fisher_decay=None, ok=1.0):
+    from repro_torch.kernels.opt_step import fused_opt_step_leaf, opt_step_ref
+    w = torch.randn(shape, generator=gen, device=dev) * 0.02
+    g = torch.randn(shape, generator=gen, device=dev) * 1e-3
+    mu = torch.randn(shape, generator=gen, device=dev) * 1e-4
+    nu = torch.rand(shape, generator=gen, device=dev) * 1e-6
+    t = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
+    count = 3.0
+    scal = dict(lr=t(3e-4), bc1=t(1 - 0.9 ** count), bc2=t(1 - 0.95 ** count),
+                clip_scale=t(0.5), ok=t(ok))
+    kw = dict(lam=lam, fmt_name=fmt, block_size=bs, core=core,
+              momentum=momentum, fisher_decay=fisher_decay, **OPT_HYPER)
+    want = opt_step_ref(w, g, mu, nu, **scal, **kw)
+    w_k, mu_k, nu_k = w.clone(), mu.clone(), nu.clone()
+    got = fused_opt_step_leaf(w_k, g, mu_k, nu_k, **scal, **kw)
+    torch.cuda.synchronize()
+    if not (got[0] is w_k and got[1] is mu_k and got[2] is nu_k):
+        raise AssertionError("opt_step did not update in place")
+    pairs = [("w", got[0], want[0]), ("mu", got[1], want[1]),
+             ("nu", got[2], want[2])]
+    if ok == 0.0:
+        pairs += [("w_frozen", got[0], w), ("mu_frozen", got[1], mu),
+                  ("nu_frozen", got[2], nu)]
+    err, same, bad = _bitwise(pairs)
+    pen_rel = (float((got[3] - want[3]).abs()
+                     / want[3].abs().clamp_min(1e-30)) if lam else 0.0)
+    n = w.numel()
+    mode = "none" if lam == 0.0 else "matrix" if bs == -1 else "block"
+    row = dict(phase="check", kernel="opt_step", shape=_fmt_shape(shape),
+               fmt=fmt, block_size=bs, mode=mode, core=core, ok=ok,
+               momentum=momentum, fisher_decay=fisher_decay, bitwise=same,
+               not_bitwise=bad, max_abs_err=err, penalty_rel_err=pen_rel)
+    if not (same and pen_rel <= PENALTY_RTOL):
+        emit(row)
+        raise AssertionError(f"opt_step disagrees: {row}")
+    del got, want, w_k, mu_k, nu_k
+    # w and g, plus each moment the core keeps: read once, written once;
+    # with ok = 0 the step is the identity and needs only the flag
+    moments = (2 if core == "adamw"
+               else int(bool(momentum)) + int(fisher_decay is not None))
+    b_ms, b_by = (_elem_bound("opt_step", n, n * 4 * (3 + 2 * moments))
+                  if ok else _elem_bound("opt_step", 0, 4))
+    w_k, mu_k, nu_k = w.clone(), mu.clone(), nu.clone()
+    library_ms = None
+    if lam == 0.0 and core == "adamw":
+        # yardstick: PyTorch's fused AdamW kernel on the same leaf
+        w_l, mu_l, nu_l = w.clone(), mu.clone(), nu.clone()
+        steps = [torch.tensor(count, device=dev)]
+        library_ms = timer(lambda: torch._fused_adamw_(
+            [w_l], [g], [mu_l], [nu_l], [], steps, lr=3e-4, beta1=0.9,
+            beta2=0.95, weight_decay=0.01, eps=1e-8, amsgrad=False,
+            maximize=False))
+        del w_l, mu_l, nu_l
+    row.update(ms=timer(lambda: fused_opt_step_leaf(w_k, g, mu_k, nu_k,
+                                                    **scal, **kw)),
+               plain_ms=timer(lambda: opt_step_ref(w, g, mu, nu, **scal,
+                                                   **kw), iters=3),
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+    emit(row)
+    return row
+
+
+def check_opt_step(timer, dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for shape in CHECK_SHAPES:
+        for bs in (-1, 128):
+            rows.append(check_opt_one(timer, gen, dev, shape, "int4", bs))
+    for shape, _, _ in GRANITE_LEAVES:
+        rows.append(check_opt_one(timer, gen, dev, shape, "int4", -1, lam=0.0))
+    for shape in OTHER_FMT_SHAPES:
+        for fmt in ("int8", "fp4"):
+            for bs in (-1, 128):
+                rows.append(check_opt_one(timer, gen, dev, shape, fmt, bs))
+    sgd = dict(core="sgd", momentum=0.9, fisher_decay=0.99)
+    for bs in (-1, 128):
+        rows.append(check_opt_one(timer, gen, dev, (40, 2048, 2048), "int4",
+                                  bs, **sgd))
+    rows.append(check_opt_one(timer, gen, dev, (40, 2048, 2048), "int4", -1,
+                              lam=0.0, core="sgd"))
+    for core in ("adamw", "sgd"):
+        rows.append(check_opt_one(
+            timer, gen, dev, (40, 2048, 512), "int4", -1, ok=0.0,
+            **(sgd if core == "sgd" else {})))
+    return rows
+
+
+# --------------------------------------------------------------------------
 # phase 4: full-width Granite-3-2B served through Engine
 # --------------------------------------------------------------------------
 
@@ -300,8 +539,9 @@ def serve_full_width(dev):
     counts = launch_counts()
 
     per_forward = 7 * cfg.n_layers
-    want = {"wqt_matmul": per_forward * mnt,
-            "decode_attn": cfg.n_layers * (mnt - 1)}
+    want = dict.fromkeys(counts, 0)
+    want.update(wqt_matmul=per_forward * mnt,
+                decode_attn=cfg.n_layers * (mnt - 1))
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     if [len(o) for o in outs] != [mnt] * len(prompts) or not all(
@@ -404,6 +644,222 @@ def card_vs_cpu(dev):
 
 
 # --------------------------------------------------------------------------
+# phases 6-8: LOTION training of Granite-3-2B through the fused kernels
+# --------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+
+
+def granite_trainer(dev, *, n_layers=None, dtype="bfloat16",
+                    placement="decoupled", lam=1e3, seed=0):
+    """The training path's workload: Granite-3-2B at full width (depth
+    ``n_layers`` if given), random fp32 master weights from ``seed``,
+    ``dtype`` activations; LOTION int4 per-tensor at ``lam`` with the given
+    penalty placement; AdamW on a cosine schedule with warmup, fused into
+    the opt_step core.  Returns (cfg, train_step, eval_fn, state)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.modes import QuantConfig
+    from repro_torch.models.lm import lm_init
+    from repro_torch.optim import adamw, cosine_with_warmup
+    from repro_torch.train import (TrainConfig, init_state, make_eval_fn,
+                                   make_optimizer, make_train_step)
+    cfg = dataclasses.replace(get_config("granite-3-2b"), dtype=dtype)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    qcfg = QuantConfig(method="lotion", fmt_name="int4", block_size=-1,
+                       lam=lam, penalty_placement=placement)
+    tcfg = TrainConfig(quant=qcfg, clip_norm=1.0)
+    opt = make_optimizer(tcfg, adamw(cosine_with_warmup(3e-3, 5, 100)))
+    state = init_state(lm_init(cfg, seed=seed, device=dev), opt)
+    return cfg, make_train_step(cfg, tcfg, opt), make_eval_fn(cfg, qcfg), state
+
+
+def _pipeline(cfg, dev, batch, seq):
+    from repro_torch.data import DataPipeline, lm_batch, permutation_table
+    perm = permutation_table(0, cfg.vocab)
+    val = lm_batch(99, 10 ** 6, batch, seq, cfg.vocab, perm, device=dev)
+    return DataPipeline(lambda s: lm_batch(0, s, batch, seq, cfg.vocab, perm),
+                        device=dev), val
+
+
+def _train_steps(train_step, state, pipe, n, profile_last=False):
+    """n steps; per step the host-clock wall ms (synchronized) and the
+    metrics as floats.  With ``profile_last`` the last step runs under
+    ``torch.profiler`` (its wall time then includes the tracing) and its
+    row also gets the device ms of the ``opt_step`` kernel group, grouped
+    as ``scripts/profile_train_torch.py`` groups a step's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    rows = []
+    for i in range(n):
+        batch = next(pipe)
+        torch.cuda.synchronize()
+        traced = profile_last and i == n - 1
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) if traced
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            state, m = train_step(state, batch)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+        row = dict(step_ms=step_ms,
+                   **{k: float(m[k]) for k in ("loss", "ce", "grad_norm",
+                                                "penalty") if k in m},
+                   skipped=bool(m["skipped"]))
+        if traced:
+            from scripts.profile_serve_torch import _device_by_name
+            from scripts.profile_train_torch import _group
+            row.update(profiled=True, opt_step_device_ms=sum(
+                ms for name, (ms, _) in _device_by_name(prof).items()
+                if _group(name) == "opt_step"))
+        rows.append(row)
+        if not (math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"])
+                and not row["skipped"]):
+            raise AssertionError(f"training step not finite: {row}")
+    return state, rows
+
+
+def train_full_width(dev, steps=3):
+    """The main path: 40 layers at full width, decoupled placement, then
+    the eval CE with fp32, RTN and RR weights.  The last step is profiled
+    for the opt_step kernels' device time."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, train_step, eval_fn, state = granite_trainer(dev)
+    pipe, val = _pipeline(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_leaves = len(tree_leaves(state["params"]))
+    n_eligible = sum(1 for _ in _eligible(state["params"]))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    try:
+        state, rows = _train_steps(train_step, state, pipe, steps,
+                                   profile_last=True)
+    finally:
+        pipe.close()
+    train_peak = torch.cuda.max_memory_allocated()
+    after_train = launch_counts()
+    ce = {"fp32": float(eval_fn(state["params"], val))}
+    ce["rtn"] = float(eval_fn(state["params"], val, "rtn"))
+    after_rtn = launch_counts()
+    ce["rr"] = float(eval_fn(state["params"], val, "rr",
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(1)))
+    counts = launch_counts()
+    want = dict(counts, opt_step=n_leaves * steps, lotion_reg=0,
+                quant=2 * n_eligible, wqt_matmul=0, decode_attn=0)
+    checks = {"after_train_quant": after_train["quant"] == 0,
+              "after_rtn_quant": after_rtn["quant"] == n_eligible,
+              "counts": counts == want, "leaves": (n_leaves, n_eligible)
+              == (11, 7), "ce_finite": all(map(math.isfinite, ce.values()))}
+    row = dict(phase="train", model=cfg.name, n_layers=cfg.n_layers,
+               d_model=cfg.d_model, dtype=str(cfg.dtype),
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, method="lotion int4 "
+               "per-tensor, decoupled, lam=1e3", optimizer="fused AdamW, "
+               "cosine warmup", params=sum(t.numel() for t in
+                                           tree_leaves(state["params"])),
+               setup_s=setup_s, steps=rows, eval_ce=ce, launches=counts,
+               expected_launches=want,
+               peak_memory_gib_train=train_peak / 2 ** 30,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               checks=checks)
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"train phase failed its checks: {checks}")
+    del state, train_step, eval_fn
+    torch.cuda.empty_cache()
+    return row
+
+
+def _eligible(params):
+    from repro_torch.core.policy import QuantPolicy, tree_map_with_path
+    pol, out = QuantPolicy(), []
+    tree_map_with_path(lambda p, x: out.append(p) if pol.eligible(p, x)
+                       else None, params)
+    return out
+
+
+def tree_leaves(tree):
+    from repro_torch.core.policy import tree_leaves as leaves
+    return leaves(tree)
+
+
+def train_loss_placement(dev, n_layers=8, steps=2):
+    """Loss-side placement: the penalty through the lotion_reg kernel's
+    autograd function (7 launches per step), the fused core with lam = 0
+    (mode none, 11 launches per step)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.empty_cache()
+    cfg, train_step, _, state = granite_trainer(dev, n_layers=n_layers,
+                                                placement="loss")
+    pipe, _ = _pipeline(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    mode_none = train_step.optimizer.meta["lam"] == 0.0
+    reset_launch_counts()
+    try:
+        state, rows = _train_steps(train_step, state, pipe, steps)
+    finally:
+        pipe.close()
+    counts = launch_counts()
+    want = dict(counts, lotion_reg=7 * steps, opt_step=11 * steps, quant=0,
+                wqt_matmul=0, decode_attn=0)
+    penalties = [r.get("penalty", 0.0) for r in rows]
+    row = dict(phase="train_loss_placement", model=cfg.name,
+               n_layers=cfg.n_layers, d_model=cfg.d_model,
+               dtype=str(cfg.dtype), steps=rows, launches=counts,
+               expected_launches=want, opt_step_mode_none=mode_none)
+    emit(row)
+    if counts != want or not mode_none or not penalties[-1] > 0.0:
+        raise AssertionError(f"loss-placement phase failed: {row}")
+    del state, train_step
+    torch.cuda.empty_cache()
+    return row
+
+
+# card against CPU: fp32 activations on both sides and TF32 off, so the two
+# differ by summation order and by Adam's first steps on elements whose
+# gradient is within rounding of zero: held at 1e-4 relative.  Step 1's
+# loss precedes any update; steps 2 and 3 and the eval CEs follow the
+# opt_step updates, and the RTN CE the quant cast
+TRAIN_CPU_RTOL = 1e-4
+
+
+def train_card_vs_cpu(dev, steps=3):
+    from repro_torch.core.policy import tree_map_with_path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for side in ("cpu", "cuda"):
+        d = torch.device("cpu") if side == "cpu" else dev
+        cfg, train_step, eval_fn, state = granite_trainer(
+            dev, n_layers=2, dtype="float32", seed=2)
+        if side == "cpu":
+            # the same random weights (drawn on the card), moved over; the
+            # step and eval rebuilt for CPU tensors take the plain versions
+            state = tree_map_with_path(
+                lambda p, x: x.cpu() if torch.is_tensor(x) else x, state)
+        pipe, val = _pipeline(cfg, d, 2, 128)
+        state, rows = _train_steps(train_step, state, pipe, steps)
+        pipe.close()
+        out[side] = dict(losses=[r["loss"] for r in rows],
+                         ce_fp32=float(eval_fn(state["params"], val)),
+                         ce_rtn=float(eval_fn(state["params"], val, "rtn")))
+        del state, train_step, eval_fn
+    c, g = out["cpu"], out["cuda"]
+    pairs = list(zip(c["losses"], g["losses"])) + [
+        (c["ce_fp32"], g["ce_fp32"]), (c["ce_rtn"], g["ce_rtn"])]
+    worst = max(abs(a - b) / abs(a) for a, b in pairs)
+    row = dict(phase="train_card_vs_cpu", n_layers=2, dtype="float32",
+               batch=2, seq=128, steps=steps, cpu=c, card=g,
+               max_rel_diff=worst, rtol=TRAIN_CPU_RTOL)
+    emit(row)
+    if not worst <= TRAIN_CPU_RTOL:
+        raise AssertionError("card and CPU training disagree", row)
+    torch.cuda.empty_cache()
+    return row
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -428,12 +884,26 @@ def main() -> int:
               sources=[os.path.relpath(s, ROOT) for s in _build.sources()]))
 
     timer = Timer(dev)
-    wqt_rows = check_wqt(timer, dev)
-    attn_rows = check_attn(timer, dev)
-    serve = serve_full_width(dev)
-    card_vs_cpu(dev)
+    phases = {"wqt": lambda: check_wqt(timer, dev),
+              "attn": lambda: check_attn(timer, dev),
+              "quant": lambda: check_quant(timer, dev),
+              "lotion_reg": lambda: check_lotion_reg(timer, dev),
+              "opt_step": lambda: check_opt_step(timer, dev),
+              "serve": lambda: serve_full_width(dev),
+              "serve_card_vs_cpu": lambda: card_vs_cpu(dev),
+              "train": lambda: train_full_width(dev),
+              "train_loss_placement": lambda: train_loss_placement(dev),
+              "train_card_vs_cpu": lambda: train_card_vs_cpu(dev)}
+    out = {}
+    for name, run in phases.items():
+        t0 = time.perf_counter()
+        out[name] = run()
+        emit(dict(phase="timing", of=name, seconds=time.perf_counter() - t0))
+        if name in ("quant", "lotion_reg", "opt_step"):
+            # the timer's flush buffer stays; the checks' inputs go
+            torch.cuda.empty_cache()
 
-    emit({"kernels": kernels_line(wqt_rows, attn_rows, serve)})
+    emit({"kernels": kernels_line(out)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -441,10 +911,30 @@ def main() -> int:
     return 0
 
 
-def kernels_line(wqt_rows, attn_rows, serve):
-    """One entry per ported kernel, timed at the main path's decode shapes
-    (one Granite layer's 7 matmuls at M = batch 8, int4 per-tensor, and
-    one attention call); ``worst_err_over_tol`` is over every check row."""
+def _leaf_sum(rows, key, pick, eligible_only=False):
+    """Sum of ``key`` over Granite-3-2B's leaves (only the policy-eligible
+    ones with ``eligible_only``), each leaf taking the check row that
+    ``pick(row, eligible)`` selects for its shape."""
+    total = 0.0
+    for shape, count, eligible in GRANITE_LEAVES:
+        if eligible or not eligible_only:
+            row = next(r for r in rows if r["shape"] == _fmt_shape(shape)
+                       and pick(r, eligible))
+            total += row[key] * count
+    return total
+
+
+def kernels_line(out):
+    """One entry per ported kernel.  The serving kernels are timed at the
+    serve phase's decode shapes (one Granite layer's 7 matmuls at M = batch
+    8, int4 per-tensor, and one attention call); the training kernels over
+    all of Granite-3-2B's leaves at the train phase's settings (int4,
+    per-tensor scales; the 4 ineligible leaves run opt_step in mode none),
+    summed from the check rows.  ``launches`` come from each kernel's own
+    path: the serve phase, the train phase (opt_step, quant: the RTN and
+    RR eval casts) and the loss-placement phase (lotion_reg).
+    ``worst_err_over_tol`` is over every check row of the kernel."""
+    wqt_rows, attn_rows, serve = out["wqt"], out["attn"], out["serve"]
     dec = {(r["N"], r["K"]): r for r in wqt_rows
            if r["M"] == 8 and r["bits"] == 4 and r["block_k"] == -1
            and r["dtype"] == "bfloat16" and (r["N"], r["K"]) in LAYER_MATMULS}
@@ -459,11 +949,11 @@ def kernels_line(wqt_rows, attn_rows, serve):
     wqt_bound, wqt_by = bound(b_bytes, b_flops)
     main_attn = next(r for r in attn_rows if r["L"] == 256 and r["bits"] == 8
                      and r["window"] is None and r["dtype"] == "bfloat16")
-    return [
+    lines = [
         dict(name="wqt_matmul", route="cuda",
              source="src/repro_torch/kernels/wq_matmul/csrc/wqt_matmul.cu",
              replaces="src/repro/kernels/wq_matmul/wq_matmul.py:279",
-             launches=serve["launches"]["wqt_matmul"],
+             path="serve", launches=serve["launches"]["wqt_matmul"],
              max_abs_err=max(dec[s]["max_abs_err"] for s in LAYER_MATMULS),
              tol="2^-7 (bf16) or 1e-5 (fp32) of the largest output",
              worst_err_over_tol=max(r["max_abs_err"] / r["tol"]
@@ -475,7 +965,7 @@ def kernels_line(wqt_rows, attn_rows, serve):
         dict(name="decode_attn", route="cuda",
              source="src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
              replaces="src/repro/kernels/decode_attn/decode_attn.py:123",
-             launches=serve["launches"]["decode_attn"],
+             path="serve", launches=serve["launches"]["decode_attn"],
              max_abs_err=main_attn["max_abs_err"],
              tol="2^-7 (bf16) or 1e-5 (fp32) of each (b, kv-head) row's "
                  "largest output",
@@ -486,6 +976,66 @@ def kernels_line(wqt_rows, attn_rows, serve):
              bound_ms=main_attn["bound_ms"], bound_by=main_attn["bound_by"],
              library_ms=main_attn["library_ms"]),
     ]
+
+    def rtn4(r, eligible):
+        return (r["cast"] == "rtn" and r["fmt"] == "int4"
+                and r["block_size"] == -1)
+
+    def reg4(r, eligible):
+        return r["fmt"] == "int4" and r["block_size"] == -1
+
+    def opt4(r, eligible):
+        return (r["fmt"] == "int4" and r["block_size"] == -1
+                and r["core"] == "adamw" and r["ok"] == 1.0
+                and r["mode"] == ("matrix" if eligible else "none"))
+
+    def opt_lib(r, eligible):
+        return r["mode"] == "none" and r["core"] == "adamw"
+
+    def stats(rows, pick, lib_pick=None, eligible_only=False):
+        def total(key, p=pick):
+            return _leaf_sum(rows, key, p, eligible_only)
+        return dict(ms=total("ms"), plain_ms=total("plain_ms"),
+                    bound_ms=total("bound_ms"), bound_by="bytes",
+                    library_ms=total("library_ms", lib_pick)
+                    if lib_pick else None,
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    bitwise=all(r["bitwise"] for r in rows))
+
+    q, reg, opt = out["quant"], out["lotion_reg"], out["opt_step"]
+    train, loss_ph = out["train"], out["train_loss_placement"]
+    tol = "bitwise equal elementwise outputs"
+    lines.append(dict(
+        name="quant", route="cuda",
+        source="src/repro_torch/kernels/quant/csrc/quant.cu",
+        replaces="src/repro/kernels/quant/quant_blockwise.py:113",
+        path="train (eval casts)", launches=train["launches"]["quant"],
+        tol=tol, shape="one RTN cast of Granite-3-2B's 7 eligible leaves, "
+        "int4 per-tensor, fp32",
+        **stats(q, rtn4, rtn4, eligible_only=True)))
+    lines.append(dict(
+        name="lotion_reg", route="cuda",
+        source="src/repro_torch/kernels/lotion_reg/csrc/lotion_reg.cu",
+        replaces="src/repro/kernels/lotion_reg/lotion_reg.py:76",
+        path="train_loss_placement",
+        launches=loss_ph["launches"]["lotion_reg"],
+        tol=tol + "; penalty within 1e-6 relative",
+        shape="one step over Granite-3-2B's 7 eligible leaves, int4 "
+        "per-tensor, fp32",
+        **stats(reg, reg4, eligible_only=True)))
+    step_dev = next(r["opt_step_device_ms"] for r in train["steps"]
+                    if r.get("profiled"))
+    lines.append(dict(
+        name="opt_step", route="cuda",
+        source="src/repro_torch/kernels/opt_step/csrc/opt_step.cu",
+        replaces="src/repro/kernels/opt_step/opt_step.py:115",
+        path="train", launches=train["launches"]["opt_step"],
+        tol=tol + "; penalty within 1e-6 relative",
+        shape="one AdamW step over all 11 leaves of Granite-3-2B (7 with "
+        "the int4 per-tensor penalty), fp32",
+        train_step_device_ms=step_dev,
+        **stats(opt, opt4, opt_lib)))
+    return lines
 
 
 if __name__ == "__main__":

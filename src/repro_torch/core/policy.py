@@ -35,6 +35,30 @@ def tree_map_with_path(fn: Callable, tree, path=(), is_leaf=None):
     return fn(path, tree)
 
 
+def tree_map_multi(fn: Callable, tree, *rest, path=()):
+    """``fn(path, x, *ys)`` over the leaves of ``tree`` and of the trees in
+    ``rest``, which have its structure (nested dicts keyed alike)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_multi(fn, v, *(r[k] for r in rest),
+                                  path=path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree, *rest)
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn(x, *ys)`` over the leaves of trees of dicts, tuples and lists
+    (optimizer states included); ``None`` stays ``None``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
 def tree_leaves(tree, is_leaf=None) -> list:
     out = []
     tree_map_with_path(lambda p, x: out.append(x), tree, is_leaf=is_leaf)

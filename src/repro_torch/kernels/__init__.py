@@ -11,15 +11,23 @@ from __future__ import annotations
 from typing import Dict
 
 from .decode_attn import decode_attn
+from .lotion_reg import lotion_penalty_fused_vg
+from .opt_step import fused_opt_step_leaf
+from .quant import quant_rr, quant_rtn
 from .wq_matmul import wqt_matmul
 
-WRAPPERS = {"wqt_matmul": wqt_matmul, "decode_attn": decode_attn}
+# kernel name -> the wrappers that launch it (quant: the RTN and RR casts)
+WRAPPERS = {"wqt_matmul": (wqt_matmul,), "decode_attn": (decode_attn,),
+            "quant": (quant_rtn, quant_rr), "lotion_reg": (lotion_penalty_fused_vg,),
+            "opt_step": (fused_opt_step_leaf,)}
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    for fns in WRAPPERS.values():
+        for fn in fns:
+            fn.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: sum(fn.launches for fn in fns)
+            for name, fns in WRAPPERS.items()}

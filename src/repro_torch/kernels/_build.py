@@ -5,7 +5,8 @@ Every ``kernels/*/csrc/*.cu`` file is compiled for Hopper
 all started together, then linked into one shared library with a plain C
 interface.  The library lands in ``kernels/_build/`` (listed in
 ``.gitignore``) under a name keyed by a hash of the sources and flags, so
-an edited source rebuilds and an unchanged one loads at once.  Nothing
+an edited source (or a ``csrc/*.cuh`` header) rebuilds and an unchanged
+one loads at once.  Nothing
 here runs at import time: the CPU tests import every module of the port
 and have no ``nvcc``.
 """
@@ -18,14 +19,16 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
+
+import torch
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 # C entry points: name -> argtypes; all return int (the *_launch ones
 # return cudaGetLastError())
 SIGNATURES = {
@@ -34,6 +37,11 @@ SIGNATURES = {
     "wqt_matmul_splits": [_I, _I, _I],
     "decode_attn_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _F, _I, _I, _P],
+    "quant_launch": [_P, _P, _P, _P, _L, _L, _I, _I, _F, _I, _I, _P],
+    "lotion_reg_launch": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _F, _F,
+                          _I, _I, _P],
+    "opt_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I,
+                        _I, _I, _I] + [_F] * 11 + [_I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -41,6 +49,10 @@ _lib: Optional[ctypes.CDLL] = None
 
 def sources() -> List[Path]:
     return sorted(_KERNELS.glob("*/csrc/*.cu"))
+
+
+def headers() -> List[Path]:
+    return sorted(_KERNELS.glob("*/csrc/*.cuh"))
 
 
 def _nvcc() -> str:
@@ -55,7 +67,7 @@ def _nvcc() -> str:
 
 def _digest(srcs: List[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + headers():
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
@@ -110,3 +122,34 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+# Grid of the one-pass elementwise kernels (quant, lotion_reg, opt_step):
+# 4 elements per thread per pass, up to 8 blocks of 256 threads on each of
+# the H100's 132 SMs, then a grid-stride loop.  For per-matrix scales the
+# grid is 2-D, y over the matrices (at most 65535) and x over each
+# matrix's elements.  A function of the shape alone, so the penalty
+# partials are summed in the same order on every run.
+MAX_GRID = 132 * 8
+
+
+def grid_for(n: int, n_mats: int = 1) -> Tuple[int, int]:
+    """(grid_x, grid_y) for n elements in n_mats matrices of n // n_mats."""
+    gy = max(1, min(n_mats, 65535))
+    per_mat = n // max(n_mats, 1)
+    gx = max(1, min((per_mat + 1023) // 1024, MAX_GRID // gy))
+    return gx, gy
+
+
+def check_f32_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous fp32 tensor on the first
+    one's CUDA device (what the elementwise kernels take)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: inputs must be on one device, got "
+                             f"{t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: the kernel takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")

@@ -9,23 +9,26 @@ Where JAX scans over the repeats, the port loops in Python over per-layer
 views of the stacked leaves (``layer_params``).
 
 Entry points: ``lm_init`` (random weights from a seed, on a device),
-``lm_prefill`` (forward that fills the decode cache) and ``lm_decode``
-(one token against the cache).  MoE, SSM (mamba/rwkv), cross-attention,
-multi-codebook heads, activation quantization and the shared zamba block
-are not in this slice of the port and raise ``NotImplementedError``.
+``lm_forward`` / ``lm_loss`` (the training forward, with activation
+recomputation per layer when ``cfg.remat``), ``lm_prefill`` (forward that
+fills the decode cache) and ``lm_decode`` (one token against the cache).
+MoE, SSM (mamba/rwkv), cross-attention, multi-codebook heads, activation
+quantization and the shared zamba block are not in these slices of the
+port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from .. import resolve_device
 from ..core.qtensor import QTensor
-from ..core.policy import tree_map_with_path
+from ..core.policy import tree_leaves, tree_map_with_path
 from . import layers
 from .layers import (AttnSpec, MLPSpec, attn_apply, attn_decode, attn_init,
                      dense_init, matmul, mlp_apply, mlp_init, rms_norm)
@@ -84,7 +87,7 @@ class LMConfig:
     act_fmt: Optional[str] = None
     # misc
     max_seq: int = 8192
-    remat: bool = True                    # no effect in the port (no autodiff yet)
+    remat: bool = True                    # recompute each layer in backward
     sub_quadratic: bool = False
     dtype: Any = torch.bfloat16           # torch dtype or its name
 
@@ -185,6 +188,22 @@ def layer_params(stage, r: int):
         lambda p, x: x.layer(r) if isinstance(x, QTensor) else x[r], stage)
 
 
+def unbind_stage(stage) -> List[Dict[str, Any]]:
+    """All per-layer views of the stacked unit parameters at once, from
+    one ``torch.unbind`` per leaf.  Under autograd the backward of
+    ``unbind`` is one stack per leaf; indexing ``leaf[r]`` per layer would
+    instead zero-fill a full-size gradient of the leaf for every layer."""
+    def views(x):
+        if isinstance(x, QTensor):
+            return [x.layer(r) for r in range(x.codes.shape[0])]
+        return torch.unbind(x, 0)
+
+    per_leaf = tree_map_with_path(lambda p, x: views(x), stage)
+    n = len(tree_leaves(per_leaf)[0])
+    return [tree_map_with_path(lambda p, views_of_leaf: views_of_leaf[r],
+                               per_leaf) for r in range(n)]
+
+
 def _embed(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
     emb = params["embed"]
     x = emb.take(tokens) if isinstance(emb, QTensor) else emb[tokens]
@@ -219,6 +238,72 @@ def _apply_ffn(p, cfg: LMConfig, x: torch.Tensor, o: torch.Tensor):
     if cfg.use_post_norm:
         h = rms_norm(h, p["ffn_post_norm_scale"])
     return x + h
+
+
+# ==========================================================================
+# Training forward and loss
+# ==========================================================================
+
+def _apply_block(p, cfg: LMConfig, kind: str, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One attention block and its MLP, full sequence."""
+    h = rms_norm(x, p["pre_norm_scale"])
+    o = attn_apply(p["attn"], cfg.attn_spec(kind), h, positions)
+    return _apply_ffn(p, cfg, x, o)
+
+
+def _trunk(params, cfg: LMConfig, tokens: torch.Tensor,
+           attn_chunk: Optional[int] = None) -> torch.Tensor:
+    """Embedding + all blocks; returns final hidden states (b, l, d).
+    With ``cfg.remat`` each layer is recomputed in backward
+    (``torch.utils.checkpoint``), which keeps one layer's activations
+    alive instead of all of them."""
+    check_ported(cfg)
+    if attn_chunk:
+        raise NotImplementedError(
+            "streaming attention (attn_chunk) is not ported yet: ROADMAP "
+            "Queue 1 item 4 (_streaming_sdpa)")
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+
+    def unit_body(x, unit_p):
+        for i, kind in enumerate(cfg.pattern):
+            x = _apply_block(unit_p[f"b{i}_{kind}"], cfg, kind, x, positions)
+        return x
+
+    for unit_p in unbind_stage(params["stage"]):
+        if cfg.remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(unit_body, x, unit_p,
+                                                  use_reentrant=False)
+        else:
+            x = unit_body(x, unit_p)
+    return x
+
+
+def lm_forward(params, cfg: LMConfig, tokens: torch.Tensor,
+               attn_chunk: Optional[int] = None) -> torch.Tensor:
+    """Training forward: logits (b, l, vocab) in fp32."""
+    return _head(params, cfg, _trunk(params, cfg, tokens, attn_chunk))
+
+
+def lm_loss(params, cfg: LMConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, attn_chunk: Optional[int] = None,
+            logit_chunk: Optional[int] = None, per_example: bool = False):
+    """Mean next-token CE.  ``per_example=True`` also returns the (b,)
+    per-example mean CE (the raw material of the skip gate) as
+    ``(ce, ce_ex)``, computed from the same elementwise terms as ``ce``.
+    The chunked head (``logit_chunk``) is not in this slice."""
+    from ..train.loop import _ce_terms
+
+    if logit_chunk is not None and logit_chunk < tokens.shape[1]:
+        raise NotImplementedError(
+            "the chunked head (logit_chunk) is not ported yet: ROADMAP "
+            "Queue 1 item 4 (lm_loss logit_chunk)")
+    terms = _ce_terms(lm_forward(params, cfg, tokens, attn_chunk), labels)
+    if not per_example:
+        return torch.mean(terms)
+    return torch.mean(terms), torch.mean(terms, dim=tuple(
+        range(1, terms.ndim)))
 
 
 # ==========================================================================

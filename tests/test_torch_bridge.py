@@ -102,6 +102,8 @@ def _imports(path):
 def test_port_never_imports_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted(ROOT.glob("examples/*_torch.py"))
+    files += sorted(ROOT.glob("scripts/*_torch.py"))
     assert len(files) > 15
     for f in files:
         for mod in _imports(f):
