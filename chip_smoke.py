@@ -6,11 +6,18 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each kernel against its plain PyTorch version on the card at the
 shapes its path gives it (and times kernel, plain version, a one-call
 PyTorch yardstick where there is one and the least time the card could
-take), then drives both ported paths with their launch counts checked:
+take), drives the K-major ``wq_matmul`` (which no serving path reaches)
+through one layer's matmuls, then drives the ported paths with their
+launch counts checked:
 
 * serving: full-width 40-layer Granite-3-2B with int4 weights and an int8
   KV cache through ``Engine``, and the card's prefill and first
   decode-step logits against the CPU's on a 2-layer cut;
+* scheduling: full-width 40-layer Granite-3-2B served W4A8 (int4 weights,
+  int8 activations) from a paged int8 KV pool through the continuous-
+  batching ``Scheduler`` with chunked prefill and the prefix trie; ring
+  against paged on a 4-layer cut (identical tokens); the card against
+  the CPU on a 2-layer cut (fp32); a seeded chaos replay on 2 layers;
 * training: full-width 40-layer Granite-3-2B trained 3 LOTION steps
   (fused AdamW, decoupled penalty) then evaluated with fp32, RTN and RR
   weights; 8 layers with the loss-side penalty; and 2 layers trained on
@@ -42,6 +49,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12               # H100 SXM dense int8 tensor-core peak
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 # penalty sums: the kernel adds in double in a fixed tree, the plain version
 # in fp32 in PyTorch's order; the two differ by summation order only
@@ -87,9 +95,10 @@ class Timer:
         return total / iters
 
 
-def bound(nbytes: float, flops: float):
-    """Least time in ms: bytes over HBM rate vs operations over bf16 peak."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    """Least time in ms: bytes over HBM rate vs operations over ``peak``
+    (the bf16 peak unless given)."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -260,6 +269,235 @@ def check_attn(timer, dev):
         rows.append(check_attn_one(
             timer, gen, dev, b=b, L=256, g=g, rep=rep, hd=hd, bits=bits,
             window=64, softcap=50.0, pos=ragged(256), dtype=dtype))
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 3b': decode_attn_paged against its plain version and against
+# decode_attn on the gathered view
+# --------------------------------------------------------------------------
+
+def check_paged_one(timer, gen, dev, *, b, bs, bps, g, rep, hd, bits, window,
+                    softcap, pos, dtype=torch.bfloat16):
+    from repro_torch.kernels.decode_attn import (decode_attn,
+                                                 decode_attn_paged,
+                                                 decode_attn_paged_ref,
+                                                 gather_pool_ref,
+                                                 ring_validity)
+    n_blocks = b * bps + 1                # block 0 is the never-read null
+    # every row's blocks, shuffled over the pool
+    perm = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
+    bt = perm.reshape(b, bps).to(torch.int32)
+    q, k, v = _attn_inputs(gen, dev, n_blocks, bs, g, rep, hd, bits, dtype)
+    q = q[:b].contiguous()
+    args = (k["codes"], k["scale"], v["codes"], v["scale"], bt, pos)
+    kw = dict(bits=bits, window=window, softcap=softcap)
+    got = decode_attn_paged(q, *args, **kw)
+    ref = decode_attn_paged_ref(q.float(), *args, **kw)
+    view = [gather_pool_ref(t, bt) for t in args[:4]]
+    ring = decode_attn(q, *view, pos, **kw)
+    torch.cuda.synchronize()
+    err_bg = (got.float() - ref).abs().amax(dim=(2, 3))
+    tol_bg = rel_tol(dtype) * ref.abs().amax(dim=(2, 3))
+    L = bps * bs
+    row = dict(phase="check", kernel="decode_attn_paged", b=b, bs=bs, bps=bps,
+               L=L, g=g, rep=rep, hd=hd, bits=bits, window=window,
+               softcap=softcap, dtype=str(dtype).replace("torch.", ""),
+               pos=pos.tolist(), max_abs_err=float(err_bg.max()),
+               min_row_tol=float(tol_bg.min()),
+               worst_err_over_tol=float((err_bg / tol_bg.clamp_min(1e-30)).max()),
+               bitwise_vs_decode_attn=bool(torch.equal(got, ring)))
+    if not (bool((err_bg <= tol_bg).all()) and torch.isfinite(got).all()
+            and row["bitwise_vs_decode_attn"]):
+        emit(row)
+        raise AssertionError(f"decode_attn_paged disagrees: {row}")
+    n_valid = int(ring_validity(pos, L, window).sum())
+    hd_c = hd // 2 if bits == 4 else hd
+    nbytes = (2 * q.numel() * q.element_size() + 2 * n_valid * g * (hd_c + 4)
+              + b * 4 + bt.numel() * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * n_valid * g * rep * hd)
+    library_ms = None
+    if softcap is None:
+        # yardstick: SDPA on the gathered, dequantized bf16 view
+        ke = torch.repeat_interleave(_dense_kv(dict(codes=view[0], scale=view[1]),
+                                               bits), rep, dim=2)
+        ve = torch.repeat_interleave(_dense_kv(dict(codes=view[2], scale=view[3]),
+                                               bits), rep, dim=2)
+        ke = ke.permute(0, 2, 1, 3).to(torch.bfloat16)
+        ve = ve.permute(0, 2, 1, 3).to(torch.bfloat16)
+        qh = q.reshape(b, g * rep, 1, hd).to(torch.bfloat16)
+        mask = ring_validity(pos, L, window)[:, None, None, :]
+        library_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, ke, ve, attn_mask=mask))
+    row.update(ms=timer(lambda: decode_attn_paged(q, *args, **kw), iters=20),
+               plain_ms=timer(lambda: decode_attn_paged_ref(q.float(), *args,
+                                                            **kw), iters=5),
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+    emit(row)
+    return row
+
+
+def check_paged(timer, dev):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    b, bs, bps = 8, 16, 16
+    L = bs * bps
+    # one slot, partly filled rows, an exactly full one, wrapped rings
+    pos = torch.tensor([0, 5, L // 3, L - 1, L, L + 7, 2 * L + 3, 5 * L - 2],
+                       dtype=torch.int32, device=dev)
+    for bits in (8, 4):
+        for window, softcap in ((None, None), (64, 50.0)):
+            rows.append(check_paged_one(
+                timer, gen, dev, b=b, bs=bs, bps=bps, g=8, rep=4, hd=64,
+                bits=bits, window=window, softcap=softcap, pos=pos))
+    # beyond the main path: blocks that do not divide the 64-slot tile
+    # (bs = 24), and fp32 queries
+    rows.append(check_paged_one(timer, gen, dev, b=b, bs=24, bps=11, g=8,
+                                rep=4, hd=64, bits=8, window=None,
+                                softcap=None, pos=pos % (24 * 11 * 3)))
+    rows.append(check_paged_one(timer, gen, dev, b=b, bs=bs, bps=bps, g=8,
+                                rep=4, hd=64, bits=4, window=64, softcap=50.0,
+                                pos=pos, dtype=torch.float32))
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 3b'': wqt_matmul_a8 (W4A8) and wq_matmul (K-major) against their
+# plain versions at the seven matmul shapes of a Granite layer
+# --------------------------------------------------------------------------
+
+A8_MS = (8, 16, 128)      # decode (8 slots), a 16-token prefill chunk, more
+
+
+def _int_mm_epilogue(xq, xs, w_kn, s):
+    """Yardstick of the per-tensor W8A8 function: ``torch._int_mm`` (int8
+    x int8 -> int32 on cuBLAS; it takes M > 16, so small M is padded to
+    32 rows) and the scale epilogue."""
+    return torch._int_mm(xq, w_kn).float() * xs * s
+
+
+def check_a8_one(timer, gen, dev, *, m, n, k, bits, block_k):
+    from repro_torch.core.qtensor import quantize_qtensor
+    from repro_torch.kernels.decode_attn import unpack_int4_ref
+    from repro_torch.kernels.wq_matmul import (quantize_acts_ref,
+                                               wqt_matmul_a8,
+                                               wqt_matmul_a8_ref)
+    w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+    qt = quantize_qtensor(w, f"int{bits}", block_k)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    xq, xs = quantize_acts_ref(x)
+    args = (xq, xs, qt.codes, qt.scales, block_k)
+    got = wqt_matmul_a8(*args, bits)
+    ref = wqt_matmul_a8_ref(*args, bits == 4)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, ref))
+    row = dict(phase="check", kernel="wqt_matmul_a8", M=m, N=n, K=k,
+               bits=bits, block_k=block_k, bitwise=same,
+               max_abs_err=float((got - ref).abs().max()))
+    if not (same and torch.isfinite(got).all()):
+        emit(row)
+        raise AssertionError(f"wqt_matmul_a8 disagrees: {row}")
+    nbytes = xq.numel() + xs.numel() * 4 + qt.nbytes + m * n * 4
+    b_ms, b_by = bound(nbytes, 2.0 * m * n * k, INT8_OPS)
+    library_ms = lib_m = None
+    if block_k == -1:
+        codes = unpack_int4_ref(qt.codes) if bits == 4 else qt.codes
+        w_kn = codes.contiguous().t()          # (K, N), column-major
+        lib_m = max(m, 32)
+        xq_l = torch.zeros((lib_m, k), dtype=torch.int8, device=dev)
+        xq_l[:m] = xq
+        xs_l = torch.ones((lib_m, 1), device=dev)
+        xs_l[:m] = xs
+        try:
+            library_ms = timer(lambda: _int_mm_epilogue(xq_l, xs_l, w_kn,
+                                                        qt.scales))
+        except RuntimeError as e:          # a build without int8 cuBLASLt
+            row["library_error"] = str(e)[:200]
+    row.update(ms=timer(lambda: wqt_matmul_a8(*args, bits)),
+               plain_ms=timer(lambda: wqt_matmul_a8_ref(*args, bits == 4),
+                              iters=3),
+               library_ms=library_ms, library_M=lib_m, bound_ms=b_ms,
+               bound_by=b_by)
+    emit(row)
+    return row
+
+
+def check_a8(timer, dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return [check_a8_one(timer, gen, dev, m=m, n=n, k=k, bits=bits,
+                         block_k=bk)
+            for (n, k) in LAYER_MATMULS for bits in (4, 8)
+            for bk in (-1, 128) for m in A8_MS]
+
+
+def check_wq_one(timer, gen, dev, *, m, n, k, bits, block_k=128,
+                 dtype=torch.bfloat16):
+    from repro_torch.kernels.wq_matmul import (dequant_ref, pack_weight,
+                                               wq_matmul, wq_matmul_ref)
+    w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+    codes, scales = pack_weight(w, block_k, bits)
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    got = wq_matmul(x, codes, scales, block_k, bits)
+    ref = wq_matmul_ref(x, codes, scales, block_k, bits == 4)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    tol = rel_tol(dtype) * float(ref.float().abs().max())
+    row = dict(phase="check", kernel="wq_matmul", M=m, N=n, K=k, bits=bits,
+               block_k=block_k, dtype=str(dtype).replace("torch.", ""),
+               max_abs_err=err, tol=tol)
+    if not (err <= tol and torch.isfinite(got).all()):
+        emit(row)
+        raise AssertionError(f"wq_matmul disagrees: {row}")
+    nbytes = (x.numel() * x.element_size() + codes.numel() + scales.numel() * 4
+              + m * n * x.element_size())
+    b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
+    w_lib = dequant_ref(codes, scales, block_k, bits == 4).to(dtype)
+    row.update(ms=timer(lambda: wq_matmul(x, codes, scales, block_k, bits)),
+               plain_ms=timer(lambda: wq_matmul_ref(x, codes, scales, block_k,
+                                                    bits == 4), iters=3),
+               library_ms=timer(lambda: torch.matmul(x, w_lib)),
+               bound_ms=b_ms, bound_by=b_by)
+    emit(row)
+    return row
+
+
+def wq_path(dev):
+    """The K-major layout's path: no serving path of the package reaches
+    it, so this drives one Granite layer's 7 weight matmuls through
+    ``wq_matmul`` at decode width (M = 8, int4, block 128) from K-major
+    codes packed by ``pack_weight``, with its launches counted."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.wq_matmul import pack_weight, wq_matmul
+    gen = torch.Generator(device=dev).manual_seed(8)
+    packed = {s: pack_weight(torch.randn((s[1], s[0]), generator=gen,
+                                         device=dev) / math.sqrt(s[1]), 128, 4)
+              for s in LAYER_MATMULS}
+    x = {k: torch.randn((8, k), generator=gen, device=dev).to(torch.bfloat16)
+         for k in {s[1] for s in LAYER_MATMULS}}
+    reset_launch_counts()
+    outs = [wq_matmul(x[k], *packed[(n, k)], 128, 4)
+            for (n, k), c in LAYER_MATMULS.items() for _ in range(c)]
+    counts = launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want["wq_matmul"] = sum(LAYER_MATMULS.values())
+    ok = counts == want and all(torch.isfinite(o).all() for o in outs)
+    row = dict(phase="wq_path", launches=counts, expected_launches=want,
+               shapes=[list(o.shape) for o in outs])
+    emit(row)
+    if not ok:
+        raise AssertionError(f"wq_matmul path failed: {row}")
+    return row
+
+
+def check_wq(timer, dev):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = [check_wq_one(timer, gen, dev, m=m, n=n, k=k, bits=bits)
+            for (n, k) in LAYER_MATMULS for bits in (4, 8) for m in A8_MS]
+    # beyond the main shapes: fp32 activations and a ragged N (scalar loads)
+    rows.append(check_wq_one(timer, gen, dev, m=8, n=1000, k=1024, bits=4,
+                             block_k=64, dtype=torch.float32))
+    rows.append(check_wq_one(timer, gen, dev, m=130, n=1000, k=1024, bits=8,
+                             block_k=64, dtype=torch.float32))
     return rows
 
 
@@ -644,6 +882,286 @@ def card_vs_cpu(dev):
 
 
 # --------------------------------------------------------------------------
+# phases 5b-5e: the continuous-batching scheduler, W4A8 over a paged int8
+# KV pool
+# --------------------------------------------------------------------------
+
+SCHED_SCFG = dict(weights="rtn:int4", kv_quant="int8", act_fmt="int8")
+SCHED_CFG = dict(n_slots=8, steps_per_tick=4, cache_len=256,
+                 prefill_chunk=16, prefix_cache=True, paged=True,
+                 block_size=16)
+
+
+def sched_workload(vocab: int, n_requests: int = 16, seed: int = 0):
+    """Chat-shaped traffic: a 64-token system prompt shared by every
+    request but the stragglers, tails of 8-64 tokens, every sixth request
+    a unique 128-token prompt, budgets of 8, 16 or 32 tokens."""
+    from repro_torch.serve.replay import shared_prefix_workload
+    return shared_prefix_workload(seed=seed, n_requests=n_requests,
+                                  vocab=vocab, sys_len=64, tail_lens=(8, 64),
+                                  straggler_len=128, budgets=(8, 16, 32))
+
+
+def granite_cfg(n_layers=None, dtype=None):
+    """Granite-3-2B at full width, its depth cut to ``n_layers`` and its
+    activations in ``dtype`` where given."""
+    from repro_torch.configs import get_config
+    cfg = get_config("granite-3-2b")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return cfg
+
+
+def granite_scheduler(dev, cfg=None, *, seed=0, params=None, **sched_kw):
+    """The scheduler path's workload: ``cfg`` (default full-width 40-layer
+    Granite-3-2B) from random weights of ``seed`` (or ``params``), served
+    W4A8 with an int8 KV pool under ``SCHED_CFG`` (overridden by
+    ``sched_kw``).  Returns (cfg, scheduler)."""
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serve import Scheduler, SchedulerConfig, ServeConfig
+    cfg = cfg or granite_cfg()
+    if params is None:
+        params = lm_init(cfg, seed=seed, device=dev)
+    sch = Scheduler(cfg, params, ServeConfig(max_new_tokens=32, **SCHED_SCFG),
+                    SchedulerConfig(**dict(SCHED_CFG, **sched_kw)),
+                    device=dev)
+    return cfg, sch
+
+
+def sched_full_width(dev):
+    """The main path: 40 layers, 16 requests replayed on the scheduler's
+    wall-time clock, every launch counted and derived from the schedule:
+    280 ``wqt_matmul_a8`` per forward (decode steps and prefill chunks
+    alike), 40 ``decode_attn_paged`` per decode step."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import COMPLETED, check_drained
+    from repro_torch.serve.replay import replay_continuous
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, sch = granite_scheduler(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # warm-up on other prompts (cuBLAS, the allocator, the row buffers)
+    sch.generate(_prompts(np.random.default_rng(5), 2, 20, 40, cfg.vocab),
+                 max_new_tokens=5)
+    wl = sched_workload(cfg.vocab)
+    before = dict(ticks=sch.n_ticks, prefills=sch.n_prefills,
+                  shared=sch.prefix_blocks_shared, nan=sch.counters[
+                      "nan_events"], rid=sch._next_rid)
+    peak = [0]
+    step = sch.step
+
+    def counted_step(now=None):
+        out = step(now)
+        peak[0] = max(peak[0], sch.block_pool.n_live)
+        return out
+
+    sch.step = counted_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    rec = replay_continuous(sch, wl)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    del sch.step
+    ticks = sch.n_ticks - before["ticks"]
+    chunks = sch.n_prefills - before["prefills"]
+    k = sch.sched.steps_per_tick
+    want = dict.fromkeys(counts, 0)
+    want.update(wqt_matmul_a8=7 * cfg.n_layers * (ticks * k + chunks),
+                decode_attn_paged=cfg.n_layers * ticks * k)
+    rids = range(before["rid"], before["rid"] + len(wl))
+    outs = [sch.requests[r].out for r in rids]
+    shared = sch.prefix_blocks_shared - before["shared"]
+    checks = {
+        "completed": all(sch.requests[r].state == COMPLETED for r in rids),
+        "budgets": [len(o) for o in outs] == [w.max_new_tokens for w in wl],
+        "vocab": all(0 <= t < cfg.vocab for o in outs for t in o),
+        "drained": check_drained(sch) == [],
+        "nan_events": sch.counters["nan_events"] == before["nan"],
+        "prefix_blocks_shared": shared > 0,
+        "splice_host_transfers": sch.splice_host_transfers == 0,
+        "launches": counts == want}
+    lat = np.asarray([rec["latency"][i] for i in sorted(rec["latency"])])
+    total = sum(len(o) for o in outs)
+    row = dict(phase="sched", model=cfg.name, n_layers=cfg.n_layers,
+               d_model=cfg.d_model, dtype=str(cfg.dtype), **SCHED_SCFG,
+               sched=SCHED_CFG, requests=len(wl),
+               prompt_lens=[len(w.prompt) for w in wl],
+               budgets=[w.max_new_tokens for w in wl], setup_s=setup_s,
+               makespan_s=rec["makespan"], tokens=total,
+               tok_per_s=total / rec["makespan"],
+               latency_p50_s=float(np.percentile(lat, 50)),
+               latency_p95_s=float(np.percentile(lat, 95)),
+               ticks=ticks, decode_steps=ticks * k, prefill_chunks=chunks,
+               prefill_tokens_computed=rec["prefill_tokens_computed"],
+               prefill_tokens_skipped=rec["prefill_tokens_skipped"],
+               prefix_blocks_shared=shared,
+               pool_blocks=sch.block_pool.n_blocks,
+               pool_blocks_live_peak=peak[0],
+               launches=counts, expected_launches=want,
+               max_memory_allocated_mib=torch.cuda.max_memory_allocated()
+               / 2 ** 20, first_tokens=[o[:8] for o in outs[:2]],
+               checks=checks)
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"sched phase failed its checks: {checks}")
+    del sch
+    torch.cuda.empty_cache()
+    return row
+
+
+def sched_ring_vs_paged(dev, n_layers=4, n_requests=8):
+    """Ring against paged, same weights and traffic: identical greedy
+    tokens, and the ring run's ``decode_attn`` launches equal the paged
+    run's ``decode_attn_paged`` launches."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.lm import lm_init
+    torch.cuda.empty_cache()
+    cfg = granite_cfg(n_layers)
+    params = lm_init(cfg, seed=3, device=dev)
+    wl = sched_workload(cfg.vocab, n_requests)
+    prompts = [w.prompt for w in wl]
+    budgets = [w.max_new_tokens for w in wl]
+    out, counts = {}, {}
+    for mode, paged in (("ring", False), ("paged", True)):
+        _, sch = granite_scheduler(dev, cfg, params=params, paged=paged)
+        reset_launch_counts()
+        out[mode] = sch.generate(prompts, max_new_tokens=budgets)
+        counts[mode] = launch_counts()
+        del sch
+    same = out["ring"] == out["paged"]
+    attn_equal = counts["ring"]["decode_attn"] == \
+        counts["paged"]["decode_attn_paged"] > 0
+    row = dict(phase="sched_ring_vs_paged", n_layers=n_layers,
+               requests=n_requests, tokens_identical=same,
+               launches=counts, attn_launches_equal=attn_equal,
+               first_tokens=out["paged"][0][:8])
+    emit(row)
+    if not (same and attn_equal):
+        raise AssertionError("ring and paged schedulers disagree", row)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+# card against CPU, fp32, TF32 off.  With dense activations the two differ
+# by summation order only: logits within 1e-4 of their largest.  With int8
+# activations each side rounds its activations to codes, and a last-bit
+# difference moves a code by one now and then, which moves the logits by
+# about a percent of their largest: the phase measures, on the CPU, how
+# far a 2-ulp change of the embeddings moves the logits with dense and
+# with int8 activations (``sensitivity_2ulp``).  The card's int8-activation
+# logits must stay within SCHED_A8_RTOL of the CPU's, and where the two
+# schedulers' tokens part, the CPU's top two logits must be closer than
+# that (a near tie that either side may break).
+SCHED_DENSE_RTOL = 1e-4
+SCHED_A8_RTOL = 0.05
+
+
+def sched_card_vs_cpu(dev, n_layers=2, n_requests=4):
+    """The paged W4A8 scheduler on the card and on the CPU from the same
+    weights (fp32, TF32 off): identical greedy tokens, or partings at near
+    ties; and the two sides' prefill logits with dense and with int8
+    activations within their tolerances."""
+    from repro_torch.core.policy import tree_map_with_path
+    from repro_torch.core.qtensor import qtensor_act_fmt
+    from repro_torch.models.lm import lm_init, lm_prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = granite_cfg(n_layers, "float32")
+    params = lm_init(cfg, seed=4, device=dev)
+    cpu_params = tree_map_with_path(lambda p, x: x.cpu(), params)
+    _, sch = granite_scheduler(dev, cfg, params=params)
+    del params
+    _, sch_cpu = granite_scheduler(torch.device("cpu"), cfg,
+                                   params=cpu_params)
+    wl = sched_workload(cfg.vocab, n_requests, seed=1)
+    prompts = [w.prompt for w in wl]
+    budgets = [w.max_new_tokens for w in wl]
+
+    def last_logits(s, seq, fmt, scale_embed=1.0):
+        params = dict(s.params, embed=s.params["embed"] * scale_embed)
+        toks = torch.tensor([seq], device=s.device)
+        with torch.inference_mode(), qtensor_act_fmt(fmt):
+            logits, _ = lm_prefill(params, cfg, toks, kv_quant="int8")
+        return logits[0, 0].float().cpu()
+
+    # prefill logits of the first two prompts (the CPU's fp32 prefills are
+    # most of the phase's time), the sensitivity on the first
+    errs = {"dense": 0.0, "int8": 0.0}
+    sens = {"dense": 0.0, "int8": 0.0}
+    scale = 0.0
+    for n, seq in enumerate(prompts[:2]):
+        for fmt, key in ((None, "dense"), ("int8", "int8")):
+            c = last_logits(sch_cpu, seq, fmt)
+            errs[key] = max(errs[key], float(
+                (last_logits(sch, seq, fmt) - c).abs().max()))
+            scale = max(scale, float(c.abs().max()))
+            if n == 0:
+                sens[key] = float((last_logits(
+                    sch_cpu, seq, fmt, 1 + 2.0 ** -22) - c).abs().max())
+    out_card = sch.generate(prompts, max_new_tokens=budgets)
+    out_cpu = sch_cpu.generate(prompts, max_new_tokens=budgets)
+    partings = []
+    for i, (a, c) in enumerate(zip(out_card, out_cpu)):
+        t = next((j for j, (x, y) in enumerate(zip(a, c)) if x != y), None)
+        if t is not None:
+            top2 = torch.topk(last_logits(sch_cpu, prompts[i] + c[:t],
+                                          "int8"), 2).values
+            partings.append(dict(request=i, step=t, card=a[t], cpu=c[t],
+                                 cpu_top2_gap=float(top2[0] - top2[1])))
+    tol = dict(dense=SCHED_DENSE_RTOL * scale, int8=SCHED_A8_RTOL * scale)
+    ok = (errs["dense"] <= tol["dense"] and errs["int8"] <= tol["int8"]
+          and [len(o) for o in out_card] == [len(o) for o in out_cpu]
+          and all(p["cpu_top2_gap"] < tol["int8"] for p in partings))
+    row = dict(phase="sched_card_vs_cpu", n_layers=n_layers, dtype="float32",
+               requests=n_requests, budgets=budgets,
+               max_abs_logit=scale, max_abs_logit_err=errs,
+               sensitivity_2ulp=sens, tol=tol,
+               tokens_identical=out_card == out_cpu,
+               token_agreement=float(np.mean([x == y for a, c in zip(
+                   out_card, out_cpu) for x, y in zip(a, c)])),
+               partings=partings, first_tokens=out_card[0][:8])
+    emit(row)
+    if not ok:
+        raise AssertionError("card and CPU schedulers disagree", row)
+    del sch, sch_cpu
+    torch.cuda.empty_cache()
+    return row
+
+
+def sched_chaos(dev, n_layers=2, n_requests=48):
+    """The seeded chaos replay (non-finite slots with their counted
+    retries, straggler ticks, prefix-trie eviction storms, malformed and
+    burst submissions) on the paged scheduler: no invariant violation."""
+    from repro_torch.serve import chaos_plan
+    from repro_torch.serve.replay import replay_chaos, sla_workload
+    cfg, sch = granite_scheduler(dev, granite_cfg(n_layers), seed=5,
+                                 cache_len=64, max_queue=4 * n_requests,
+                                 est_tok_per_s=200.0)
+    wl = sla_workload(13, n_requests, cfg.vocab, rate=100.0,
+                      prompt_lens=(2, 32), budgets=(8, 16))
+    plan = chaos_plan(seed=13, n_ticks=128, vocab=cfg.vocab, cache_len=64)
+    res = replay_chaos(sch, wl, plan=plan)
+    row = dict(phase="sched_chaos", n_layers=n_layers, requests=n_requests,
+               plan=plan.describe(), by_state=res["by_state"],
+               counters=res["counters"], ticks=res["ticks"],
+               violations=res["violations"][:20],
+               deadline_hit_rate=res["deadline_hit_rate"],
+               resume_splice_tokens=res["resume_splice_tokens"],
+               resume_recompute_tokens=res["resume_recompute_tokens"])
+    emit(row)
+    if res["violations"]:
+        raise AssertionError(f"chaos replay failed: {row}")
+    del sch
+    torch.cuda.empty_cache()
+    return row
+
+
+# --------------------------------------------------------------------------
 # phases 6-8: LOTION training of Granite-3-2B through the fused kernels
 # --------------------------------------------------------------------------
 
@@ -886,11 +1404,19 @@ def main() -> int:
     timer = Timer(dev)
     phases = {"wqt": lambda: check_wqt(timer, dev),
               "attn": lambda: check_attn(timer, dev),
+              "paged": lambda: check_paged(timer, dev),
+              "a8": lambda: check_a8(timer, dev),
+              "wq": lambda: check_wq(timer, dev),
+              "wq_path": lambda: wq_path(dev),
               "quant": lambda: check_quant(timer, dev),
               "lotion_reg": lambda: check_lotion_reg(timer, dev),
               "opt_step": lambda: check_opt_step(timer, dev),
               "serve": lambda: serve_full_width(dev),
               "serve_card_vs_cpu": lambda: card_vs_cpu(dev),
+              "sched": lambda: sched_full_width(dev),
+              "sched_ring_vs_paged": lambda: sched_ring_vs_paged(dev),
+              "sched_card_vs_cpu": lambda: sched_card_vs_cpu(dev),
+              "sched_chaos": lambda: sched_chaos(dev),
               "train": lambda: train_full_width(dev),
               "train_loss_placement": lambda: train_loss_placement(dev),
               "train_card_vs_cpu": lambda: train_card_vs_cpu(dev)}
@@ -899,7 +1425,7 @@ def main() -> int:
         t0 = time.perf_counter()
         out[name] = run()
         emit(dict(phase="timing", of=name, seconds=time.perf_counter() - t0))
-        if name in ("quant", "lotion_reg", "opt_step"):
+        if name in ("a8", "wq", "quant", "lotion_reg", "opt_step"):
             # the timer's flush buffer stays; the checks' inputs go
             torch.cuda.empty_cache()
 
@@ -939,9 +1465,6 @@ def kernels_line(out):
            if r["M"] == 8 and r["bits"] == 4 and r["block_k"] == -1
            and r["dtype"] == "bfloat16" and (r["N"], r["K"]) in LAYER_MATMULS}
 
-    def layer_sum(key):
-        return sum(dec[s][key] * c for s, c in LAYER_MATMULS.items())
-
     b_bytes = sum(
         (8 * s[1] * 2 + s[0] * s[1] // 2 + 4 + 8 * s[0] * 2) * c
         for s, c in LAYER_MATMULS.items())
@@ -959,9 +1482,9 @@ def kernels_line(out):
              worst_err_over_tol=max(r["max_abs_err"] / r["tol"]
                                     for r in wqt_rows),
              shape="one decode layer: 7 matmuls, M=8, int4 per-tensor, bf16",
-             ms=layer_sum("ms"), plain_ms=layer_sum("plain_ms"),
+             ms=_layer_sum(dec, "ms"), plain_ms=_layer_sum(dec, "plain_ms"),
              bound_ms=wqt_bound, bound_by=wqt_by,
-             library_ms=layer_sum("library_ms")),
+             library_ms=_layer_sum(dec, "library_ms")),
         dict(name="decode_attn", route="cuda",
              source="src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
              replaces="src/repro/kernels/decode_attn/decode_attn.py:123",
@@ -1002,6 +1525,8 @@ def kernels_line(out):
                     max_abs_err=max(r["max_abs_err"] for r in rows),
                     bitwise=all(r["bitwise"] for r in rows))
 
+    lines += sched_kernel_lines(out)
+
     q, reg, opt = out["quant"], out["lotion_reg"], out["opt_step"]
     train, loss_ph = out["train"], out["train_loss_placement"]
     tol = "bitwise equal elementwise outputs"
@@ -1036,6 +1561,83 @@ def kernels_line(out):
         train_step_device_ms=step_dev,
         **stats(opt, opt4, opt_lib)))
     return lines
+
+
+def _layer_sum(rows, key):
+    """One Granite layer's 7 matmuls summed from the rows keyed (N, K);
+    None when a row has no such number."""
+    vals = [rows[sh][key] for sh in LAYER_MATMULS]
+    if any(v is None for v in vals):
+        return None
+    return sum(v * c for v, c in zip(vals, LAYER_MATMULS.values()))
+
+
+def sched_kernel_lines(out):
+    """The scheduler path's kernels: ``wqt_matmul_a8`` timed over one
+    decode layer's 7 matmuls (M = 8 slots, int4 per-tensor) and
+    ``decode_attn_paged`` at b = 8, bs = 16, 16 blocks, int8, both
+    launched by the ``sched`` phase; ``wq_matmul`` over the same 7 shapes
+    (M = 8, int4, block 128), launched by its own ``wq_path``."""
+    a8 = {(r["N"], r["K"]): r for r in out["a8"]
+          if r["M"] == 8 and r["bits"] == 4 and r["block_k"] == -1}
+    wq = {(r["N"], r["K"]): r for r in out["wq"]
+          if r["M"] == 8 and r["bits"] == 4 and r["dtype"] == "bfloat16"
+          and (r["N"], r["K"]) in LAYER_MATMULS}
+    a8_bound = bound(sum((8 * k + 8 * 4 + n * k // 2 + 4 + 8 * n * 4) * c
+                         for (n, k), c in LAYER_MATMULS.items()),
+                     sum(2.0 * 8 * n * k * c
+                         for (n, k), c in LAYER_MATMULS.items()), INT8_OPS)
+    wq_bound = bound(sum((8 * k * 2 + n * k // 2 + (k // 128) * n * 4
+                          + 8 * n * 2) * c
+                         for (n, k), c in LAYER_MATMULS.items()),
+                     sum(2.0 * 8 * n * k * c
+                         for (n, k), c in LAYER_MATMULS.items()))
+    paged = next(r for r in out["paged"] if r["bs"] == 16 and r["bits"] == 8
+                 and r["window"] is None and r["dtype"] == "bfloat16")
+    sched = out["sched"]
+    return [
+        dict(name="wqt_matmul_a8", route="cuda",
+             source="src/repro_torch/kernels/wq_matmul/csrc/wqt_matmul_a8.cu",
+             replaces="src/repro/kernels/wq_matmul/wq_matmul.py:215",
+             path="sched", launches=sched["launches"]["wqt_matmul_a8"],
+             max_abs_err=max(r["max_abs_err"] for r in out["a8"]),
+             tol="bitwise equal to the plain version",
+             bitwise=all(r["bitwise"] for r in out["a8"]),
+             shape="one decode layer: 7 matmuls, M=8, int4 per-tensor, "
+                   "int8 activations",
+             ms=_layer_sum(a8, "ms"), plain_ms=_layer_sum(a8, "plain_ms"),
+             bound_ms=a8_bound[0], bound_by=a8_bound[1],
+             library_ms=_layer_sum(a8, "library_ms")),
+        dict(name="decode_attn_paged", route="cuda",
+             source="src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
+             replaces="src/repro/kernels/decode_attn/decode_attn.py:249",
+             path="sched", launches=sched["launches"]["decode_attn_paged"],
+             max_abs_err=paged["max_abs_err"],
+             tol="2^-7 (bf16) or 1e-5 (fp32) of each (b, kv-head) row's "
+                 "largest output; bitwise equal to decode_attn on the "
+                 "gathered view",
+             worst_err_over_tol=max(r["worst_err_over_tol"]
+                                    for r in out["paged"]),
+             bitwise_vs_decode_attn=all(r["bitwise_vs_decode_attn"]
+                                        for r in out["paged"]),
+             shape="b=8 g=8 rep=4 hd=64, 16 shuffled blocks of 16, int8",
+             ms=paged["ms"], plain_ms=paged["plain_ms"],
+             bound_ms=paged["bound_ms"], bound_by=paged["bound_by"],
+             library_ms=paged["library_ms"]),
+        dict(name="wq_matmul", route="cuda",
+             source="src/repro_torch/kernels/wq_matmul/csrc/wqt_matmul.cu",
+             replaces="src/repro/kernels/wq_matmul/wq_matmul.py:98",
+             path="wq_path", launches=out["wq_path"]["launches"]["wq_matmul"],
+             max_abs_err=max(r["max_abs_err"] for r in wq.values()),
+             tol="2^-7 (bf16) or 1e-5 (fp32) of the largest output",
+             worst_err_over_tol=max(r["max_abs_err"] / r["tol"]
+                                    for r in out["wq"]),
+             shape="one decode layer: 7 matmuls, M=8, K-major int4, "
+                   "block 128, bf16",
+             ms=_layer_sum(wq, "ms"), plain_ms=_layer_sum(wq, "plain_ms"),
+             bound_ms=wq_bound[0], bound_by=wq_bound[1],
+             library_ms=_layer_sum(wq, "library_ms")),
+    ]
 
 
 if __name__ == "__main__":

@@ -1,16 +1,26 @@
-"""Where a decode step's time goes: profile the port's ``Engine`` serving
-full-width Granite-3-2B (int4 weights, int8 KV, batch 8) on one GPU.
+"""Where a serving step's time goes on one GPU, for full-width
+Granite-3-2B.
 
-    python3 scripts/profile_serve_torch.py [--steps 8] [--out DIR]
+    python3 scripts/profile_serve_torch.py [--workload engine|sched]
+                                           [--steps 8] [--out DIR]
 
-The workload is ``chip_smoke.granite_engine``'s, the main path that
-``chip_smoke.py`` serves.  Two ``generate`` calls are timed with the host clock and profiled with
-``torch.profiler``: one that only prefills (``max_new_tokens=1``) and one
-that also decodes ``steps - 1`` tokens.  Their difference, divided by the
+``--workload engine`` (the default) profiles the static ``Engine`` (int4
+weights, int8 KV, batch 8), ``chip_smoke.granite_engine``'s workload: two
+``generate`` calls are timed with the host clock and profiled with
+``torch.profiler``, one that only prefills (``max_new_tokens=1``) and one
+that also decodes ``steps - 1`` tokens; their difference, divided by the
 decode steps, gives each decode step's wall time, device time per kernel
-name and launch count, and the device's busy share of the step.  Prints
-one JSON line; writes the Chrome trace of the longer call to ``--out``.
-Needs CUDA.
+name and launch count, and the device's busy share of the step.
+
+``--workload sched`` profiles the continuous-batching ``Scheduler`` (W4A8,
+paged int8 KV pool, chunked prefill with the prefix trie),
+``chip_smoke.sched_full_width``'s workload: its 16 requests are submitted
+at once and ``steps`` scheduler steps (each one prefill chunk and one
+tick of 4 decode steps) are profiled after 3 unprofiled ones, giving the
+same numbers per scheduler step.
+
+Prints one JSON line; writes the Chrome trace of the profiled window to
+``--out``.  Needs CUDA.
 """
 
 import argparse
@@ -20,6 +30,7 @@ import sys
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -51,14 +62,64 @@ def _device_by_name(prof):
     return out
 
 
+def _top(by_name, per, n=12):
+    return [dict(name=k[:80], device_ms=ms / per, calls=c / per)
+            for k, (ms, c) in sorted(by_name.items(),
+                                     key=lambda kv: -kv[1][0])[:n]]
+
+
+def profile_sched(args) -> int:
+    """``steps`` steady scheduler steps of the sched workload, profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import _prompts, granite_scheduler, sched_workload
+
+    cfg, sch = granite_scheduler(torch.device("cuda"))
+    sch.generate(_prompts(np.random.default_rng(5), 2, 20, 40, cfg.vocab),
+                 max_new_tokens=5)                      # warm-up
+    for w in sched_workload(cfg.vocab):
+        sch.submit(w.prompt, w.max_new_tokens)
+    for _ in range(3):
+        sch.step()
+    ticks0, chunks0 = sch.n_ticks, sch.n_prefills
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            sch.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ticks, chunks = sch.n_ticks - ticks0, sch.n_prefills - chunks0
+    sch.run()
+    os.makedirs(args.out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(args.out, "sched_trace.json"))
+    by_name = _device_by_name(prof)
+    dev_ms = sum(ms for ms, _ in by_name.values())
+    n = args.steps
+    print(json.dumps(dict(
+        phase="profile_sched", model=cfg.name, steps=n,
+        ticks=ticks, decode_steps=ticks * sch.sched.steps_per_tick,
+        prefill_chunks=chunks,
+        step_ms=wall_ms / n, step_device_ms=dev_ms / n,
+        device_busy_share=dev_ms / wall_ms,
+        launches_per_step=sum(c for _, c in by_name.values()) / n,
+        top=_top(by_name, n))), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--workload", choices=("engine", "sched"),
+                    default="engine")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serve_torch: needs a CUDA device", file=sys.stderr)
         return 1
+    if args.workload == "sched":
+        return profile_sched(args)
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import granite_engine

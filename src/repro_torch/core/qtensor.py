@@ -13,20 +13,65 @@ serves (the transpose of the ``x @ w`` operand), quant blocks along K.
 A stacked ``(r, N, K)`` QTensor (one matrix per layer) gives its per-layer
 2-D view with ``qt.layer(i)``.  ``matmul`` serves 2-D storage through the
 ``wqt_matmul`` CUDA kernel for CUDA tensors and through its plain version
-for CPU tensors.  Activation quantization (``act_fmt``) and 3-D (MoE)
-storage are not in this slice of the port.
+for CPU tensors.  Under ``qtensor_act_fmt("int8")`` (W4A8 / W8A8 serving)
+``matmul`` first row-quantizes its activations to int8 codes and fp32 row
+scales and serves through the ``wqt_matmul_a8`` kernel instead.  3-D (MoE)
+storage is not in these slices of the port.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Optional, Tuple
 
 import torch
 
-from ..kernels.wq_matmul import dequant_t_ref, wqt_matmul
+from ..kernels.wq_matmul import (dequant_t_ref, quantize_acts_ref, wqt_matmul,
+                                 wqt_matmul_a8)
+from ..kernels.wq_matmul.ref import _pack_last
 from .formats import IntFormat, get_format
 from .policy import QuantPolicy, path_str, tree_leaves, tree_map_with_path
+
+
+# --------------------------------------------------------------------------
+# Activation format (W4A8 serving): under "int8" every QTensor matmul
+# row-quantizes its activations to int8 codes + fp32 row scales first, so
+# the contraction runs int8 x int[4|8].  Read at call time; a context
+# variable, so threads and tasks each see their own setting.
+# --------------------------------------------------------------------------
+
+_ACT_FMT: contextvars.ContextVar = contextvars.ContextVar(
+    "qtensor_act_fmt", default=None)
+
+
+def _check_act_fmt(fmt) -> None:
+    if fmt not in (None, "int8"):
+        raise ValueError(
+            f"act_fmt supports None (dense) or 'int8', got {fmt!r}")
+
+
+def set_qtensor_act_fmt(fmt: Optional[str]) -> None:
+    """Set ("int8") or clear (None) activation quantization for QTensor
+    matmuls in the current context."""
+    _check_act_fmt(fmt)
+    _ACT_FMT.set(fmt)
+
+
+@contextlib.contextmanager
+def qtensor_act_fmt(fmt: Optional[str]):
+    """``fmt`` for the QTensor matmuls inside the block."""
+    _check_act_fmt(fmt)
+    token = _ACT_FMT.set(fmt)
+    try:
+        yield
+    finally:
+        _ACT_FMT.reset(token)
+
+
+def act_fmt_enabled() -> Optional[str]:
+    return _ACT_FMT.get()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -91,14 +136,6 @@ class QTensor:
         return dequant_t_ref(codes, scales, self.block_k, self.packed)
 
 
-def _pack_last(codes: torch.Tensor) -> torch.Tensor:
-    """int8 codes (..., C), C even -> packed uint8 (..., C//2), even index
-    in the low nibble."""
-    lo = codes[..., 0::2].to(torch.int32) & 0xF
-    hi = codes[..., 1::2].to(torch.int32) & 0xF
-    return (lo | (hi << 4)).to(torch.uint8)
-
-
 def quantize_qtensor(stored: torch.Tensor, fmt, block_k: int = -1) -> QTensor:
     """Quantize an out-major matrix ``stored`` (..., N, K) into a QTensor:
     per-matrix absmax for ``block_k=-1``, else contiguous K-blocks."""
@@ -141,15 +178,22 @@ def from_matmul_weight(w: torch.Tensor, fmt, block_k: int = -1) -> QTensor:
 
 def matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """``x (..., K) @ dequant(qt)^T -> (..., N)`` for 2-D storage: one
-    ``wqt_matmul`` call over the flattened leading dims of x."""
+    ``wqt_matmul`` call over the flattened leading dims of x, or under
+    ``act_fmt="int8"`` the row quantization of x and one ``wqt_matmul_a8``
+    call (its fp32 result cast to x's dtype)."""
     if qt.codes.ndim != 2:
         raise NotImplementedError(
             f"{qt.codes.ndim}-D QTensor matmul (MoE expert stacks) is not "
             f"ported yet: ROADMAP Queue 1 item 7 (layers.py::moe_apply)")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    out = wqt_matmul(x2, qt.codes, qt.scales, block_k=qt.block_k,
-                     bits=qt.bits)
+    if act_fmt_enabled() == "int8":
+        xq, xs = quantize_acts_ref(x2)
+        out = wqt_matmul_a8(xq, xs, qt.codes, qt.scales, block_k=qt.block_k,
+                            bits=qt.bits).to(x.dtype)
+    else:
+        out = wqt_matmul(x2, qt.codes, qt.scales, block_k=qt.block_k,
+                         bits=qt.bits)
     return out.reshape(lead + (qt.out_dim,))
 
 

@@ -35,8 +35,15 @@ SIGNATURES = {
     "wqt_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P],
     "wqt_matmul_splits": [_I, _I, _I],
+    "wqt_matmul_a8_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P],
+    "wqt_matmul_a8_segments": [_I, _I, _I, _I],
+    "wq_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
     "decode_attn_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _F, _I, _I, _P],
+    "decode_attn_paged_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "quant_launch": [_P, _P, _P, _P, _L, _L, _I, _I, _F, _I, _I, _P],
     "lotion_reg_launch": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _F, _F,
                           _I, _I, _P],

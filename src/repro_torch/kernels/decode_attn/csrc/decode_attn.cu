@@ -1,7 +1,9 @@
-// Fused decode attention over an int8 / packed-int4 ring KV cache, for Hopper.
+// Fused decode attention over an int8 / packed-int4 ring KV cache or paged
+// KV pool, for Hopper.
 //
 // Replaces: src/repro/kernels/decode_attn/decode_attn.py::decode_attn_pallas
-// (body _decode_attn_kernel).  One GQA decode step: q (b, g, rep, hd) against
+// (body _decode_attn_kernel) and, with PAGED, ::decode_attn_paged_pallas
+// (body _decode_attn_paged_kernel).  One GQA decode step: q (b, g, rep, hd) against
 // codes (b, L, g, hd) int8 or (b, L, g, hd/2) uint8 (even index in the low
 // nibble), scales (b, L, g, 1) fp32 and per-row positions pos (b,) int32.
 // Per slot: unpack, raw-code dot with q, fold the K scale, divide by
@@ -19,7 +21,17 @@
 // conflicts), and the running max, denominator and (rep, hd) accumulator
 // stay in shared memory across tiles.  The arithmetic order is the Pallas
 // kernel's: fp32 dot of raw codes, then scale, softcap and bias; a fully
-// masked tile is annihilated by the next valid tile's rescale.  At b = 8
+// masked tile is annihilated by the next valid tile's rescale.
+//
+// Paged (decode_attn_paged): codes (n_blocks, bs, g, hd[/2]) and scales
+// (n_blocks, bs, g, 1) form a pool shared by all rows, and row bi's logical
+// ring slot j lives in pool block bt[bi, j / bs] at offset j % bs (int32
+// block table bt (b, bps), L = bps * bs).  Only the address of a slot
+// changes: each TL-slot tile gathers its slots (TL / bs whole blocks when bs
+// divides TL) through the table, and every tile's arithmetic is the ring
+// kernel's, so on the gathered view the two kernels agree bit for bit for
+// any bs.  The Pallas kernel walks one pool block per grid step instead.
+// At b = 8
 // and g = 8 this is 64 blocks on 132 SMs: the first thing a later version
 // fixes (split the slots over more blocks and merge the partial softmaxes).
 
@@ -49,12 +61,24 @@ __device__ __forceinline__ int nibble(uint32_t b) {
   return v > 7 ? v - 16 : v;
 }
 
+// Where the slot lives: row bi's ring slot gl in a (b, L, ...) cache, or
+// in the pool, block bt[bi, gl / bs] at offset gl % bs of a (n_blocks, bs,
+// ...) pool; in units of one slot's (g, ...) entries.
+template <bool PAGED>
+__device__ __forceinline__ size_t slot_row(int bi, int gl, int L,
+                                           const int* __restrict__ bt, int bps,
+                                           int bs) {
+  if (PAGED) return (size_t)bt[(size_t)bi * bps + gl / bs] * bs + gl % bs;
+  return (size_t)bi * L + gl;
+}
+
 // One (TL, hd) code tile -> fp32 rows of stride `ld` in shared memory.
 // Slots at or past L are zero-filled (they are masked out of the softmax).
-template <bool INT4>
+template <bool INT4, bool PAGED>
 __device__ void load_codes(const uint8_t* __restrict__ codes, float* dst,
                            int ld, int row0, int TL, int L, int g, int gi,
-                           int bi, int hd, int vec_ok) {
+                           int bi, int hd, int vec_ok,
+                           const int* __restrict__ bt, int bps, int bs) {
   const int hd_c = INT4 ? hd / 2 : hd;
   if (vec_ok) {                              // hd_c % 16 == 0, aligned rows
     const int chunks = hd_c / 16;
@@ -64,7 +88,8 @@ __device__ void load_codes(const uint8_t* __restrict__ codes, float* dst,
       uint4 v = make_uint4(0, 0, 0, 0);
       if (gl < L)
         v = *reinterpret_cast<const uint4*>(
-            codes + (((size_t)bi * L + gl) * g + gi) * hd_c + part * 16);
+            codes + (slot_row<PAGED>(bi, gl, L, bt, bps, bs) * g + gi) * hd_c +
+            part * 16);
       const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int q = 0; q < 16; ++q) {
@@ -82,7 +107,9 @@ __device__ void load_codes(const uint8_t* __restrict__ codes, float* dst,
       const int l = e / hd_c, j = e % hd_c;
       const int gl = row0 + l;
       const uint32_t byte =
-          gl < L ? codes[(((size_t)bi * L + gl) * g + gi) * hd_c + j] : 0u;
+          gl < L ? codes[(slot_row<PAGED>(bi, gl, L, bt, bps, bs) * g + gi) *
+                             hd_c + j]
+                 : 0u;
       if (INT4) {
         dst[l * ld + 2 * j] = static_cast<float>(nibble(byte));
         dst[l * ld + 2 * j + 1] = static_cast<float>(nibble(byte >> 4));
@@ -93,13 +120,14 @@ __device__ void load_codes(const uint8_t* __restrict__ codes, float* dst,
   }
 }
 
-template <typename T, bool INT4>
+template <typename T, bool INT4, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kc,
                    const float* __restrict__ ksc, const uint8_t* __restrict__ vc,
                    const float* __restrict__ vsc, const int* __restrict__ pos,
                    T* __restrict__ out, int g, int rep, int hd, int L, int TL,
-                   int window, float softcap, int vec_ok) {
+                   int window, float softcap, int vec_ok,
+                   const int* __restrict__ bt, int bps, int bs) {
   extern __shared__ float smem[];
   const int ldk = hd + 1;
   float* qs = smem;                          // rep * hd
@@ -130,13 +158,20 @@ decode_attn_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kc,
 
   for (int row0 = 0; row0 < L; row0 += TL) {
     __syncthreads();                         // previous tile fully consumed
-    load_codes<INT4>(kc, ks, ldk, row0, TL, L, g, gi, bi, hd, vec_ok);
-    load_codes<INT4>(vc, vs, hd, row0, TL, L, g, gi, bi, hd, vec_ok);
+    load_codes<INT4, PAGED>(kc, ks, ldk, row0, TL, L, g, gi, bi, hd, vec_ok,
+                            bt, bps, bs);
+    load_codes<INT4, PAGED>(vc, vs, hd, row0, TL, L, g, gi, bi, hd, vec_ok,
+                            bt, bps, bs);
     for (int l = t; l < TL; l += kThreads) {
       const int gl = row0 + l;
-      const size_t s_idx = ((size_t)bi * L + gl) * g + gi;
-      kscale[l] = gl < L ? ksc[s_idx] : 0.f;
-      vscale[l] = gl < L ? vsc[s_idx] : 0.f;
+      if (gl < L) {
+        const size_t s_idx = slot_row<PAGED>(bi, gl, L, bt, bps, bs) * g + gi;
+        kscale[l] = ksc[s_idx];
+        vscale[l] = vsc[s_idx];
+      } else {
+        kscale[l] = 0.f;
+        vscale[l] = 0.f;
+      }
     }
     __syncthreads();
 
@@ -198,18 +233,19 @@ decode_attn_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kc,
   }
 }
 
-template <typename T, bool INT4>
+template <typename T, bool INT4, bool PAGED>
 cudaError_t launch(const void* q, const void* kc, const float* ksc,
                    const void* vc, const float* vsc, const int* pos, void* out,
                    int b, int g, int rep, int hd, int L, int window,
-                   float softcap, int vec_ok, cudaStream_t stream) {
+                   float softcap, int vec_ok, const int* bt, int bps, int bs,
+                   cudaStream_t stream) {
   // slots per tile: about 4096 code values per tensor, at least 8
   int TL = 4096 / hd;
   TL = TL < 8 ? 8 : (TL > 64 ? 64 : TL);
   const size_t floats = 2 * (size_t)rep * hd + (size_t)TL * (hd + 1) +
                         (size_t)TL * hd + (size_t)rep * TL + 2 * TL + 3 * rep;
   const size_t smem = floats * sizeof(float);
-  auto kern = decode_attn_kernel<T, INT4>;
+  auto kern = decode_attn_kernel<T, INT4, PAGED>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -218,8 +254,28 @@ cudaError_t launch(const void* q, const void* kc, const float* ksc,
   kern<<<b * g, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const uint8_t*>(kc), ksc,
       static_cast<const uint8_t*>(vc), vsc, pos, static_cast<T*>(out), g, rep,
-      hd, L, TL, window, softcap, vec_ok);
+      hd, L, TL, window, softcap, vec_ok, bt, bps, bs);
   return cudaGetLastError();
+}
+
+template <bool PAGED>
+int dispatch(const void* q, const void* k_codes, const void* k_scale,
+             const void* v_codes, const void* v_scale, const void* pos,
+             void* out, int b, int g, int rep, int hd, int L, int bits,
+             int window, float softcap, int dtype, int vec_ok, const int* bt,
+             int bps, int bs, void* stream) {
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int* ps = static_cast<const int*>(pos);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    return bits == 4
+        ? launch<__nv_bfloat16, true, PAGED>(q, k_codes, ks, v_codes, vs, ps, out, b, g, rep, hd, L, window, softcap, vec_ok, bt, bps, bs, st)
+        : launch<__nv_bfloat16, false, PAGED>(q, k_codes, ks, v_codes, vs, ps, out, b, g, rep, hd, L, window, softcap, vec_ok, bt, bps, bs, st);
+  }
+  return bits == 4
+      ? launch<float, true, PAGED>(q, k_codes, ks, v_codes, vs, ps, out, b, g, rep, hd, L, window, softcap, vec_ok, bt, bps, bs, st)
+      : launch<float, false, PAGED>(q, k_codes, ks, v_codes, vs, ps, out, b, g, rep, hd, L, window, softcap, vec_ok, bt, bps, bs, st);
 }
 
 }  // namespace
@@ -233,16 +289,26 @@ extern "C" int decode_attn_launch(const void* q, const void* k_codes,
                                   void* out, int b, int g, int rep, int hd,
                                   int L, int bits, int window, float softcap,
                                   int dtype, int vec_ok, void* stream) {
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  const int* ps = static_cast<const int*>(pos);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    return bits == 4
-        ? launch<__nv_bfloat16, true>(q, k_codes, ks, v_codes, vs, ps, out, b, g, rep, hd, L, window, softcap, vec_ok, st)
-        : launch<__nv_bfloat16, false>(q, k_codes, ks, v_codes, vs, ps, out, b, g, rep, hd, L, window, softcap, vec_ok, st);
-  }
-  return bits == 4
-      ? launch<float, true>(q, k_codes, ks, v_codes, vs, ps, out, b, g, rep, hd, L, window, softcap, vec_ok, st)
-      : launch<float, false>(q, k_codes, ks, v_codes, vs, ps, out, b, g, rep, hd, L, window, softcap, vec_ok, st);
+  return dispatch<false>(q, k_codes, k_scale, v_codes, v_scale, pos, out, b,
+                         g, rep, hd, L, bits, window, softcap, dtype, vec_ok,
+                         nullptr, 0, 0, stream);
+}
+
+// The paged pool: codes (n_blocks, bs, g, hd[/2]), scales (n_blocks, bs, g,
+// 1), int32 block tables (b, bps) of valid pool block ids; the ring length
+// is bps * bs.  Other arguments as decode_attn_launch.
+extern "C" int decode_attn_paged_launch(const void* q, const void* k_codes,
+                                        const void* k_scale,
+                                        const void* v_codes,
+                                        const void* v_scale,
+                                        const void* block_tables,
+                                        const void* pos, void* out, int b,
+                                        int g, int rep, int hd, int bps,
+                                        int bs, int bits, int window,
+                                        float softcap, int dtype, int vec_ok,
+                                        void* stream) {
+  return dispatch<true>(q, k_codes, k_scale, v_codes, v_scale, pos, out, b, g,
+                        rep, hd, bps * bs, bits, window, softcap, dtype,
+                        vec_ok, static_cast<const int*>(block_tables), bps, bs,
+                        stream);
 }

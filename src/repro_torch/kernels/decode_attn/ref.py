@@ -67,3 +67,29 @@ def decode_attn_ref(q: torch.Tensor, k_codes: torch.Tensor,
     probs = torch.softmax(logits + bias, dim=-1)
     p = probs * v_scale[..., 0].permute(0, 2, 1)[:, :, None, :]
     return torch.einsum("bgrl,blgd->bgrd", p.to(q.dtype), v.to(q.dtype))
+
+
+def gather_pool_ref(pool: torch.Tensor,
+                    block_tables: torch.Tensor) -> torch.Tensor:
+    """Pool leaf (n_blocks, bs, g, x) + tables (b, bps) -> the dense
+    per-row ring view (b, bps * bs, g, x) the paged kernel reads over."""
+    out = pool[block_tables.long()]                  # (b, bps, bs, g, x)
+    return out.reshape((out.shape[0], out.shape[1] * out.shape[2])
+                       + tuple(out.shape[3:]))
+
+
+def decode_attn_paged_ref(q: torch.Tensor, k_codes: torch.Tensor,
+                          k_scale: torch.Tensor, v_codes: torch.Tensor,
+                          v_scale: torch.Tensor, block_tables: torch.Tensor,
+                          pos: torch.Tensor, *, bits: int = 8,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None) -> torch.Tensor:
+    """Paged attention is ring attention over a scattered address space:
+    gather each row's blocks into the dense ring view, then run
+    ``decode_attn_ref`` on it."""
+    return decode_attn_ref(
+        q, gather_pool_ref(k_codes, block_tables),
+        gather_pool_ref(k_scale, block_tables),
+        gather_pool_ref(v_codes, block_tables),
+        gather_pool_ref(v_scale, block_tables), pos,
+        bits=bits, window=window, softcap=softcap)

@@ -1,4 +1,5 @@
-// Weight-quantized matmul against out-major QTensor storage, for Hopper.
+// Weight-quantized matmul against out-major QTensor storage, or against
+// K-major codes (KMAJOR), for Hopper.
 //
 // Replaces: src/repro/kernels/wq_matmul/wq_matmul.py::wqt_matmul_pallas
 // (body _wqt_kernel).  Computes out (M, N) = x (M, K) @ dequant(codes)^T,
@@ -6,6 +7,14 @@
 // in the low nibble, scales are one fp32 per matrix (block_k = -1) or fp32
 // (N, K/block_k) blockwise, the contraction accumulates in fp32 and the
 // result is written in x's dtype (bf16 or fp32).
+//
+// With KMAJOR it replaces ::wq_matmul_pallas (body _wq_kernel), the legacy
+// layout: out = x @ dequant(codes), codes int8 (K, N) or packed uint8
+// (K/2, N) (the even k of a pair in the low nibble), scales fp32
+// (K/block_k, N).  Only the loading of a code tile differs: its rows run
+// along N, so a 16-byte load takes 16 columns of one k (or k pair) and
+// each value its own (k / block_k, n) scale; the Pallas kernel locks its K
+// tile to the quant block, this one takes any block.
 //
 // What bounds it on an H100: at decode (M = batch, 1..12) the work is a
 // GEMV and the bound is the weight bytes, 0.5 (int4) or 1 (int8) byte per
@@ -57,10 +66,114 @@ __device__ __forceinline__ int nibble(uint32_t b) {
   return v > 7 ? v - 16 : v;
 }
 
+// Out-major (N, K[/2]) code tile of columns [n0, n0 + TN) and k in
+// [k0, k0 + TK) -> ws[k][n], dequantized.
+template <bool INT4, int TN, int TK>
+__device__ __forceinline__ void load_tile_nk(const uint8_t* __restrict__ codes,
+                                             const float* __restrict__ scales,
+                                             float (*ws)[TN], int k0, int n0,
+                                             int N, int K, int block_k,
+                                             int vec_ok) {
+  constexpr int kRowBytes = INT4 ? TK / 2 : TK;     // code bytes per tile row
+  constexpr int kChunksPerRow = kRowBytes / 16;
+  static_assert(kRowBytes % 16 == 0, "16-byte code loads");
+  const int t = threadIdx.x;
+  const int row_bytes = INT4 ? K / 2 : K;
+  const bool per_tensor = block_k < 0;
+  const int kb = per_tensor ? 1 : K / block_k;
+  const float s_all = per_tensor ? scales[0] : 0.f;
+  for (int c = t; c < TN * kChunksPerRow; c += kThreads) {
+    const int n = c % TN, part = c / TN;
+    const int gn = n0 + n;
+    const int byte0 = k0 / (INT4 ? 2 : 1) + part * 16;
+    uint8_t b[16];
+    if (gn < N && vec_ok && byte0 + 16 <= row_bytes) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          codes + (size_t)gn * row_bytes + byte0);
+      const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int q = 0; q < 16; ++q) b[q] = (w4[q / 4] >> (8 * (q % 4))) & 0xFF;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        b[q] = (gn < N && byte0 + q < row_bytes)
+                   ? codes[(size_t)gn * row_bytes + byte0 + q] : 0;
+    }
+    const int kl0 = part * 16 * (INT4 ? 2 : 1);   // first k of the chunk in the tile
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      int c0, c1 = 0;
+      if (INT4) {
+        c0 = nibble(b[q]);
+        c1 = nibble(b[q] >> 4);
+      } else {
+        c0 = static_cast<int8_t>(b[q]);
+      }
+      const int kk0 = kl0 + (INT4 ? 2 * q : q);
+      const int gk0 = k0 + kk0;
+      float s0 = s_all, s1 = s_all;
+      if (!per_tensor && gn < N) {
+        s0 = gk0 < K ? scales[(size_t)gn * kb + gk0 / block_k] : 0.f;
+        if (INT4) s1 = gk0 + 1 < K ? scales[(size_t)gn * kb + (gk0 + 1) / block_k] : 0.f;
+      }
+      ws[kk0][n] = static_cast<float>(c0) * s0;
+      if (INT4) ws[kk0 + 1][n] = static_cast<float>(c1) * s1;
+    }
+  }
+}
+
+// K-major (K[/2], N) code tile -> ws[k][n], dequantized with the scale of
+// each (k / block_k, n).
+template <bool INT4, int TN, int TK>
+__device__ __forceinline__ void load_tile_kn(const uint8_t* __restrict__ codes,
+                                             const float* __restrict__ scales,
+                                             float (*ws)[TN], int k0, int n0,
+                                             int N, int K, int block_k,
+                                             int vec_ok) {
+  constexpr int kRows = INT4 ? TK / 2 : TK;         // code rows per tile
+  constexpr int kChunksPerRow = TN / 16;
+  static_assert(TN % 16 == 0, "16-byte code loads");
+  const int code_rows = INT4 ? K / 2 : K;
+  for (int c = threadIdx.x; c < kRows * kChunksPerRow; c += kThreads) {
+    const int r = c / kChunksPerRow, chunk = c % kChunksPerRow;
+    const int gr = (INT4 ? k0 / 2 : k0) + r;        // code row
+    const int n = chunk * 16, gn = n0 + n;
+    uint8_t b[16];
+    const uint8_t* src = codes + (size_t)gr * N + gn;
+    if (gr < code_rows && vec_ok && gn + 16 <= N &&
+        (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      const uint4 v = *reinterpret_cast<const uint4*>(src);
+      const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int q = 0; q < 16; ++q) b[q] = (w4[q / 4] >> (8 * (q % 4))) & 0xFF;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        b[q] = (gr < code_rows && gn + q < N) ? src[q] : 0;
+    }
+    const int kk = INT4 ? 2 * r : r;                // first k of the row in the tile
+    const int gk = k0 + kk;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const bool col_ok = gn + q < N;
+      const float s0 = (col_ok && gk < K)
+          ? scales[(size_t)(gk / block_k) * N + gn + q] : 0.f;
+      if (INT4) {
+        const float s1 = (col_ok && gk + 1 < K)
+            ? scales[(size_t)((gk + 1) / block_k) * N + gn + q] : 0.f;
+        ws[kk][n + q] = static_cast<float>(nibble(b[q])) * s0;
+        ws[kk + 1][n + q] = static_cast<float>(nibble(b[q] >> 4)) * s1;
+      } else {
+        ws[kk][n + q] = static_cast<float>(static_cast<int8_t>(b[q])) * s0;
+      }
+    }
+  }
+}
+
 // TX threads along N (RN columns each), TY along M (RM rows each), TZ along
 // K (each takes TK / TZ of every K step).  TX * TY * TZ == kThreads.
-template <typename T, bool INT4, int TM, int TN, int TK, int TX, int TY,
-          int TZ, int RM, int RN>
+template <typename T, bool INT4, bool KMAJOR, int TM, int TN, int TK, int TX,
+          int TY, int TZ, int RM, int RN>
 __global__ void __launch_bounds__(kThreads)
 wqt_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
                   const float* __restrict__ scales, T* __restrict__ out,
@@ -69,9 +182,6 @@ wqt_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
   static_assert(TX * TY * TZ == kThreads, "thread layout");
   static_assert(TX * RN == TN && TY * RM == TM, "tile layout");
   static_assert(TK % TZ == 0, "k split");
-  constexpr int kRowBytes = INT4 ? TK / 2 : TK;     // code bytes per tile row
-  constexpr int kChunksPerRow = kRowBytes / 16;
-  static_assert(kRowBytes % 16 == 0, "16-byte code loads");
   constexpr int kKz = TK / TZ;
 
   // xs[k][m] and ws[k][n]: k-major, so a thread's reads along m or n are
@@ -87,10 +197,6 @@ wqt_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
   const int tz = t / (TX * TY);
   const int m0 = blockIdx.y * TM;
   const int n0 = blockIdx.x * TN;
-  const int row_bytes = INT4 ? K / 2 : K;
-  const bool per_tensor = block_k < 0;
-  const int kb = per_tensor ? 1 : K / block_k;
-  const float s_all = per_tensor ? scales[0] : 0.f;
   const int m_rows = min(TM, M - m0);
   // split-K: block z of gridDim.z walks K in [k_begin, k_end) and, when
   // there is more than one split, writes an fp32 partial tile
@@ -113,44 +219,12 @@ wqt_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
       xs[k][m] = (gm < M && gk < K) ? to_f32<T>(x[(size_t)gm * K + gk]) : 0.f;
     }
     // ---- code tile -> ws (dequantized fp32), 16 bytes per load
-    for (int c = t; c < TN * kChunksPerRow; c += kThreads) {
-      const int n = c % TN, part = c / TN;
-      const int gn = n0 + n;
-      const int byte0 = k0 / (INT4 ? 2 : 1) + part * 16;
-      uint8_t b[16];
-      if (gn < N && vec_ok && byte0 + 16 <= row_bytes) {
-        const uint4 v = *reinterpret_cast<const uint4*>(
-            codes + (size_t)gn * row_bytes + byte0);
-        const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int q = 0; q < 16; ++q) b[q] = (w4[q / 4] >> (8 * (q % 4))) & 0xFF;
-      } else {
-#pragma unroll
-        for (int q = 0; q < 16; ++q)
-          b[q] = (gn < N && byte0 + q < row_bytes)
-                     ? codes[(size_t)gn * row_bytes + byte0 + q] : 0;
-      }
-      const int kl0 = part * 16 * (INT4 ? 2 : 1);   // first k of the chunk in the tile
-#pragma unroll
-      for (int q = 0; q < 16; ++q) {
-        int c0, c1 = 0;
-        if (INT4) {
-          c0 = nibble(b[q]);
-          c1 = nibble(b[q] >> 4);
-        } else {
-          c0 = static_cast<int8_t>(b[q]);
-        }
-        const int kk0 = kl0 + (INT4 ? 2 * q : q);
-        const int gk0 = k0 + kk0;
-        float s0 = s_all, s1 = s_all;
-        if (!per_tensor && gn < N) {
-          s0 = gk0 < K ? scales[(size_t)gn * kb + gk0 / block_k] : 0.f;
-          if (INT4) s1 = gk0 + 1 < K ? scales[(size_t)gn * kb + (gk0 + 1) / block_k] : 0.f;
-        }
-        ws[kk0][n] = static_cast<float>(c0) * s0;
-        if (INT4) ws[kk0 + 1][n] = static_cast<float>(c1) * s1;
-      }
-    }
+    if constexpr (KMAJOR)
+      load_tile_kn<INT4, TN, TK>(codes, scales, ws, k0, n0, N, K, block_k,
+                                 vec_ok);
+    else
+      load_tile_nk<INT4, TN, TK>(codes, scales, ws, k0, n0, N, K, block_k,
+                                 vec_ok);
     __syncthreads();
 
     // ---- register-tiled FMAs over this thread's K slice
@@ -240,7 +314,7 @@ int k_splits(int M, int N, int K, int* k_per_split) {
   return (steps + steps_per - 1) / steps_per;
 }
 
-template <typename T, bool INT4>
+template <typename T, bool INT4, bool KMAJOR>
 cudaError_t launch(const void* x, const void* codes, const float* scales,
                    void* out, float* partial, int M, int N, int K,
                    int block_k, int vec_ok, cudaStream_t stream) {
@@ -253,13 +327,13 @@ cudaError_t launch(const void* x, const void* codes, const float* scales,
   if (M <= kSmallM) {
     constexpr int TM = 16, TN = 128;
     dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, splits);
-    wqt_matmul_kernel<T, INT4, TM, TN, kTK, 32, 1, 8, 16, 4>
+    wqt_matmul_kernel<T, INT4, KMAJOR, TM, TN, kTK, 32, 1, 8, 16, 4>
         <<<grid, kThreads, 0, stream>>>(xp, cp, scales, op, partial, M, N, K,
                                         block_k, vec_ok, k_per_split);
   } else {
     constexpr int TM = 64, TN = 64;
     dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, splits);
-    wqt_matmul_kernel<T, INT4, TM, TN, kTK, 16, 16, 1, 4, 4>
+    wqt_matmul_kernel<T, INT4, KMAJOR, TM, TN, kTK, 16, 16, 1, 4, 4>
         <<<grid, kThreads, 0, stream>>>(xp, cp, scales, op, partial, M, N, K,
                                         block_k, vec_ok, k_per_split);
   }
@@ -271,10 +345,27 @@ cudaError_t launch(const void* x, const void* codes, const float* scales,
   return cudaGetLastError();
 }
 
+template <bool KMAJOR>
+int dispatch(const void* x, const void* codes, const void* scales, void* out,
+             void* workspace, int M, int N, int K, int block_k, int bits,
+             int dtype, int vec_ok, void* stream) {
+  const float* sp = static_cast<const float*>(scales);
+  float* ws = static_cast<float*>(workspace);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    return bits == 4
+        ? launch<__nv_bfloat16, true, KMAJOR>(x, codes, sp, out, ws, M, N, K, block_k, vec_ok, st)
+        : launch<__nv_bfloat16, false, KMAJOR>(x, codes, sp, out, ws, M, N, K, block_k, vec_ok, st);
+  }
+  return bits == 4
+      ? launch<float, true, KMAJOR>(x, codes, sp, out, ws, M, N, K, block_k, vec_ok, st)
+      : launch<float, false, KMAJOR>(x, codes, sp, out, ws, M, N, K, block_k, vec_ok, st);
+}
+
 }  // namespace
 
-// Number of K splits the launch will use for (M, N, K): the wrapper
-// allocates an fp32 workspace of splits * M * N when it is above 1.
+// Number of K splits the launch will use for (M, N, K), either layout: the
+// wrapper allocates an fp32 workspace of splits * M * N when it is above 1.
 extern "C" int wqt_matmul_splits(int M, int N, int K) {
   int k_per_split = 0;
   return k_splits(M, N, K, &k_per_split);
@@ -289,15 +380,18 @@ extern "C" int wqt_matmul_launch(const void* x, const void* codes,
                                  void* workspace, int M, int N, int K,
                                  int block_k, int bits, int dtype, int vec_ok,
                                  void* stream) {
-  const float* sp = static_cast<const float*>(scales);
-  float* ws = static_cast<float*>(workspace);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    return bits == 4
-        ? launch<__nv_bfloat16, true>(x, codes, sp, out, ws, M, N, K, block_k, vec_ok, st)
-        : launch<__nv_bfloat16, false>(x, codes, sp, out, ws, M, N, K, block_k, vec_ok, st);
-  }
-  return bits == 4
-      ? launch<float, true>(x, codes, sp, out, ws, M, N, K, block_k, vec_ok, st)
-      : launch<float, false>(x, codes, sp, out, ws, M, N, K, block_k, vec_ok, st);
+  return dispatch<false>(x, codes, scales, out, workspace, M, N, K, block_k,
+                         bits, dtype, vec_ok, stream);
+}
+
+// The K-major layout: codes (K, N) or (K/2, N), scales (K/block_k, N),
+// block_k > 0 dividing K; vec_ok: 1 when the codes start 16-byte aligned
+// and N % 16 == 0.  Other arguments as wqt_matmul_launch.
+extern "C" int wq_matmul_launch(const void* x, const void* codes,
+                                const void* scales, void* out,
+                                void* workspace, int M, int N, int K,
+                                int block_k, int bits, int dtype, int vec_ok,
+                                void* stream) {
+  return dispatch<true>(x, codes, scales, out, workspace, M, N, K, block_k,
+                        bits, dtype, vec_ok, stream);
 }

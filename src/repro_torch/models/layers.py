@@ -7,7 +7,9 @@ tensors, ``*_apply`` takes (params, inputs).  The compute dtype is the
 dtype of the incoming activations.  Plain attention is torch einsum and
 softmax (the JAX code there is jnp, not Pallas); every weight matmul goes
 through ``matmul`` (the ``wqt_matmul`` kernel for QTensor weights on the
-card) and quantized-cache decode through the ``decode_attn`` kernel.
+card) and quantized-cache decode through the ``decode_attn`` kernel, or
+``decode_attn_paged`` over the paged KV pool (``attn_decode_paged``).
+Chunked prefill (``attn_chunk_apply``) is plain torch, as in JAX.
 """
 
 from __future__ import annotations
@@ -21,9 +23,11 @@ import torch
 import torch.nn.functional as F
 
 from ..core.qtensor import QTensor
+from ..numerics import div_scalar
 from ..core.qtensor import _pack_last as _pack_int4   # int8 -> packed nibbles
 from ..core.qtensor import matmul as _qt_matmul
-from ..kernels.decode_attn import decode_attn, ring_validity
+from ..kernels.decode_attn import (decode_attn, decode_attn_paged,
+                                   ring_validity)
 from ..kernels.decode_attn import unpack_int4_ref as _unpack_int4
 
 NEG_INF = -1e30
@@ -207,7 +211,8 @@ def kv_quantize(k: torch.Tensor, bits: int = 8) -> Dict[str, torch.Tensor]:
     (b, l, kvh)."""
     qmax = {8: 127.0, 4: 7.0}[bits]
     absmax = torch.amax(torch.abs(k), dim=-1, keepdim=True)
-    scale = torch.where(absmax > 0, absmax / qmax, torch.ones_like(absmax))
+    scale = torch.where(absmax > 0, div_scalar(absmax, qmax),
+                        torch.ones_like(absmax))
     codes = torch.clamp(torch.round(k / scale), -qmax, qmax).to(torch.int8)
     if bits == 4:
         if k.shape[-1] % 2:
@@ -226,8 +231,7 @@ def _cache_write(cache, new: torch.Tensor, slot: torch.Tensor,
     """Write the (b, kvh, hd) vector ``new`` at ring slots, IN PLACE (the
     JAX function returns an updated copy); returns ``cache``."""
     if _is_quantized_cache(cache):
-        bits = 4 if cache["codes"].dtype == torch.uint8 else 8
-        q = kv_quantize(new[:, None], bits)          # (b, 1, kvh, *)
+        q = kv_quantize(new[:, None], _cache_bits(cache))   # (b, 1, kvh, *)
         cache["codes"][bidx, slot] = q["codes"][:, 0]
         cache["scale"][bidx, slot] = q["scale"][:, 0]
     else:
@@ -265,23 +269,227 @@ def attn_decode(params, spec: AttnSpec, x: torch.Tensor, pos: torch.Tensor,
 
     q4 = q.reshape(b, g, rep, hd)
     if quant:
-        bits = 4 if cache_k["codes"].dtype == torch.uint8 else 8
         o = decode_attn(q4, cache_k["codes"], cache_k["scale"],
                         cache_v["codes"], cache_v["scale"], pos,
-                        bits=bits, window=spec.window, softcap=spec.softcap)
+                        bits=_cache_bits(cache_k), window=spec.window,
+                        softcap=spec.softcap)
     else:
-        logits = torch.einsum("bgrd,blgd->bgrl", q4,
-                              cache_k.to(q4.dtype)).to(torch.float32)
-        logits = logits / math.sqrt(hd)
-        if spec.softcap is not None:
-            logits = spec.softcap * torch.tanh(logits / spec.softcap)
-        valid = ring_validity(pos, cache_len, spec.window)
-        bias = torch.where(valid, 0.0, NEG_INF)[:, None, None, :]
-        probs = torch.softmax(logits + bias, dim=-1)
-        o = torch.einsum("bgrl,blgd->bgrd", probs.to(x.dtype),
-                         cache_v.to(x.dtype))
+        o = _decode_dense(q4, cache_k, cache_v, pos, spec, x.dtype)
     o = o.reshape(b, 1, spec.q_dim)
     return matmul(o, params["wo"]), cache_k, cache_v
+
+
+def _cache_bits(cache) -> int:
+    """4 for a packed int4 cache (uint8 codes), else 8."""
+    return 4 if cache["codes"].dtype == torch.uint8 else 8
+
+
+def _cache_codes(c) -> torch.Tensor:
+    """Quantized-cache codes as int8, unpacking int4 nibbles."""
+    codes = c["codes"]
+    return _unpack_int4(codes) if codes.dtype == torch.uint8 else codes
+
+
+def _decode_dense(q4: torch.Tensor, cache_k: torch.Tensor,
+                  cache_v: torch.Tensor, pos: torch.Tensor, spec: AttnSpec,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Decode attention of q4 (b, g, rep, hd) over a dense ring cache
+    (b, L, g, hd): grouped einsums, fp32 scores, the ring-validity bias."""
+    cache_len = cache_k.shape[1]
+    logits = torch.einsum("bgrd,blgd->bgrl", q4,
+                          cache_k.to(q4.dtype)).to(torch.float32)
+    logits = logits / math.sqrt(q4.shape[-1])
+    if spec.softcap is not None:
+        logits = spec.softcap * torch.tanh(logits / spec.softcap)
+    valid = ring_validity(pos, cache_len, spec.window)
+    bias = torch.where(valid, 0.0, NEG_INF)[:, None, None, :]
+    probs = torch.softmax(logits + bias, dim=-1)
+    return torch.einsum("bgrl,blgd->bgrd", probs.to(dtype), cache_v.to(dtype))
+
+
+# ---- paged KV: the per-slot ring is replaced by a shared pool of
+# ``block_size``-token blocks plus an int32 block table per row.  Table
+# entry i of a row holds ring slots [i*bs, (i+1)*bs), so validity, RoPE
+# positions and the quantizer are those of the ring path; only the
+# physical address of a slot moves (and can be shared between tables).
+
+def paged_gather(cache, bt: torch.Tensor):
+    """Pool leaf (n_blocks, bs, kvh, ...) (dense or codes/scale dict) and
+    block table (b, bps) -> the dense (b, bps*bs, kvh, ...) ring view."""
+    def g(a):
+        out = a[bt.long()]                           # (b, bps, bs, ...)
+        return out.reshape((out.shape[0], out.shape[1] * out.shape[2])
+                           + tuple(out.shape[3:]))
+    if _is_quantized_cache(cache):
+        return {"codes": g(cache["codes"]), "scale": g(cache["scale"])}
+    return g(cache)
+
+
+def _cache_write_paged(cache, new: torch.Tensor, bt: torch.Tensor,
+                       slot: torch.Tensor, block_size: int):
+    """Write the (b, kvh, hd) vector ``new`` at ring slot ``slot`` of each
+    row through the block table into the pool, IN PLACE; returns
+    ``cache``.  Rows whose table entry is 0 (cleared or idle) write into
+    the reserved dump block 0, possibly several at once: which of them
+    lands is undefined on CUDA, and block 0 is never read."""
+    bi = torch.div(slot, block_size, rounding_mode="floor")
+    off = torch.remainder(slot, block_size)
+    bid = torch.gather(bt.long(), 1, bi[:, None].long())[:, 0]
+    if _is_quantized_cache(cache):
+        q = kv_quantize(new[:, None], _cache_bits(cache))    # (b, 1, kvh, *)
+        cache["codes"][bid, off] = q["codes"][:, 0]
+        cache["scale"][bid, off] = q["scale"][:, 0]
+    else:
+        cache[bid, off] = new.to(cache.dtype)
+    return cache
+
+
+def attn_decode_paged(params, spec: AttnSpec, x: torch.Tensor,
+                      pos: torch.Tensor, cache_k, cache_v,
+                      block_tables: torch.Tensor, block_size: int):
+    """Single-token decode against the paged KV pool.
+
+    The new K/V are quantized and written through the block table first
+    (the ring path's quantizer and slot, so the same bytes), then a
+    quantized pool is read by the ``decode_attn_paged`` kernel (its plain
+    version for CPU tensors: gather, then the ring math) and a dense pool
+    is gathered and scored as ``attn_decode`` scores a ring.  Returns
+    (out, cache_k, cache_v) with the pool leaves updated in place."""
+    if spec.is_cross:
+        raise ValueError("paged decode serves self-attention only")
+    b = x.shape[0]
+    g = spec.n_kv_heads
+    rep = spec.n_heads // g
+    hd = spec.head_dim
+    bps = block_tables.shape[1]
+    cache_len = bps * block_size
+
+    q, k, v = _qkv(params, spec, x)
+    q = apply_rope(q, pos[:, None], spec.rope_theta)
+    k = apply_rope(k, pos[:, None], spec.rope_theta)
+    slot = torch.remainder(pos, cache_len).long()
+    _cache_write_paged(cache_k, k[:, 0], block_tables, slot, block_size)
+    _cache_write_paged(cache_v, v[:, 0], block_tables, slot, block_size)
+
+    q4 = q.reshape(b, g, rep, hd)
+    if _is_quantized_cache(cache_k):
+        o = decode_attn_paged(q4, cache_k["codes"], cache_k["scale"],
+                              cache_v["codes"], cache_v["scale"],
+                              block_tables, pos, bits=_cache_bits(cache_k),
+                              window=spec.window, softcap=spec.softcap)
+    else:
+        o = _decode_dense(q4, paged_gather(cache_k, block_tables),
+                          paged_gather(cache_v, block_tables), pos, spec,
+                          x.dtype)
+    o = o.reshape(b, 1, spec.q_dim)
+    return matmul(o, params["wo"]), cache_k, cache_v
+
+
+def attn_chunk_apply(params, spec: AttnSpec, x: torch.Tensor,
+                     positions: torch.Tensor, chunk_lens: torch.Tensor,
+                     cache_k, cache_v):
+    """Chunked-prefill attention: a chunk of new prompt tokens x (b, cw,
+    d) at absolute ``positions`` (b, cw), ``chunk_lens`` (b,) of them real
+    (the rest right padding), against a partial KV ring cache.
+
+    Queries attend the union of the pre-chunk cache (slot validity from
+    ``start - 1``, as decode derives it from ``pos``) and the chunk's
+    fresh keys under the causal and window masks; scoring the pre-write
+    cache plus the fresh keys keeps sliding-window layers exact.  The
+    chunk's K/V are then written at ``pos % L``, only each slot's newest
+    real position (pad columns and older ring duplicates go to a dump row
+    that is cut off), IN PLACE, so the cache ends as per-token decode
+    writes would leave it.  Returns (out (b, cw, d), cache_k, cache_v)."""
+    if spec.is_cross:
+        raise NotImplementedError(
+            "cross-attention (xattn) is not ported yet: ROADMAP Queue 1 "
+            "item 7")
+    b, cw, _ = x.shape
+    g = spec.n_kv_heads
+    rep = spec.n_heads // g
+    hd = spec.head_dim
+    dev = x.device
+
+    q, k, v = _qkv(params, spec, x)
+    q = apply_rope(q, positions, spec.rope_theta)
+    k = apply_rope(k, positions, spec.rope_theta)
+    quant = _is_quantized_cache(cache_k)
+    L = (cache_k["codes"] if quant else cache_k).shape[1]
+    q4 = q.reshape(b, cw, g, rep, hd)
+    scale = float(1.0 / np.sqrt(hd))
+
+    # (a) the pre-chunk cache: slot j holds p_j, the largest p <= start-1
+    # with p % L == j
+    prev_last = positions[:, 0] - 1
+    j = torch.arange(L, device=dev)
+    p_j = prev_last[:, None] - torch.remainder(prev_last[:, None] - j[None, :],
+                                               L)
+
+    def scale_t(c):                                  # (b, g, 1, 1, L)
+        return c["scale"][..., 0].permute(0, 2, 1)[:, :, None, None, :]
+
+    if quant:
+        s_c = torch.einsum("bqgrd,blgd->bgrql", q4,
+                           _cache_codes(cache_k).to(q4.dtype))
+        s_c = s_c.to(torch.float32) * scale_t(cache_k)
+    else:
+        s_c = torch.einsum("bqgrd,blgd->bgrql", q4,
+                           cache_k.to(q4.dtype)).to(torch.float32)
+    ok_c = (p_j >= 0)[:, None, :]                                # (b, 1, L)
+    if spec.window is not None:
+        ok_c = ok_c & (positions[:, :, None] - p_j[:, None, :] < spec.window)
+    bias_c = torch.where(ok_c, 0.0, NEG_INF).to(torch.float32)
+
+    # (b) causal scores against the chunk's fresh keys
+    kcol_ok = torch.arange(cw, device=dev)[None, :] < chunk_lens[:, None]
+    d = positions[:, :, None] - positions[:, None, :]
+    ok_f = (d >= 0) & kcol_ok[:, None, :]
+    if spec.window is not None:
+        ok_f = ok_f & (d < spec.window)
+    bias_f = torch.where(ok_f, 0.0, NEG_INF).to(torch.float32)
+    k4 = k.reshape(b, cw, g, hd)
+    s_f = torch.einsum("bqgrd,bkgd->bgrqk", q4, k4).to(torch.float32)
+
+    logits = torch.cat([s_c, s_f], -1) * scale
+    if spec.softcap is not None:
+        logits = spec.softcap * torch.tanh(logits / spec.softcap)
+    lead = logits.shape[:-1]
+    bias = torch.cat([bias_c[:, None, None].expand(lead + (L,)),
+                      bias_f[:, None, None].expand(lead + (cw,))], -1)
+    probs = torch.softmax(logits + bias, dim=-1)
+    p_c = probs[..., :L]
+    if quant:
+        o = torch.einsum("bgrql,blgd->bqgrd",
+                         (p_c * scale_t(cache_v)).to(x.dtype),
+                         _cache_codes(cache_v).to(x.dtype))
+    else:
+        o = torch.einsum("bgrql,blgd->bqgrd", p_c.to(x.dtype),
+                         cache_v.to(x.dtype))
+    o = o + torch.einsum("bgrqk,bkgd->bqgrd", probs[..., L:].to(x.dtype),
+                         v.reshape(b, cw, g, hd))
+    out = matmul(o.reshape(b, cw, spec.q_dim), params["wo"])
+
+    # scatter the chunk's K/V at ring slots: per slot only the newest real
+    # position lands, the rest go to dump row L
+    last_real = positions[:, 0] + chunk_lens - 1
+    keep = kcol_ok & (positions >= (last_real - L + 1)[:, None])
+    slots = torch.where(keep, torch.remainder(positions, L), L).long()
+    bidx = torch.arange(b, device=dev)[:, None]
+
+    def write(dst, vals, fill):
+        buf = torch.cat([dst, torch.full((b, 1) + tuple(dst.shape[2:]), fill,
+                                         dtype=dst.dtype, device=dev)], 1)
+        buf[bidx, slots] = vals.to(dst.dtype)
+        dst.copy_(buf[:, :L])
+
+    for cache, vals in ((cache_k, k4), (cache_v, v.reshape(b, cw, g, hd))):
+        if quant:
+            qv = kv_quantize(vals, _cache_bits(cache))
+            write(cache["codes"], qv["codes"], 0)
+            write(cache["scale"], qv["scale"], 1.0)
+        else:
+            write(cache, vals, 0)
+    return out, cache_k, cache_v
 
 
 # --------------------------------------------------------------------------

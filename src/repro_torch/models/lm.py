@@ -11,10 +11,15 @@ views of the stacked leaves (``layer_params``).
 Entry points: ``lm_init`` (random weights from a seed, on a device),
 ``lm_forward`` / ``lm_loss`` (the training forward, with activation
 recomputation per layer when ``cfg.remat``), ``lm_prefill`` (forward that
-fills the decode cache) and ``lm_decode`` (one token against the cache).
-MoE, SSM (mamba/rwkv), cross-attention, multi-codebook heads, activation
-quantization and the shared zamba block are not in these slices of the
-port and raise ``NotImplementedError``.
+fills the decode cache), ``lm_prefill_chunk`` (one chunk of a prompt
+against a partial cache) and ``lm_decode`` (one token against a ring
+cache, or against the paged pool through block tables); ``cache_insert``
+/ ``cache_insert_paged`` place a one-request cache into the scheduler's
+slot rows or pool blocks, ``quantize_cache`` converts a dense cache to
+codes.  The caches are updated in place.  MoE, SSM (mamba/rwkv),
+cross-attention, multi-codebook heads, the fake-quantized activations of
+``LMConfig.act_fmt`` and the shared zamba block are not in these slices
+of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ from .. import resolve_device
 from ..core.qtensor import QTensor
 from ..core.policy import tree_leaves, tree_map_with_path
 from . import layers
-from .layers import (AttnSpec, MLPSpec, attn_apply, attn_decode, attn_init,
-                     dense_init, matmul, mlp_apply, mlp_init, rms_norm)
+from .layers import (AttnSpec, MLPSpec, attn_apply, attn_chunk_apply,
+                     attn_decode, attn_decode_paged, attn_init, dense_init,
+                     matmul, mlp_apply, mlp_init, rms_norm)
 
 ATTN_KINDS = ("attn", "local", "xattn")
 PORTED_KINDS = ("attn", "local")
@@ -324,7 +330,10 @@ def init_cache(cfg: LMConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, kv_quant=False, device=None):
     """Cache tree stacked over repeats: ``{"unit": {name: {"k", "v"}}}``;
     global layers hold ``cache_len`` slots, local layers a ring of
-    ``window``; ``kv_quant`` stores int8 / int4 codes + fp32 scales."""
+    ``window``; ``kv_quant`` stores int8 / int4 codes + fp32 scales.
+    The paged pool is the same tree with ``batch`` = n_blocks and
+    ``cache_len`` = block_size: leaves (r, n_blocks, block_size, kvh, ...).
+    """
     check_ported(cfg)
     device = resolve_device(device)
     r = cfg.n_repeats
@@ -473,20 +482,71 @@ def _layer_cache(leaf, r: int):
     return leaf[r]
 
 
-def lm_decode(params, cfg: LMConfig, cache, tokens: torch.Tensor,
-              pos: torch.Tensor, block_tables: Optional[torch.Tensor] = None):
-    """One-token decode.  tokens (b, 1), pos (b,) current positions.
+def cache_insert(pool_cache, row_cache, slot: int):
+    """Copy a one-request cache (batch 1, the same ``cache_len``) into
+    batch row ``slot`` of the scheduler's slot cache, IN PLACE; the row's
+    whole previous content is replaced.  Returns ``pool_cache``."""
+    for pool, row in zip(tree_leaves(pool_cache), tree_leaves(row_cache)):
+        pool[:, slot] = row[:, 0].to(pool.dtype)
+    return pool_cache
 
-    The cache is updated IN PLACE: each layer writes its new K/V into its
-    slice of the stacked cache tensors (JAX carries the cache through a
-    scan with a dynamic update instead).  Returns (logits (b, 1, V) fp32,
-    cache) with ``cache`` the same object that was passed in.  Paged KV
-    (``block_tables``) is not in this slice."""
+
+def cache_insert_paged(pool_cache, row_cache, table: torch.Tensor,
+                       write_mask: torch.Tensor):
+    """Scatter a one-request cache row into the paged pool, IN PLACE.
+
+    ``pool_cache`` leaves are (r, n_blocks, bs, ...), ``row_cache`` leaves
+    (r, 1, bps*bs, ...) in the same layout; chunk i of the row (ring slots
+    [i*bs, (i+1)*bs)) goes to block ``table[i]``.  Chunks whose
+    ``write_mask`` is False (prefix blocks shared from the trie, whose
+    bytes are already in the pool) go to the reserved dump block 0
+    instead, several at once: block 0 is never read.  Returns
+    ``pool_cache``."""
+    bids = torch.where(write_mask, table, 0).long()
+    bps = table.shape[0]
+
+    for pool, row in zip(tree_leaves(pool_cache), tree_leaves(row_cache)):
+        row = row[:, 0]
+        row = row.reshape((row.shape[0], bps, pool.shape[2])
+                          + tuple(row.shape[2:]))
+        pool[:, bids] = row.to(pool.dtype)
+    return pool_cache
+
+
+def quantize_cache(cfg: LMConfig, cache, kv_quant):
+    """A dense cache (``init_cache(..., kv_quant=False)`` layout) in the
+    quantized layout ``init_cache(..., kv_quant=...)`` builds, as a new
+    tree.  Chunked prefill keeps its partial cache dense and quantizes it
+    once, at insert: per-vector absmax over the written values is the
+    quantizer of a monolithic prefill, and unwritten (zero) slots become
+    codes 0 with scale 1, the ``init_cache`` fill."""
+    bits = layers.kv_bits(kv_quant)
+    if not bits:
+        return cache
+    return {"unit": {name: {"k": layers.kv_quantize(leaf["k"], bits),
+                            "v": layers.kv_quantize(leaf["v"], bits)}
+                     for name, leaf in cache["unit"].items()}}
+
+
+def lm_prefill_chunk(params, cfg: LMConfig, cache, tokens: torch.Tensor,
+                     start_pos: torch.Tensor,
+                     chunk_lens: Optional[torch.Tensor] = None):
+    """Advance a partial prefill by one chunk of prompt tokens.
+
+    tokens (b, cw): the next chunk of each row, right-padded to the chunk
+    width; start_pos (b,): absolute position of column 0 (the tokens
+    already in the cache); chunk_lens (b,): real tokens this chunk (None:
+    all).  ``cache`` is a dense partial cache holding every position
+    below start_pos; the chunk's K/V are ring-written into it IN PLACE
+    (``quantize_cache`` is the deferred kv-quant step).  Attention-family
+    blocks only.  Returns (logits of each row's last real token (b, 1,
+    vocab) fp32, cache)."""
     check_ported(cfg)
-    if block_tables is not None:
-        raise NotImplementedError(
-            "paged KV decode (block_tables) is not ported yet: ROADMAP "
-            "Queue 1 item 9 (attn_decode_paged) and Queue 2 #4")
+    b, cw = tokens.shape[0], tokens.shape[1]
+    dev = tokens.device
+    if chunk_lens is None:
+        chunk_lens = torch.full((b,), cw, dtype=torch.int64, device=dev)
+    positions = start_pos[:, None] + torch.arange(cw, device=dev)[None, :]
     x = _embed(params, cfg, tokens)
     for r in range(cfg.n_repeats):
         unit_p = layer_params(params["stage"], r)
@@ -495,8 +555,57 @@ def lm_decode(params, cfg: LMConfig, cache, tokens: torch.Tensor,
             p = unit_p[name]
             c = cache["unit"][name]
             h = rms_norm(x, p["pre_norm_scale"])
-            o, _, _ = attn_decode(p["attn"], cfg.attn_spec(kind), h, pos,
-                                  _layer_cache(c["k"], r),
-                                  _layer_cache(c["v"], r))
+            o, _, _ = attn_chunk_apply(p["attn"], cfg.attn_spec(kind), h,
+                                       positions, chunk_lens,
+                                       _layer_cache(c["k"], r),
+                                       _layer_cache(c["v"], r))
+            x = _apply_ffn(p, cfg, x, o)
+    # the head reads each row's last real column only (pads are garbage)
+    last = torch.clamp(chunk_lens - 1, min=0).long()
+    x_last = torch.take_along_dim(
+        x, last[:, None, None].expand(b, 1, x.shape[-1]), dim=1)
+    return _head(params, cfg, x_last), cache
+
+
+def lm_decode(params, cfg: LMConfig, cache, tokens: torch.Tensor,
+              pos: torch.Tensor, token_mask: Optional[torch.Tensor] = None,
+              block_tables: Optional[torch.Tensor] = None,
+              block_size: int = 0):
+    """One-token decode.  tokens (b, 1), pos (b,) current positions.
+
+    The cache is updated IN PLACE: each layer writes its new K/V into its
+    slice of the stacked cache tensors (JAX carries the cache through a
+    scan with a dynamic update instead).  With ``block_tables`` (b, bps)
+    int32, ``cache`` is the paged pool (leaves (r, n_blocks, block_size,
+    kvh, ...), shared by every row) and attention reads and writes go
+    through the tables.  ``token_mask`` (b,) marks the live rows under
+    continuous batching; only MoE routing reads it in JAX, and MoE is not
+    in these slices, so it changes nothing here.  Returns (logits (b, 1,
+    V) fp32, cache) with ``cache`` the same object that was passed in."""
+    check_ported(cfg)
+    if block_tables is not None:
+        first = next(iter(cache["unit"].values()))["k"]
+        pool_bs = (first["codes"] if isinstance(first, dict)
+                   else first).shape[2]
+        if block_size < 1 or block_size != pool_bs:
+            raise ValueError(f"paged decode needs block_size equal to the "
+                             f"pool's block length {pool_bs}, got "
+                             f"{block_size}")
+    x = _embed(params, cfg, tokens)
+    for r in range(cfg.n_repeats):
+        unit_p = layer_params(params["stage"], r)
+        for i, kind in enumerate(cfg.pattern):
+            name = f"b{i}_{kind}"
+            p = unit_p[name]
+            c = cache["unit"][name]
+            h = rms_norm(x, p["pre_norm_scale"])
+            ck, cv = _layer_cache(c["k"], r), _layer_cache(c["v"], r)
+            if block_tables is not None:
+                o, _, _ = attn_decode_paged(p["attn"], cfg.attn_spec(kind), h,
+                                            pos, ck, cv, block_tables,
+                                            block_size)
+            else:
+                o, _, _ = attn_decode(p["attn"], cfg.attn_spec(kind), h, pos,
+                                      ck, cv)
             x = _apply_ffn(p, cfg, x, o)
     return _head(params, cfg, x), cache

@@ -5,8 +5,11 @@ cache, then ``lm_decode`` runs once per new token with greedy or
 temperature sampling.  Weights are served as ``fp32`` (the dense tree as
 given) or ``rtn:int8`` / ``rtn:int4``: the RTN codes are STORED as
 QTensors and every weight matmul streams them through the ``wqt_matmul``
-kernel.  ``kv_quant="int8"`` / ``"int4"`` keeps the KV cache as codes and
-decode attention runs the ``decode_attn`` kernel.
+kernel; with ``act_fmt="int8"`` (W4A8) prefill and decode run under
+``qtensor_act_fmt``, so every QTensor matmul row-quantizes its activations
+and runs the ``wqt_matmul_a8`` kernel instead.  ``kv_quant="int8"`` /
+``"int4"`` keeps the KV cache as codes and decode attention runs the
+``decode_attn`` kernel.
 
 Mechanics, as in JAX: sampled tokens accumulate on the device and cross
 to the host once; ``max_new_tokens`` / ``eos_id`` may be per request (the
@@ -15,9 +18,9 @@ patterns mask left pads (per-row ``prompt_lens``), so a request's tokens
 do not depend on its batchmates; ``cache_len`` is bucketed to the next
 power of two.
 
-Not in this slice: ``rr:`` casts, codebook formats (fp4), activation
-quantization (``act_fmt``), the dense-cast path (``quantized_storage=
-False``), and the continuous-batching scheduler.
+Not in these slices: ``rr:`` casts, codebook formats (fp4) and the
+dense-cast path (``quantized_storage=False``).  The continuous-batching
+scheduler is ``serve/scheduler.py``.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 from .. import resolve_device
 from ..core import QuantPolicy, quantize_params
 from ..core.formats import IntFormat, get_format
-from ..core.qtensor import QTensor
+from ..core.qtensor import QTensor, _check_act_fmt, qtensor_act_fmt
 from ..core.policy import tree_map_with_path
 from ..models.lm import ATTN_KINDS, LMConfig, check_ported, lm_decode, lm_prefill
 from .slots import RejectedError, request_problem
@@ -89,10 +92,7 @@ def _check_scfg(scfg: ServeConfig, device: torch.device) -> None:
                          "runs its kernels on the card (no plain fallback)")
     if scfg.use_kernel is True and device.type != "cuda":
         raise ValueError(f"use_kernel=True needs a CUDA device, got {device}")
-    if scfg.act_fmt is not None:
-        raise NotImplementedError(
-            f"act_fmt={scfg.act_fmt!r} (W4A8 serving) is not ported yet: "
-            f"ROADMAP Queue 2 #3 (wqt_matmul_a8)")
+    _check_act_fmt(scfg.act_fmt)
 
 
 def _to_device(params, device):
@@ -200,6 +200,14 @@ class Engine:
             toks[i, max_len - len(p):] = p
         lens = (torch.tensor([len(p) for p in prompts], dtype=torch.int64,
                              device=dev) if self._mask_pads else None)
+        with qtensor_act_fmt(self.scfg.act_fmt):
+            return self._generate(prompts, toks, lens, cache_len, mnt, mnts,
+                                  eoss)
+
+    def _generate(self, prompts, toks, lens, cache_len: int, mnt: int,
+                  mnts, eoss) -> List[List[int]]:
+        dev = self.device
+        b, max_len = toks.shape
         logits, cache = lm_prefill(self.params, self.cfg,
                                    torch.as_tensor(toks, device=dev),
                                    cache_len=cache_len,

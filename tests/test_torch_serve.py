@@ -197,7 +197,7 @@ def test_bucket_cache_len_matches_jax():
     (ServeConfig(weights="rtn:fp4"), NotImplementedError),
     (ServeConfig(weights="rtn:int4", quantized_storage=False),
      NotImplementedError),
-    (ServeConfig(act_fmt="int8"), NotImplementedError),
+    (ServeConfig(weights="rr:int8"), NotImplementedError),
     (ServeConfig(use_kernel=True), ValueError),
 ])
 def test_features_outside_the_slice_raise(scfg, exc):
@@ -215,11 +215,16 @@ def test_unported_block_kinds_raise():
 
 
 def test_paged_decode_raises():
+    """Paged decode is ported; it refuses a block size that is not the
+    pool's block length."""
     _, _, tcfg, tparams = _setup("serve")
-    cache = tlm.init_cache(tcfg, 1, 16, kv_quant="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.lm_decode(tparams, tcfg, cache, torch.zeros(1, 1).long(),
-                      torch.zeros(1).long(), block_tables=torch.zeros(1, 2))
+    pool = tlm.init_cache(tcfg, 4, 8, kv_quant="int8", device="cpu")
+    tables = torch.zeros(1, 2, dtype=torch.int32)
+    for block_size in (0, 4):
+        with pytest.raises(ValueError, match="block_size"):
+            tlm.lm_decode(tparams, tcfg, pool, torch.zeros(1, 1).long(),
+                          torch.zeros(1).long(), block_tables=tables,
+                          block_size=block_size)
 
 
 def test_prepare_params_rtn_int4_stores_qtensors():
