@@ -6,9 +6,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each kernel against its plain PyTorch version on the card at the
 shapes its path gives it (and times kernel, plain version, a one-call
 PyTorch yardstick where there is one and the least time the card could
-take), drives the K-major ``wq_matmul`` (which no serving path reaches)
-through one layer's matmuls, then drives the ported paths with their
-launch counts checked:
+take; ``wqt_matmul`` and ``wq_matmul`` rows also name the instance that
+ran and check that two launches agree bit for bit), drives the K-major
+``wq_matmul`` (which no serving path reaches) through one layer's
+matmuls, times one decode layer's 7 matmuls back to back for both (the
+``layer`` rows), then drives the ported paths with their launch counts
+checked:
 
 * serving: full-width 40-layer Granite-3-2B with int4 weights and an int8
   KV cache through ``Engine``, and the card's prefill and first
@@ -79,12 +82,16 @@ class Timer:
     def __init__(self, dev):
         self.flush = torch.ones(512 << 20, dtype=torch.uint8, device=dev)
 
-    def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
+    def __call__(self, fn, iters: int = 10, warmup: int = 2,
+                 flushes: int = 1) -> float:
+        """``flushes`` reads of the buffer before each launch: more keep
+        the card busy while the host enqueues a longer ``fn``."""
         for _ in range(warmup):
             fn()
         total = 0.0
         for _ in range(iters):
-            self.flush.sum()
+            for _ in range(flushes):
+                self.flush.sum()
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -108,12 +115,16 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
 
 WQT_SHAPES = [(2048, 2048), (512, 2048), (8192, 2048), (2048, 8192),
               (49155, 2048)]
+# decode (1, 8), the GEMV's edge (12, 16), the GEMM's first M (17), prefill
+WQT_MS = (1, 8, 12, 16, 17, 64, 1024)
 # beyond the main path: fp32 activations, and code rows that are not a
-# multiple of 16 bytes (K = 1000), which take the scalar code loads:
+# multiple of 16 bytes (K = 1000), which take the scalar code loads; quant
+# blocks of 32 (several per K step of the GEMV and the GEMM):
 # (N, K, block_k, M values, dtype)
 WQT_EXTRA = [(2048, 2048, 128, (1, 8, 64), torch.float32),
              (1000, 1000, 8, (1, 8, 130), torch.float32),
-             (1000, 1000, -1, (1, 8, 130), torch.bfloat16)]
+             (1000, 1000, -1, (1, 8, 130), torch.bfloat16),
+             (1024, 1024, 32, (8, 40), torch.bfloat16)]
 # the 7 weight matmuls of one Granite layer: (N, K) -> count
 LAYER_MATMULS = {(2048, 2048): 2, (512, 2048): 2, (8192, 2048): 2,
                  (2048, 8192): 1}
@@ -122,18 +133,23 @@ LAYER_MATMULS = {(2048, 2048): 2, (512, 2048): 2, (8192, 2048): 2,
 def check_wqt_one(timer, gen, dev, qt, w_lib, *, m, n, k, bits, block_k,
                   dtype):
     from repro_torch.kernels.wq_matmul import wqt_matmul
+    from repro_torch.kernels.wq_matmul.ops import launch_plan
     from repro_torch.kernels.wq_matmul.ref import wqt_matmul_ref
     x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
     got = wqt_matmul(x, qt.codes, qt.scales, block_k, bits)
+    again = wqt_matmul(x, qt.codes, qt.scales, block_k, bits)
     ref = wqt_matmul_ref(x, qt.codes, qt.scales, block_k, bits == 4)
     torch.cuda.synchronize()
     err = float((got.float() - ref.float()).abs().max())
     tol = rel_tol(dtype) * float(ref.float().abs().max())
+    plan = launch_plan(x, qt.codes, block_k, bits)
     row = dict(phase="check", kernel="wqt_matmul", M=m, N=n, K=k, bits=bits,
                block_k=block_k, dtype=str(dtype).replace("torch.", ""),
+               variant=plan.instance, splits=plan.splits,
                vec_loads=qt.codes.shape[1] % 16 == 0, max_abs_err=err,
-               tol=tol)
-    if not (err <= tol and torch.isfinite(got).all()):
+               tol=tol, deterministic=bool(torch.equal(got, again)))
+    if not (err <= tol and torch.isfinite(got).all()
+            and row["deterministic"]):
         emit(row)
         raise AssertionError(f"wqt_matmul disagrees: {row}")
     nbytes = x.numel() * x.element_size() + qt.nbytes \
@@ -154,7 +170,7 @@ def check_wqt(timer, dev):
     from repro_torch.core.qtensor import quantize_qtensor
     from repro_torch.kernels.wq_matmul import dequant_t_ref
     gen = torch.Generator(device=dev).manual_seed(1)
-    cases = [(n, k, bk, (1, 8, 64, 1024), torch.bfloat16)
+    cases = [(n, k, bk, WQT_MS, torch.bfloat16)
              for n, k in WQT_SHAPES for bk in (-1, 128)]
     cases += WQT_EXTRA
     rows = []
@@ -434,18 +450,23 @@ def check_wq_one(timer, gen, dev, *, m, n, k, bits, block_k=128,
                  dtype=torch.bfloat16):
     from repro_torch.kernels.wq_matmul import (dequant_ref, pack_weight,
                                                wq_matmul, wq_matmul_ref)
+    from repro_torch.kernels.wq_matmul.ops import launch_plan
     w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
     codes, scales = pack_weight(w, block_k, bits)
     x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
     got = wq_matmul(x, codes, scales, block_k, bits)
+    again = wq_matmul(x, codes, scales, block_k, bits)
     ref = wq_matmul_ref(x, codes, scales, block_k, bits == 4)
     torch.cuda.synchronize()
     err = float((got.float() - ref.float()).abs().max())
     tol = rel_tol(dtype) * float(ref.float().abs().max())
+    plan = launch_plan(x, codes, block_k, bits, kmajor=True)
     row = dict(phase="check", kernel="wq_matmul", M=m, N=n, K=k, bits=bits,
                block_k=block_k, dtype=str(dtype).replace("torch.", ""),
-               max_abs_err=err, tol=tol)
-    if not (err <= tol and torch.isfinite(got).all()):
+               variant=plan.instance, splits=plan.splits, max_abs_err=err,
+               tol=tol, deterministic=bool(torch.equal(got, again)))
+    if not (err <= tol and torch.isfinite(got).all()
+            and row["deterministic"]):
         emit(row)
         raise AssertionError(f"wq_matmul disagrees: {row}")
     nbytes = (x.numel() * x.element_size() + codes.numel() + scales.numel() * 4
@@ -489,15 +510,76 @@ def wq_path(dev):
     return row
 
 
+# the decode edge (12), the GEMV's last M (16), the GEMM's first (17)
+WQ_MS = (8, 12, 16, 17, 128)
+
+
 def check_wq(timer, dev):
     gen = torch.Generator(device=dev).manual_seed(9)
     rows = [check_wq_one(timer, gen, dev, m=m, n=n, k=k, bits=bits)
-            for (n, k) in LAYER_MATMULS for bits in (4, 8) for m in A8_MS]
-    # beyond the main shapes: fp32 activations and a ragged N (scalar loads)
+            for (n, k) in LAYER_MATMULS for bits in (4, 8) for m in WQ_MS]
+    # beyond the main shapes: fp32 activations and a ragged N (scalar
+    # loads); quant blocks of 16 in the GEMV and the GEMM
     rows.append(check_wq_one(timer, gen, dev, m=8, n=1000, k=1024, bits=4,
                              block_k=64, dtype=torch.float32))
     rows.append(check_wq_one(timer, gen, dev, m=130, n=1000, k=1024, bits=8,
                              block_k=64, dtype=torch.float32))
+    rows.append(check_wq_one(timer, gen, dev, m=8, n=1024, k=1024, bits=4,
+                             block_k=16))
+    rows.append(check_wq_one(timer, gen, dev, m=40, n=1024, k=1024, bits=8,
+                             block_k=16))
+    return rows
+
+
+def layer_rows(timer, dev):
+    """One Granite layer's 7 weight matmuls at M = 8 (bf16 x) launched back
+    to back between one pair of events after one L2 flush, as a decode
+    step meets them (no per-call floor counted seven times), for each
+    kernel and for its library call (``torch.matmul`` on the dequantized
+    bf16 weights): ``wqt_matmul`` on int4 per-tensor out-major codes,
+    ``wq_matmul`` on K-major int4 codes with block 128.  Four flush reads
+    (about 0.6 ms of device work) cover the host's enqueue of 7 calls."""
+    from repro_torch.core.qtensor import quantize_qtensor
+    from repro_torch.kernels.wq_matmul import (dequant_ref, dequant_t_ref,
+                                               pack_weight, wq_matmul,
+                                               wqt_matmul)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = {k: torch.randn((8, k), generator=gen, device=dev).to(torch.bfloat16)
+         for k in {s[1] for s in LAYER_MATMULS}}
+    mats = [s for s, c in LAYER_MATMULS.items() for _ in range(c)]
+    ws = [torch.randn(s, generator=gen, device=dev) / math.sqrt(s[1])
+          for s in mats]
+    qts = [quantize_qtensor(w, "int4", -1) for w in ws]
+    kn = [pack_weight(w.T.contiguous(), 128, 4) for w in ws]
+    lib_t = [dequant_t_ref(q.codes, q.scales, -1, True).to(torch.bfloat16)
+             for q in qts]
+    lib_k = [dequant_ref(c, s, 128, True).to(torch.bfloat16) for c, s in kn]
+    del ws
+
+    def wqt():
+        for (_, k), q in zip(mats, qts):
+            wqt_matmul(x[k], q.codes, q.scales, -1, 4)
+
+    def wqt_lib():
+        for (_, k), w in zip(mats, lib_t):
+            torch.matmul(x[k], w.T)
+
+    def wq():
+        for (_, k), (c, s) in zip(mats, kn):
+            wq_matmul(x[k], c, s, 128, 4)
+
+    def wq_lib():
+        for (_, k), w in zip(mats, lib_k):
+            torch.matmul(x[k], w)
+
+    rows = []
+    for name, run, lib in (("wqt_matmul", wqt, wqt_lib),
+                           ("wq_matmul", wq, wq_lib)):
+        row = dict(phase="layer", kernel=name, M=8, matmuls=len(mats),
+                   ms=timer(run, flushes=4),
+                   library_ms=timer(lib, flushes=4))
+        emit(row)
+        rows.append(row)
     return rows
 
 
@@ -877,7 +959,7 @@ def card_vs_cpu(dev):
                first_token_agreement=first_agree)
     emit(row)
     if not err <= tol:
-        raise AssertionError(f"card and CPU logits disagree: {row}")
+        raise AssertionError("card and CPU logits disagree", row)
     return row
 
 
@@ -1408,6 +1490,7 @@ def main() -> int:
               "a8": lambda: check_a8(timer, dev),
               "wq": lambda: check_wq(timer, dev),
               "wq_path": lambda: wq_path(dev),
+              "layer": lambda: layer_rows(timer, dev),
               "quant": lambda: check_quant(timer, dev),
               "lotion_reg": lambda: check_lotion_reg(timer, dev),
               "opt_step": lambda: check_opt_step(timer, dev),
@@ -1425,7 +1508,8 @@ def main() -> int:
         t0 = time.perf_counter()
         out[name] = run()
         emit(dict(phase="timing", of=name, seconds=time.perf_counter() - t0))
-        if name in ("a8", "wq", "quant", "lotion_reg", "opt_step"):
+        if name in ("a8", "wq", "layer", "quant", "lotion_reg",
+                    "opt_step"):
             # the timer's flush buffer stays; the checks' inputs go
             torch.cuda.empty_cache()
 
@@ -1461,9 +1545,14 @@ def kernels_line(out):
     RR eval casts) and the loss-placement phase (lotion_reg).
     ``worst_err_over_tol`` is over every check row of the kernel."""
     wqt_rows, attn_rows, serve = out["wqt"], out["attn"], out["serve"]
-    dec = {(r["N"], r["K"]): r for r in wqt_rows
-           if r["M"] == 8 and r["bits"] == 4 and r["block_k"] == -1
-           and r["dtype"] == "bfloat16" and (r["N"], r["K"]) in LAYER_MATMULS}
+    def per_tensor4(m):
+        return {(r["N"], r["K"]): r for r in wqt_rows
+                if r["M"] == m and r["bits"] == 4 and r["block_k"] == -1
+                and r["dtype"] == "bfloat16"
+                and (r["N"], r["K"]) in LAYER_MATMULS}
+
+    dec, pre = per_tensor4(8), per_tensor4(1024)
+    layer = {r["kernel"]: r for r in out["layer"]}
 
     b_bytes = sum(
         (8 * s[1] * 2 + s[0] * s[1] // 2 + 4 + 8 * s[0] * 2) * c
@@ -1484,7 +1573,15 @@ def kernels_line(out):
              shape="one decode layer: 7 matmuls, M=8, int4 per-tensor, bf16",
              ms=_layer_sum(dec, "ms"), plain_ms=_layer_sum(dec, "plain_ms"),
              bound_ms=wqt_bound, bound_by=wqt_by,
-             library_ms=_layer_sum(dec, "library_ms")),
+             library_ms=_layer_sum(dec, "library_ms"),
+             layer_ms=layer["wqt_matmul"]["ms"],
+             layer_library_ms=layer["wqt_matmul"]["library_ms"],
+             variants=sorted({r["variant"] for r in wqt_rows}),
+             prefill_shape="one prefill layer: 7 matmuls, M=1024, int4 "
+                           "per-tensor, bf16",
+             prefill_ms=_layer_sum(pre, "ms"),
+             prefill_bound_ms=_layer_sum(pre, "bound_ms"),
+             prefill_library_ms=_layer_sum(pre, "library_ms")),
         dict(name="decode_attn", route="cuda",
              source="src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
              replaces="src/repro/kernels/decode_attn/decode_attn.py:123",
@@ -1595,6 +1692,7 @@ def sched_kernel_lines(out):
     paged = next(r for r in out["paged"] if r["bs"] == 16 and r["bits"] == 8
                  and r["window"] is None and r["dtype"] == "bfloat16")
     sched = out["sched"]
+    layer = {r["kernel"]: r for r in out["layer"]}
     return [
         dict(name="wqt_matmul_a8", route="cuda",
              source="src/repro_torch/kernels/wq_matmul/csrc/wqt_matmul_a8.cu",
@@ -1636,7 +1734,10 @@ def sched_kernel_lines(out):
                    "block 128, bf16",
              ms=_layer_sum(wq, "ms"), plain_ms=_layer_sum(wq, "plain_ms"),
              bound_ms=wq_bound[0], bound_by=wq_bound[1],
-             library_ms=_layer_sum(wq, "library_ms")),
+             library_ms=_layer_sum(wq, "library_ms"),
+             layer_ms=layer["wq_matmul"]["ms"],
+             layer_library_ms=layer["wq_matmul"]["library_ms"],
+             variants=sorted({r["variant"] for r in out["wq"]})),
     ]
 
 

@@ -10,6 +10,13 @@ fp32, 3 LOTION steps, then the fp32 and RTN eval CE):
 * ``no_update``     — ``opt_step`` with ok = 0 (no parameter update);
 * ``unrounded_rtn`` — the RTN eval cast returns the weights unrounded.
 
+Static serving (phase ``serve_card_vs_cpu``: 2-layer Granite-3-2B at full
+width, int4 weights, prefill and first decode-step logits):
+
+* ``dropped_k_split`` — ``wqt_matmul``'s launch plan drops its last K
+  split (its last K step where there is one split), so every weight
+  matmul on the card misses part of its contraction.
+
 Scheduling (phases ``sched_card_vs_cpu`` and ``sched_ring_vs_paged``: the
 paged W4A8 scheduler on 2 and 4 full-width layers):
 
@@ -90,12 +97,22 @@ def _view(orig):
     return chunk
 
 
+def _drop_last_split(orig):
+    def plan(*args, **kw):
+        p = orig(*args, **kw)
+        if p.splits > 1:
+            return p._replace(splits=p.splits - 1)
+        return p._replace(k_per_split=p.k_per_split - p.tile_k)
+    return plan
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("planted_faults_torch: needs a CUDA device", file=sys.stderr)
         return 1
     import repro_torch.core.qtensor as qtensor
     import repro_torch.kernels.quant as quant
+    from repro_torch.kernels.wq_matmul import ops as wq_ops
     import repro_torch.models.layers as layers
     import repro_torch.optim.fused as fused
     import repro_torch.serve.scheduler as scheduler
@@ -112,6 +129,10 @@ def main() -> int:
                                            _step_with(ok=0.0))),
             ("unrounded_rtn", lambda: _patched(quant, "quant_rtn",
                                                _unrounded))]),
+        ([("serve_card_vs_cpu", cs.card_vs_cpu)], [
+            sound,
+            ("dropped_k_split", lambda: _patched(wq_ops, "plan",
+                                                 _drop_last_split))]),
         ([("sched_card_vs_cpu", cs.sched_card_vs_cpu),
           ("sched_ring_vs_paged", cs.sched_ring_vs_paged)], [
             sound,

@@ -1,14 +1,20 @@
 """Wrappers of the weight-quantized matmul CUDA kernels (``csrc/``):
-``wqt_matmul`` (out-major codes) and ``wq_matmul`` (K-major codes), two
-instances of ``wqt_matmul.cu``, and ``wqt_matmul_a8`` (int8 activation
+``wqt_matmul`` (out-major codes) and ``wq_matmul`` (K-major codes), the two
+entry points of ``wqt_matmul.cu``, and ``wqt_matmul_a8`` (int8 activation
 codes against out-major codes, ``wqt_matmul_a8.cu``).
 
 For a CUDA tensor each launches its kernel or raises; for a CPU tensor it
 takes the plain version in ``ref.py``.  Each wrapper's ``.launches`` counts
-its kernel's launches (nothing else adds to it).
+its kernel's launches (nothing else adds to it).  ``plan`` chooses how
+``wqt_matmul.cu`` runs a call: its instance (tensor-core GEMV or GEMM for
+bf16 x, fp32 FMA tiles otherwise), tile and K splits.
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -68,6 +74,156 @@ def _vec_ok(codes: torch.Tensor, row_bytes: int) -> int:
     return int(row_bytes % 16 == 0 and codes.data_ptr() % 16 == 0)
 
 
+# --------------------------------------------------------------------------
+# The launch plan of wqt_matmul.cu (both layouts)
+# --------------------------------------------------------------------------
+
+SMS = 132                          # streaming multiprocessors of an H100 SXM
+INSTANCES = ("gemv", "gemm", "fma")   # index = the C launcher's ``instance``
+GEMV_K = 128                       # K step of the GEMV's pipeline stages
+GEMM_K = 64                        # K step of the GEMM's
+GEMM_TILE = 128                    # the GEMM's (M, N) block tile
+FMA_K = 64
+CLUSTER_SPLITS = 8                 # tensor-core splits: one cluster per tile
+GEMM_MIN_SPLIT_K = 256             # the GEMM splits K no finer than this
+GEMV_TARGET_BLOCKS = 2 * SMS       # the GEMV splits K up to about this grid
+GEMM_SPLIT_BELOW = SMS             # the GEMM splits K below this many tiles
+
+
+class Plan(NamedTuple):
+    """How ``wqt_matmul.cu`` runs one call: the instance, its (M, N) block
+    tile and K step, ``splits`` K splits (grid z) of ``k_per_split`` each,
+    the grid's block count, and the global workspace of the FMA instance's
+    split-K: fp32 partial tiles and one counter per tile (the tensor-core
+    instances reduce their splits inside a cluster and need none)."""
+    instance: str
+    tile_m: int
+    tile_n: int
+    tile_k: int
+    splits: int
+    k_per_split: int
+    blocks: int
+    workspace_bytes: int
+    counters: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _split(tiles: int, units: int, target: int, max_splits: int):
+    """(splits, units per split) of ``units`` K units so that
+    ``tiles * splits`` reaches about ``target`` blocks."""
+    units = max(units, 1)
+    want = max(1, min(units, max_splits, _cdiv(target, tiles)))
+    per = _cdiv(units, want)
+    return _cdiv(units, per), per
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, N: int, K: int, dtype: torch.dtype, bits: int,
+         block_k: int, kmajor: bool = False, aligned: bool = True) -> Plan:
+    """The launch plan for x (M, K) of ``dtype`` against (N, K) codes of
+    ``bits`` (int4 and int8 share every plan today).
+
+    ``aligned``: every code row and x start 16-byte aligned (K-major:
+    N % 16 == 0).  bf16 x with aligned codes and ``block_k`` -1 or a
+    multiple of 16 takes the tensor cores: the GEMV at M <= 16 (K a
+    multiple of 128), the GEMM above (K a multiple of 64).  Anything else
+    takes the fp32 FMA tiles.  K splits start at multiples of the K step
+    and of ``block_k``, so no split cuts a quant block; the tensor-core
+    instances split at most 8 ways (one cluster per tile).  The GEMV
+    splits K toward about two blocks per SM and takes the widest tile (64,
+    32 or 16 columns) whose grid then holds at least one block per SM; the
+    GEMM splits K only where its tiles number fewer than the SMs."""
+    tensor_core = (dtype == torch.bfloat16 and aligned
+                   and (block_k == -1 or block_k % 16 == 0))
+    if tensor_core and M <= 16 and K % GEMV_K == 0:
+        unit = math.lcm(GEMV_K, block_k) if block_k > 0 else GEMV_K
+        tile_m, tile_k, instance = (8 if M <= 8 else 16), GEMV_K, "gemv"
+        for tile_n in (64, 32, 16):        # the widest that fills the SMs
+            tiles = _cdiv(N, tile_n)
+            splits, per = _split(tiles, K // unit, GEMV_TARGET_BLOCKS,
+                                 CLUSTER_SPLITS)
+            if tiles * splits >= SMS:
+                break
+    elif tensor_core and M > 16 and K % GEMM_K == 0:
+        unit = math.lcm(GEMM_K, block_k) if block_k > 0 else GEMM_K
+        tile_m = tile_n = GEMM_TILE
+        tile_k, instance = GEMM_K, "gemm"
+        tiles = _cdiv(M, tile_m) * _cdiv(N, tile_n)
+        splits, per = _split(
+            tiles, K // unit, SMS if tiles < GEMM_SPLIT_BELOW else 1,
+            min(CLUSTER_SPLITS, max(1, K // max(GEMM_MIN_SPLIT_K, unit))))
+    else:
+        unit = tile_k = FMA_K
+        tile_m, tile_n = (16, 128) if M <= 16 else (64, 64)
+        tiles = _cdiv(M, tile_m) * _cdiv(N, tile_n)
+        splits, per = _split(tiles, _cdiv(K, unit), 2 * SMS, _cdiv(K, unit))
+        instance = "fma"
+    tiles = _cdiv(M, tile_m) * _cdiv(N, tile_n)
+    k_per_split = per * unit if splits > 1 else K
+    global_split = instance == "fma" and splits > 1
+    return Plan(instance, tile_m, tile_n, tile_k, splits, k_per_split,
+                tiles * splits, splits * M * N * 4 if global_split else 0,
+                tiles if global_split else 0)
+
+
+def launch_plan(x: torch.Tensor, codes: torch.Tensor, block_k: int,
+                bits: int, kmajor: bool = False) -> Plan:
+    """``plan`` for these tensors (what the wrapper launches)."""
+    M, K = x.shape
+    N = codes.shape[1] if kmajor else codes.shape[0]
+    vec_ok = _vec_ok(codes, N if kmajor else codes.shape[1])
+    return plan(M, N, K, x.dtype, bits, block_k, kmajor,
+                aligned=bool(vec_ok) and x.data_ptr() % 16 == 0)
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """Zeroed int32 tile counters of the split-K reduction.  The kernel
+    leaves them zero, so one buffer per (device, stream) serves every
+    call on that stream."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
+def _launch(name: str, x, codes, scales, block_k: int, bits: int,
+            kmajor: bool) -> torch.Tensor:
+    """Launch ``wqt_matmul.cu``'s entry point for one layout."""
+    from repro_torch.kernels import _build
+    lib = _build.lib()
+    M, K = x.shape
+    N = codes.shape[1] if kmajor else codes.shape[0]
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    p = launch_plan(x, codes, block_k, bits, kmajor)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    work = counters = None
+    if p.workspace_bytes:
+        # fp32 partial tiles of the K splits (kept alive through the launch)
+        work = torch.empty(p.workspace_bytes // 4, dtype=torch.float32,
+                           device=x.device)
+        counters = _counters(x.device, stream, p.counters)
+    entry = lib.wq_matmul_launch if kmajor else lib.wqt_matmul_launch
+    err = entry(x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                out.data_ptr(), work.data_ptr() if work is not None else None,
+                counters.data_ptr() if counters is not None else None,
+                M, N, K, block_k, bits, _DTYPES[x.dtype],
+                INSTANCES.index(p.instance), p.tile_m, p.tile_n, p.splits,
+                p.k_per_split, _vec_ok(codes, N if kmajor else codes.shape[1]),
+                stream)
+    _build.check(err, name)
+    return out
+
+
 def wqt_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
                block_k: int = -1, bits: int = 8) -> torch.Tensor:
     """x (M, K) @ dequant(codes (N, K[/2]), scales)^T -> (M, N) in x.dtype.
@@ -81,22 +237,7 @@ def wqt_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     _check_cuda("wqt_matmul", x=x, codes=codes, scales=scales)
     if x.dtype not in _DTYPES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
-    from repro_torch.kernels import _build
-    lib = _build.lib()
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    if M == 0 or N == 0:
-        return out
-    splits = lib.wqt_matmul_splits(M, N, K)
-    # fp32 partial tiles of the K splits (kept alive through the launch)
-    work = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.wqt_matmul_launch(x.data_ptr(), codes.data_ptr(),
-                                scales.data_ptr(), out.data_ptr(),
-                                work.data_ptr() if work is not None else None,
-                                M, N, K, block_k, bits, _DTYPES[x.dtype],
-                                _vec_ok(codes, codes.shape[1]), stream)
-    _build.check(err, "wqt_matmul")
+    out = _launch("wqt_matmul", x, codes, scales, block_k, bits, False)
     wqt_matmul.launches += 1
     return out
 
@@ -181,21 +322,7 @@ def wq_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     _check_cuda("wq_matmul", x=x, codes=codes, scales=scales)
     if x.dtype not in _DTYPES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
-    from repro_torch.kernels import _build
-    lib = _build.lib()
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    if M == 0 or N == 0:
-        return out
-    splits = lib.wqt_matmul_splits(M, N, K)
-    work = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.wq_matmul_launch(x.data_ptr(), codes.data_ptr(),
-                               scales.data_ptr(), out.data_ptr(),
-                               work.data_ptr() if work is not None else None,
-                               M, N, K, block_k, bits, _DTYPES[x.dtype],
-                               _vec_ok(codes, N), stream)
-    _build.check(err, "wq_matmul")
+    out = _launch("wq_matmul", x, codes, scales, block_k, bits, True)
     wq_matmul.launches += 1
     return out
 
