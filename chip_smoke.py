@@ -6,8 +6,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each kernel against its plain PyTorch version on the card at the
 shapes its path gives it (and times kernel, plain version, a one-call
 PyTorch yardstick where there is one and the least time the card could
-take; ``wqt_matmul`` and ``wq_matmul`` rows also name the instance that
-ran and check that two launches agree bit for bit), drives the K-major
+take; ``wqt_matmul``, ``wq_matmul``, ``decode_attn`` and
+``decode_attn_paged`` rows also name the instance that ran and its
+splits, and check that two launches agree bit for bit), drives the K-major
 ``wq_matmul`` (which no serving path reaches) through one layer's
 matmuls, times one decode layer's 7 matmuls back to back for both (the
 ``layer`` rows), then drives the ported paths with their launch counts
@@ -213,10 +214,12 @@ def check_attn_one(timer, gen, dev, *, b, L, g, rep, hd, bits, window,
     from repro_torch.kernels.decode_attn import (decode_attn,
                                                  decode_attn_ref,
                                                  ring_validity)
+    from repro_torch.kernels.decode_attn.ops import launch_plan
     q, k, v = _attn_inputs(gen, dev, b, L, g, rep, hd, bits, dtype)
     args = (k["codes"], k["scale"], v["codes"], v["scale"], pos)
     kw = dict(bits=bits, window=window, softcap=softcap)
     got = decode_attn(q, *args, **kw)
+    again = decode_attn(q, *args, **kw)
     # the plain version in fp32 on the same (exactly upcast) inputs
     ref = decode_attn_ref(q.float(), *args, **kw)
     torch.cuda.synchronize()
@@ -226,13 +229,18 @@ def check_attn_one(timer, gen, dev, *, b, L, g, rep, hd, bits, window,
     tol_bg = rel_tol(dtype) * ref.abs().amax(dim=(2, 3))
     worst = float((err_bg / tol_bg.clamp_min(1e-30)).max())
     err, tol = float(err_bg.max()), float(tol_bg.min())
+    plan = launch_plan(q, k["codes"], v["codes"], L, bits)
     row = dict(phase="check", kernel="decode_attn", b=b, L=L, g=g, rep=rep,
                hd=hd, bits=bits, window=window, softcap=softcap,
                dtype=str(dtype).replace("torch.", ""), vec_loads=(
                    hd // 2 if bits == 4 else hd) % 16 == 0,
-               pos=pos.tolist(), max_abs_err=err, min_row_tol=tol,
-               worst_err_over_tol=worst)
-    if not (bool((err_bg <= tol_bg).all()) and torch.isfinite(got).all()):
+               variant=plan.instance, splits=plan.splits,
+               slots_per_split=plan.slots_per_split, stages=plan.stages,
+               blocks=plan.blocks, pos=pos.tolist(), max_abs_err=err,
+               min_row_tol=tol, worst_err_over_tol=worst,
+               deterministic=bool(torch.equal(got, again)))
+    if not (bool((err_bg <= tol_bg).all()) and torch.isfinite(got).all()
+            and row["deterministic"]):
         emit(row)
         raise AssertionError(f"decode_attn disagrees: {row}")
     valid = ring_validity(pos, L, window)
@@ -278,8 +286,17 @@ def check_attn(timer, dev):
                     timer, gen, dev, b=b, L=L, g=g, rep=rep, hd=64,
                     bits=bits, window=window, softcap=softcap,
                     pos=ragged(L)))
-    # beyond the main path: fp32 queries, and hd = 16 (int4 code rows of 8
-    # bytes take the scalar code loads)
+    # one tile (L = 16), and a long ring where every row holds one slot
+    # (pos = 0: all splits but the first are empty)
+    rows.append(check_attn_one(timer, gen, dev, b=b, L=16, g=g, rep=rep,
+                               hd=64, bits=8, window=None, softcap=None,
+                               pos=ragged(16)))
+    rows.append(check_attn_one(
+        timer, gen, dev, b=b, L=4096, g=g, rep=rep, hd=64, bits=8,
+        window=None, softcap=None,
+        pos=torch.zeros(b, dtype=torch.int32, device=dev)))
+    # beyond the main path (the fma instance): fp32 queries, and hd = 16
+    # (int4 code rows of 8 bytes take the scalar code loads)
     for hd, bits, dtype in ((64, 8, torch.float32), (64, 4, torch.float32),
                             (16, 4, torch.bfloat16), (16, 4, torch.float32)):
         rows.append(check_attn_one(
@@ -300,6 +317,7 @@ def check_paged_one(timer, gen, dev, *, b, bs, bps, g, rep, hd, bits, window,
                                                  decode_attn_paged_ref,
                                                  gather_pool_ref,
                                                  ring_validity)
+    from repro_torch.kernels.decode_attn.ops import launch_plan
     n_blocks = b * bps + 1                # block 0 is the never-read null
     # every row's blocks, shuffled over the pool
     perm = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
@@ -309,6 +327,7 @@ def check_paged_one(timer, gen, dev, *, b, bs, bps, g, rep, hd, bits, window,
     args = (k["codes"], k["scale"], v["codes"], v["scale"], bt, pos)
     kw = dict(bits=bits, window=window, softcap=softcap)
     got = decode_attn_paged(q, *args, **kw)
+    again = decode_attn_paged(q, *args, **kw)
     ref = decode_attn_paged_ref(q.float(), *args, **kw)
     view = [gather_pool_ref(t, bt) for t in args[:4]]
     ring = decode_attn(q, *view, pos, **kw)
@@ -316,15 +335,20 @@ def check_paged_one(timer, gen, dev, *, b, bs, bps, g, rep, hd, bits, window,
     err_bg = (got.float() - ref).abs().amax(dim=(2, 3))
     tol_bg = rel_tol(dtype) * ref.abs().amax(dim=(2, 3))
     L = bps * bs
+    plan = launch_plan(q, k["codes"], v["codes"], L, bits)
     row = dict(phase="check", kernel="decode_attn_paged", b=b, bs=bs, bps=bps,
                L=L, g=g, rep=rep, hd=hd, bits=bits, window=window,
                softcap=softcap, dtype=str(dtype).replace("torch.", ""),
-               pos=pos.tolist(), max_abs_err=float(err_bg.max()),
+               variant=plan.instance, splits=plan.splits,
+               slots_per_split=plan.slots_per_split, stages=plan.stages,
+               blocks=plan.blocks, pos=pos.tolist(),
+               max_abs_err=float(err_bg.max()),
                min_row_tol=float(tol_bg.min()),
                worst_err_over_tol=float((err_bg / tol_bg.clamp_min(1e-30)).max()),
-               bitwise_vs_decode_attn=bool(torch.equal(got, ring)))
+               bitwise_vs_decode_attn=bool(torch.equal(got, ring)),
+               deterministic=bool(torch.equal(got, again)))
     if not (bool((err_bg <= tol_bg).all()) and torch.isfinite(got).all()
-            and row["bitwise_vs_decode_attn"]):
+            and row["bitwise_vs_decode_attn"] and row["deterministic"]):
         emit(row)
         raise AssertionError(f"decode_attn_paged disagrees: {row}")
     n_valid = int(ring_validity(pos, L, window).sum())
@@ -366,11 +390,21 @@ def check_paged(timer, dev):
             rows.append(check_paged_one(
                 timer, gen, dev, b=b, bs=bs, bps=bps, g=8, rep=4, hd=64,
                 bits=bits, window=window, softcap=softcap, pos=pos))
-    # beyond the main path: blocks that do not divide the 64-slot tile
-    # (bs = 24), and fp32 queries
+    # a long pool ring (4096 slots in 256 blocks of 16)
+    L4 = 16 * 256
+    rows.append(check_paged_one(
+        timer, gen, dev, b=b, bs=16, bps=256, g=8, rep=4, hd=64, bits=8,
+        window=None, softcap=None,
+        pos=torch.tensor([0, 5, L4 // 3, L4 - 1, L4, L4 + 7, 2 * L4 + 3,
+                          5 * L4 - 2], dtype=torch.int32, device=dev)))
+    # beyond the main path: blocks that divide neither the 64-slot tile nor
+    # the split (bs = 24 and 48; splits of 64 slots), and fp32 queries
     rows.append(check_paged_one(timer, gen, dev, b=b, bs=24, bps=11, g=8,
                                 rep=4, hd=64, bits=8, window=None,
                                 softcap=None, pos=pos % (24 * 11 * 3)))
+    rows.append(check_paged_one(timer, gen, dev, b=b, bs=48, bps=6, g=8,
+                                rep=4, hd=64, bits=4, window=100,
+                                softcap=50.0, pos=pos % (48 * 6 * 3)))
     rows.append(check_paged_one(timer, gen, dev, b=b, bs=bs, bps=bps, g=8,
                                 rep=4, hd=64, bits=4, window=64, softcap=50.0,
                                 pos=pos, dtype=torch.float32))
@@ -1559,8 +1593,8 @@ def kernels_line(out):
         for s, c in LAYER_MATMULS.items())
     b_flops = sum(2.0 * 8 * s[0] * s[1] * c for s, c in LAYER_MATMULS.items())
     wqt_bound, wqt_by = bound(b_bytes, b_flops)
-    main_attn = next(r for r in attn_rows if r["L"] == 256 and r["bits"] == 8
-                     and r["window"] is None and r["dtype"] == "bfloat16")
+    main_attn = _attn_row(attn_rows, 256)
+    long_attn = _attn_row(attn_rows, 4096)
     lines = [
         dict(name="wqt_matmul", route="cuda",
              source="src/repro_torch/kernels/wq_matmul/csrc/wqt_matmul.cu",
@@ -1592,9 +1626,12 @@ def kernels_line(out):
              worst_err_over_tol=max(r["worst_err_over_tol"]
                                     for r in attn_rows),
              shape="b=8 g=8 rep=4 hd=64 L=256 int8, ragged and wrapped pos",
+             variant=main_attn["variant"], splits=main_attn["splits"],
+             deterministic=all(r["deterministic"] for r in attn_rows),
              ms=main_attn["ms"], plain_ms=main_attn["plain_ms"],
              bound_ms=main_attn["bound_ms"], bound_by=main_attn["bound_by"],
-             library_ms=main_attn["library_ms"]),
+             library_ms=main_attn["library_ms"],
+             **_long_fields(long_attn)),
     ]
 
     def rtn4(r, eligible):
@@ -1660,6 +1697,23 @@ def kernels_line(out):
     return lines
 
 
+def _attn_row(rows, L):
+    """The int8, bf16, windowless check row of ``decode_attn`` or
+    ``decode_attn_paged`` at ring length L with ragged positions (block
+    size 16 for the paged one)."""
+    return next(r for r in rows if r["L"] == L and r["bits"] == 8
+                and r["window"] is None and r["dtype"] == "bfloat16"
+                and r.get("bs", 16) == 16 and max(r["pos"]) > 0)
+
+
+def _long_fields(r):
+    """The L = 4096 row's numbers for a kernels-line entry."""
+    return dict(l4096_variant=r["variant"], l4096_splits=r["splits"],
+                l4096_ms=r["ms"], l4096_plain_ms=r["plain_ms"],
+                l4096_bound_ms=r["bound_ms"],
+                l4096_library_ms=r["library_ms"])
+
+
 def _layer_sum(rows, key):
     """One Granite layer's 7 matmuls summed from the rows keyed (N, K);
     None when a row has no such number."""
@@ -1689,8 +1743,8 @@ def sched_kernel_lines(out):
                          for (n, k), c in LAYER_MATMULS.items()),
                      sum(2.0 * 8 * n * k * c
                          for (n, k), c in LAYER_MATMULS.items()))
-    paged = next(r for r in out["paged"] if r["bs"] == 16 and r["bits"] == 8
-                 and r["window"] is None and r["dtype"] == "bfloat16")
+    paged = _attn_row(out["paged"], 256)
+    long_paged = _attn_row(out["paged"], 4096)
     sched = out["sched"]
     layer = {r["kernel"]: r for r in out["layer"]}
     return [
@@ -1719,9 +1773,11 @@ def sched_kernel_lines(out):
              bitwise_vs_decode_attn=all(r["bitwise_vs_decode_attn"]
                                         for r in out["paged"]),
              shape="b=8 g=8 rep=4 hd=64, 16 shuffled blocks of 16, int8",
+             variant=paged["variant"], splits=paged["splits"],
+             deterministic=all(r["deterministic"] for r in out["paged"]),
              ms=paged["ms"], plain_ms=paged["plain_ms"],
              bound_ms=paged["bound_ms"], bound_by=paged["bound_by"],
-             library_ms=paged["library_ms"]),
+             library_ms=paged["library_ms"], **_long_fields(long_paged)),
         dict(name="wq_matmul", route="cuda",
              source="src/repro_torch/kernels/wq_matmul/csrc/wqt_matmul.cu",
              replaces="src/repro/kernels/wq_matmul/wq_matmul.py:98",

@@ -71,7 +71,8 @@ def build(tmp):
         cu, so = os.path.join(tmp, f"{name}.cu"), os.path.join(tmp, f"{name}.so")
         open(cu, "w").write(text)
         procs.append((name, so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so, cu],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", os.path.dirname(SRC),
+             "-shared", "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     for name, so, proc in procs:
         out, _ = proc.communicate()

@@ -25,7 +25,11 @@ paged W4A8 scheduler on 2 and 4 full-width layers):
 * ``acts_scale_one``    — the int8 activation quantizer uses a row scale
   of 1 (codes saturate);
 * ``shadow_view``       — prefix-trie payloads are views of the partial
-  cache buffer instead of copies.
+  cache buffer instead of copies;
+* ``dropped_attn_split`` — ``decode_attn``'s launch plan has one split
+  fewer.  The splits end at the ring's end, so the first one is never
+  read: at the scheduler's 256-slot ring (4 splits of 64) slots 0-63, the
+  64-token system prompt every request of the workload starts with.
 
     python3 scripts/planted_faults_torch.py
 
@@ -106,12 +110,23 @@ def _drop_last_split(orig):
     return plan
 
 
+def _drop_first_split(orig):
+    def plan(*args, **kw):
+        p = orig(*args, **kw)
+        if p.splits == 1:
+            return p
+        return p._replace(splits=p.splits - 1,
+                          blocks=p.blocks // p.splits * (p.splits - 1))
+    return plan
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("planted_faults_torch: needs a CUDA device", file=sys.stderr)
         return 1
     import repro_torch.core.qtensor as qtensor
     import repro_torch.kernels.quant as quant
+    from repro_torch.kernels.decode_attn import ops as attn_ops
     from repro_torch.kernels.wq_matmul import ops as wq_ops
     import repro_torch.models.layers as layers
     import repro_torch.optim.fused as fused
@@ -141,7 +156,9 @@ def main() -> int:
             ("acts_scale_one", lambda: _patched(
                 qtensor, "quantize_acts_ref", _scale_one)),
             ("shadow_view", lambda: _patched(scheduler, "_chunk_copy",
-                                             _view))]),
+                                             _view)),
+            ("dropped_attn_split", lambda: _patched(attn_ops, "plan",
+                                                    _drop_first_split))]),
     ]
     keys = ("max_rel_diff", "rtol", "max_abs_logit_err", "tol", "partings",
             "tokens_identical", "token_agreement", "attn_launches_equal")

@@ -10,7 +10,8 @@ weights, int8 KV, batch 8), ``chip_smoke.granite_engine``'s workload: two
 ``torch.profiler``, one that only prefills (``max_new_tokens=1``) and one
 that also decodes ``steps - 1`` tokens; their difference, divided by the
 decode steps, gives each decode step's wall time, device time per kernel
-name and launch count, and the device's busy share of the step.
+name and launch count, the decode attention kernels' device time, and
+the device's busy share of the step.
 
 ``--workload sched`` profiles the continuous-batching ``Scheduler`` (W4A8,
 paged int8 KV pool, chunked prefill with the prefix trie),
@@ -68,6 +69,11 @@ def _top(by_name, per, n=12):
                                      key=lambda kv: -kv[1][0])[:n]]
 
 
+def _attn_ms(by_name):
+    """Device ms of the decode attention kernels (ring and paged)."""
+    return sum(v[0] for k, v in by_name.items() if "decode_attn" in k)
+
+
 def profile_sched(args) -> int:
     """``steps`` steady scheduler steps of the sched workload, profiled."""
     from torch.profiler import ProfilerActivity, profile
@@ -104,6 +110,7 @@ def profile_sched(args) -> int:
         step_ms=wall_ms / n, step_device_ms=dev_ms / n,
         device_busy_share=dev_ms / wall_ms,
         launches_per_step=sum(c for _, c in by_name.values()) / n,
+        decode_attn_device_ms=_attn_ms(by_name) / n,
         top=_top(by_name, n))), flush=True)
     return 0
 
@@ -160,6 +167,7 @@ def main() -> int:
         decode_ms_per_step=step_ms, decode_device_ms_per_step=step_dev,
         decode_device_busy_share=step_dev / step_ms,
         decode_launches_per_step=sum(c for _, c in step.values()),
+        decode_attn_device_ms=_attn_ms(step),
         decode_top=[dict(name=k[:80], device_ms=ms, calls=c)
                     for k, (ms, c) in top])), flush=True)
     return 0

@@ -37,10 +37,8 @@ SIGNATURES = {
                              _P],
     "wqt_matmul_a8_segments": [_I, _I, _I, _I],
     "wq_matmul_launch": [_P] * 6 + [_I] * 12 + [_P],
-    "decode_attn_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _F, _I, _I, _P],
-    "decode_attn_paged_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "decode_attn_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 6 + [_P],
+    "decode_attn_paged_launch": [_P] * 8 + [_I] * 8 + [_F] + [_I] * 6 + [_P],
     "quant_launch": [_P, _P, _P, _P, _L, _L, _I, _I, _F, _I, _I, _P],
     "lotion_reg_launch": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _F, _F,
                           _I, _I, _P],
