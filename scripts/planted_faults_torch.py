@@ -4,11 +4,20 @@ each of those phases once sound and once with each fault planted on the
 card side only, by patching a function for the length of the run.
 
 Training (phase ``train_card_vs_cpu``: 2-layer Granite-3-2B at full width,
-fp32, 3 LOTION steps, then the fp32 and RTN eval CE):
+fp32, 3 LOTION steps, then the fp32 and RTN eval CE and the per-step
+penalty):
 
 * ``no_penalty``    — ``opt_step`` with lam = 0 (the decoupled penalty dropped);
 * ``no_update``     — ``opt_step`` with ok = 0 (no parameter update);
 * ``unrounded_rtn`` — the RTN eval cast returns the weights unrounded.
+
+The per-matrix absmax phase of ``quant`` and ``opt_step`` (phases
+``quant_adversarial`` and ``opt_step_adversarial``: the adversarial check
+rows of ``chip_smoke.py``, the largest |w| of each matrix at its first or
+last element or on a chunk boundary, an all-zero matrix, a NaN):
+
+* ``absmax_short`` — the launch plan's absmax phase walks one chunk fewer
+  per matrix than the cast or step phase.
 
 Static serving (phase ``serve_card_vs_cpu``: 2-layer Granite-3-2B at full
 width, int4 weights, prefill and first decode-step logits):
@@ -110,6 +119,13 @@ def _drop_last_split(orig):
     return plan
 
 
+def _scan_short(orig):
+    def plan(*args, **kw):
+        p = orig(*args, **kw)
+        return p._replace(scan_chunks=max(p.chunks - 1, 0))
+    return plan
+
+
 def _drop_first_split(orig):
     def plan(*args, **kw):
         p = orig(*args, **kw)
@@ -126,6 +142,7 @@ def main() -> int:
         return 1
     import repro_torch.core.qtensor as qtensor
     import repro_torch.kernels.quant as quant
+    from repro_torch.kernels.quant import ops as quant_ops
     from repro_torch.kernels.decode_attn import ops as attn_ops
     from repro_torch.kernels.wq_matmul import ops as wq_ops
     import repro_torch.models.layers as layers
@@ -144,6 +161,11 @@ def main() -> int:
                                            _step_with(ok=0.0))),
             ("unrounded_rtn", lambda: _patched(quant, "quant_rtn",
                                                _unrounded))]),
+        ([("quant_adversarial", cs.check_quant_adversarial),
+          ("opt_step_adversarial", cs.check_opt_adversarial)], [
+            sound,
+            ("absmax_short", lambda: _patched(quant_ops, "plan",
+                                              _scan_short))]),
         ([("serve_card_vs_cpu", cs.card_vs_cpu)], [
             sound,
             ("dropped_k_split", lambda: _patched(wq_ops, "plan",
@@ -160,8 +182,10 @@ def main() -> int:
             ("dropped_attn_split", lambda: _patched(attn_ops, "plan",
                                                     _drop_first_split))]),
     ]
-    keys = ("max_rel_diff", "rtol", "max_abs_logit_err", "tol", "partings",
-            "tokens_identical", "token_agreement", "attn_launches_equal")
+    keys = ("max_rel_diff", "rtol", "penalty_max_rel_diff", "penalty_rtol",
+            "max_abs_logit_err", "tol", "partings", "tokens_identical",
+            "token_agreement", "attn_launches_equal", "failed",
+            "max_abs_err")
     bad = False
     for phases, faults in groups:
         for name, ctx in faults:

@@ -14,6 +14,7 @@ and have no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,11 +40,14 @@ SIGNATURES = {
     "wq_matmul_launch": [_P] * 6 + [_I] * 12 + [_P],
     "decode_attn_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 6 + [_P],
     "decode_attn_paged_launch": [_P] * 8 + [_I] * 8 + [_F] + [_I] * 6 + [_P],
-    "quant_launch": [_P, _P, _P, _P, _L, _L, _I, _I, _F, _I, _I, _P],
+    "quant_launch": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _F, _I,
+                     _P],
+    "quant_blocks_per_sm": [_I, _I, _I],
     "lotion_reg_launch": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _F, _F,
                           _I, _I, _P],
-    "opt_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I,
-                        _I, _I, _I] + [_F] * 11 + [_I, _I, _P],
+    "opt_step_launch": [_P] * 9 + [_L] * 5 + [_I] * 6 + [_F] * 11
+                       + [_I, _P],
+    "opt_step_blocks_per_sm": [_I] * 5,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -126,7 +130,30 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-# Grid of the one-pass elementwise kernels (quant, lotion_reg, opt_step):
+THREADS = 256      # threads per block of the elementwise kernels (qm::kThreads)
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(index: int, entry: str, args: Tuple[int, ...]) -> int:
+    with torch.cuda.device(index):
+        per_sm = getattr(lib(), entry)(*args)
+    if per_sm <= 0:
+        raise RuntimeError(f"{entry}{args}: no block fits on an SM "
+                           f"(CUDA error {-per_sm})")
+    return per_sm
+
+
+def co_resident(device: torch.device, entry: str, *args: int) -> int:
+    """Blocks of a kernel instance that the card holds at once: the
+    instance's occupancy per SM (the C entry point ``entry`` queries it)
+    times the SM count.  A cooperative launch may not exceed it."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return _blocks_per_sm(index, entry, tuple(args)) * sms
+
+
+# Grid of the one-pass lotion_reg kernel:
 # 4 elements per thread per pass, up to 8 blocks of 256 threads on each of
 # the H100's 132 SMs, then a grid-stride loop.  For per-matrix scales the
 # grid is 2-D, y over the matrices (at most 65535) and x over each

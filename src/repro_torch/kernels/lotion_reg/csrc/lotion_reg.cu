@@ -110,8 +110,10 @@ void launch(const float* w, const float* f, const float* scales, float* grad,
 
 // w, f, grad: n contiguous fp32; scales: fp32 per matrix (block_size = -1)
 // or null; partials: grid_x * grid_y doubles of scratch; pen: one fp32,
-// the unscaled penalty; half_lam: lam / 2, the gradient's factor.  Grid as
-// in quant_launch.  Returns cudaGetLastError().
+// the unscaled penalty; half_lam: lam / 2, the gradient's factor.  Grid
+// (grid_x, grid_y) from kernels/_build.py::grid_for: per matrix, grid_y
+// blocks walk the matrices and grid_x the elements of each; blockwise,
+// grid_y = 1.  Returns cudaGetLastError().
 extern "C" int lotion_reg_launch(const void* w, const void* f,
                                  const void* scales, void* grad,
                                  void* partials, void* pen, int64_t n,

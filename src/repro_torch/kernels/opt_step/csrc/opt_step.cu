@@ -1,5 +1,5 @@
-// Fused clip + decoupled-LOTION + AdamW / SGD optimizer step, one pass per
-// parameter leaf, for Hopper.
+// Fused clip + decoupled-LOTION + AdamW / SGD optimizer step, one launch
+// per parameter leaf, for Hopper.
 //
 // Replaces: src/repro/kernels/opt_step/opt_step.py::opt_step_pallas (body
 // _opt_kernel).  Per element, with f the pre-update nu:
@@ -16,25 +16,37 @@
 // b2, 1 - b2, eps, wd, lam / 2, fd, 1 - fd are folded on the host in
 // double and arrive as fp32, as JAX folds its Python floats; the step
 // scalars [lr, bc1, bc2, clip, ok] stay on the device (no host sync per
-// step).  ok = 0 writes w, mu, nu back unchanged: the non-finite skip gate.
-// Every operation rounds once (_rn intrinsics, no contraction into FMAs),
-// so w', mu', nu' are bitwise equal to the plain version's.
+// step).  ok = 0 leaves w, mu, nu as they are (nothing is written): the
+// non-finite skip gate.  Every operation rounds once (_rn intrinsics, no
+// contraction into FMAs), so w', mu', nu' are bitwise equal to the plain
+// version's.
 //
 // w', mu' and nu' are written IN PLACE over w, mu and nu: each element is
-// read and then written by the same thread, so no other copy exists.
+// read and then written by the same thread, and with per-matrix scales the
+// grid barrier orders every read of the absmax phase before any write.
 //
 // What bounds it on an H100: bytes.  It reads w, g, mu, nu and writes w',
-// mu', nu', 28 bytes per element: for the 2.53e9 parameters of
-// Granite-3-2B at least 21.2 ms per step at 3.35 TB/s.
+// mu', nu', 28 bytes per element, and the per-matrix penalty reads w once
+// more for the absmax: 32 bytes.  For Granite-3-2B (2.43e9 eligible of
+// 2.53e9 parameters) at least 24.1 ms per step at 3.35 TB/s.
 //
-// Design.  One launch per leaf, in the layouts of quant.cu: per-matrix
-// scales on a 2-D grid whose y walks the matrices (a stacked (L, a, b) leaf
-// is one launch, where the Pallas wrapper vmaps over L), or one warp per
-// quant block for blockwise scales, or no brackets at all (mode none:
-// lam = 0 or a leaf outside the policy).  The global norm and the
-// per-matrix absmax stay torch reductions outside, as the JAX code keeps
-// them outside its kernel.  The penalty partials are summed in a fixed
-// order without atomics (see lotion_reg.cu).
+// Design.  One launch per leaf whatever its rank, in the layouts of
+// quant.cu:
+//   * per-matrix scales: one cooperative launch of the persistent kernel
+//     on ops.py::plan's chunk walk: phase 1 folds each matrix's nanmax(|w|)
+//     into a zeroed buffer (qm::scan_absmax), a grid barrier, then phase 2
+//     steps every element;
+//   * mode none (lam = 0, or a leaf outside the policy): the same kernel
+//     without phase 1 or barrier, a plain launch;
+//   * blockwise scales: one warp per quant block, a plain launch.
+// Every stream moves as 16-byte vectors (two per thread per stream in
+// flight in phase 2), with a scalar prologue and epilogue for unaligned
+// chunk ends; a stream the core does not change is not written, one it
+// does not read is not loaded.  The penalty partials (double, one per
+// block) are added in block order by the last block to finish
+// (qm::penalty_epilogue): deterministic, no second launch.
+
+#include <cooperative_groups.h>
 
 #include "../../quant/csrc/quant_math.cuh"
 
@@ -49,16 +61,42 @@ struct Hyper {
 enum Mode { kNone = 0, kMatrix = 1, kBlock = 2 };
 enum Core { kAdamW = 0, kSgd = 1 };
 
-// sc: [lr, bc1, bc2, clip, ok]
+struct Args {
+  float* w;
+  const float* g;
+  float* mu;
+  float* nu;
+  const float* sc;       // [lr, bc1, bc2, clip, ok]
+  unsigned* amax;        // per matrix: (n_mats,) zeroed |w| bits
+  double* partials;      // penalty modes: one per block
+  unsigned* ticket;      // penalty modes: zeroed
+  float* pen;            // penalty modes
+  qm::Walk wk;           // modes none and matrix
+  int64_t n;             // blockwise
+  int block_size;        // blockwise
+  int off, vec;          // 16-byte alignment of every stream
+  Hyper h;
+};
+
+struct Scalars {
+  float lr, bc1, bc2, clip;
+  bool ok;
+};
+
+// Which moments a core reads and writes.
+template <int CORE, bool PEN, bool HAS_FD, bool HAS_MOM>
+struct Streams {
+  static constexpr bool mu = CORE == kAdamW || HAS_MOM;
+  static constexpr bool nu_out = CORE == kAdamW || HAS_FD;
+  static constexpr bool nu_in = nu_out || PEN;
+};
+
 template <int CORE, bool PEN, bool FP4, bool HAS_FD, bool HAS_MOM>
-__device__ __forceinline__ void step_one(float* __restrict__ w,
-                                         const float* __restrict__ g,
-                                         float* __restrict__ mu,
-                                         float* __restrict__ nu, int64_t i,
-                                         float s, const Hyper& h,
-                                         const float* sc, double& acc) {
-  const float w0 = w[i], m0 = mu[i], n0 = nu[i];
-  float gi = __fmul_rn(g[i], sc[3]);
+__device__ __forceinline__ void step_one(float& w, float g, float& mu,
+                                         float& nu, float s, const Hyper& h,
+                                         const Scalars& sc, double& acc) {
+  const float w0 = w, m0 = mu, n0 = nu;
+  float gi = __fmul_rn(g, sc.clip);
   if (PEN) {
     float lo, hi;
     qm::brackets<FP4>(w0, s, h.qmax, lo, hi);
@@ -67,107 +105,185 @@ __device__ __forceinline__ void step_one(float* __restrict__ w,
     gi = __fadd_rn(gi, __fsub_rn(__fmul_rn(ct, a), __fmul_rn(ct, b)));
     acc += static_cast<double>(__fmul_rn(n0, __fmul_rn(a, b)));
   }
-  float w1, m1, n1;
-  const float lr = sc[0];
   if (CORE == kAdamW) {
-    m1 = __fadd_rn(__fmul_rn(h.b1, m0), __fmul_rn(h.omb1, gi));
-    n1 = __fadd_rn(__fmul_rn(h.b2, n0), __fmul_rn(__fmul_rn(h.omb2, gi), gi));
-    const float upd = __fdiv_rn(__fdiv_rn(m1, sc[1]),
-                                __fadd_rn(__fsqrt_rn(__fdiv_rn(n1, sc[2])), h.eps));
-    w1 = __fsub_rn(w0, __fmul_rn(lr, __fadd_rn(upd, __fmul_rn(h.wd, w0))));
+    mu = __fadd_rn(__fmul_rn(h.b1, m0), __fmul_rn(h.omb1, gi));
+    nu = __fadd_rn(__fmul_rn(h.b2, n0), __fmul_rn(__fmul_rn(h.omb2, gi), gi));
+    const float upd = __fdiv_rn(__fdiv_rn(mu, sc.bc1),
+                                __fadd_rn(__fsqrt_rn(__fdiv_rn(nu, sc.bc2)), h.eps));
+    w = __fsub_rn(w0, __fmul_rn(sc.lr, __fadd_rn(upd, __fmul_rn(h.wd, w0))));
   } else {
-    n1 = HAS_FD ? __fadd_rn(__fmul_rn(h.fd, n0), __fmul_rn(__fmul_rn(h.omfd, gi), gi))
-                : n0;
-    m1 = HAS_MOM ? __fadd_rn(__fmul_rn(h.momentum, m0), gi) : m0;
-    w1 = __fsub_rn(w0, __fmul_rn(lr, HAS_MOM ? m1 : gi));
+    if (HAS_FD)
+      nu = __fadd_rn(__fmul_rn(h.fd, n0), __fmul_rn(__fmul_rn(h.omfd, gi), gi));
+    if (HAS_MOM) mu = __fadd_rn(__fmul_rn(h.momentum, m0), gi);
+    w = __fsub_rn(w0, __fmul_rn(sc.lr, HAS_MOM ? mu : gi));
   }
-  const bool ok = sc[4] != 0.f;
-  w[i] = ok ? w1 : w0;
-  mu[i] = ok ? m1 : m0;
-  nu[i] = ok ? n1 : n0;
 }
 
+template <int CORE, bool PEN, bool FP4, bool HAS_FD, bool HAS_MOM>
+__device__ __forceinline__ void step4(float4& w, float4 g, float4& mu,
+                                      float4& nu, float s, const Hyper& h,
+                                      const Scalars& sc, double& acc) {
+  step_one<CORE, PEN, FP4, HAS_FD, HAS_MOM>(w.x, g.x, mu.x, nu.x, s, h, sc, acc);
+  step_one<CORE, PEN, FP4, HAS_FD, HAS_MOM>(w.y, g.y, mu.y, nu.y, s, h, sc, acc);
+  step_one<CORE, PEN, FP4, HAS_FD, HAS_MOM>(w.z, g.z, mu.z, nu.z, s, h, sc, acc);
+  step_one<CORE, PEN, FP4, HAS_FD, HAS_MOM>(w.w, g.w, mu.w, nu.w, s, h, sc, acc);
+}
+
+// One element i by scalar loads and stores (chunk ends, ragged blocks).
+template <int CORE, bool PEN, bool FP4, bool HAS_FD, bool HAS_MOM>
+__device__ __forceinline__ void step_at(const Args& a, int64_t i, float s,
+                                        const Scalars& sc, double& acc) {
+  using St = Streams<CORE, PEN, HAS_FD, HAS_MOM>;
+  float w = a.w[i], mu = St::mu ? a.mu[i] : 0.f, nu = St::nu_in ? a.nu[i] : 0.f;
+  step_one<CORE, PEN, FP4, HAS_FD, HAS_MOM>(w, a.g[i], mu, nu, s, a.h, sc, acc);
+  if (sc.ok) {
+    a.w[i] = w;
+    if (St::mu) a.mu[i] = mu;
+    if (St::nu_out) a.nu[i] = nu;
+  }
+}
+
+__device__ __forceinline__ Scalars load_scalars(const float* sc) {
+  return Scalars{sc[0], sc[1], sc[2], sc[3], sc[4] != 0.f};
+}
+
+constexpr int kUnroll = 2;   // phase 2: vectors per thread per stream in flight
+
+// Modes none and matrix: the persistent kernel (cooperative in mode matrix).
 template <int CORE, int MODE, bool FP4, bool HAS_FD, bool HAS_MOM>
 __global__ void __launch_bounds__(kThreads)
-opt_step_kernel(float* __restrict__ w, const float* __restrict__ g,
-                float* __restrict__ mu, float* __restrict__ nu,
-                const float* __restrict__ sc_in,
-                const float* __restrict__ scales,
-                double* __restrict__ partials, int64_t n, int64_t mat_numel,
-                int block_size, Hyper h) {
-  constexpr bool PEN = MODE != kNone;
-  const float sc[5] = {sc_in[0], sc_in[1], sc_in[2], sc_in[3], sc_in[4]};
-  double acc = 0.0;
-  if (MODE == kBlock) {
-    const int lane = threadIdx.x & 31;
-    const int64_t n_warps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
-    const int64_t n_blocks = (n + block_size - 1) / block_size;
-    for (int64_t b = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-         b < n_blocks; b += n_warps) {
-      const int64_t base = b * block_size;
-      const int64_t end = base + block_size < n ? base + block_size : n;
-      float m = 0.f;
-      for (int64_t i = base + lane; i < end; i += 32) m = qm::nanmax(m, fabsf(w[i]));
-      // every lane has read its elements of the block before any lane
-      // writes w' over them (the writes below touch only its own elements)
-      const float s = qm::scale_of(qm::warp_absmax(m), h.qmax);
-      for (int64_t i = base + lane; i < end; i += 32)
-        step_one<CORE, PEN, FP4, HAS_FD, HAS_MOM>(w, g, mu, nu, i, s, h, sc, acc);
-    }
-  } else {
-    // per matrix (mode none: the whole leaf is one "matrix" of scale 1)
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-    const int64_t n_mats = n / mat_numel;
-    for (int64_t m = blockIdx.y; m < n_mats; m += gridDim.y) {
-      const float s = PEN ? scales[m] : 1.f;
-      const int64_t base = m * mat_numel;
-      for (int64_t j0 = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-           j0 < mat_numel; j0 += 4 * stride) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (j0 + k * stride < mat_numel)
-            step_one<CORE, PEN, FP4, HAS_FD, HAS_MOM>(
-                w, g, mu, nu, base + j0 + k * stride, s, h, sc, acc);
-        }
-      }
-    }
-  }
+opt_step_kernel(const Args a) {
+  constexpr bool PEN = MODE == kMatrix;
+  using St = Streams<CORE, PEN, HAS_FD, HAS_MOM>;
+  float* __restrict__ w = a.w;
+  const float* __restrict__ g = a.g;
+  float* __restrict__ mu = a.mu;
+  float* __restrict__ nu = a.nu;
+  const Scalars sc = load_scalars(a.sc);
   if (PEN) {
-    acc = qm::block_sum(acc);
-    if (threadIdx.x == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = acc;
+    qm::scan_absmax(w, a.amax, a.wk, a.off, a.vec);
+    cooperative_groups::this_grid().sync();
   }
+  double acc = 0.0;
+  int64_t cur = -1;
+  float s = 1.f;
+  for (qm::ChunkIter it(a.wk, a.wk.chunks); it.left > 0; it.next()) {
+    if (PEN && it.m != cur) {
+      cur = it.m;
+      s = qm::scale_of(__uint_as_float(__ldcg(a.amax + cur)), a.h.qmax);
+    }
+    int64_t c0, c1;
+    qm::chunk_range(a.wk, it.m, it.j, c0, c1);
+    qm::stream_range<kUnroll>(
+        c0, c1, a.off, a.vec,
+        [&](int64_t i0, int64_t b) {
+          const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+          float4 W[kUnroll], G[kUnroll], M[kUnroll], N[kUnroll];
+#pragma unroll
+          for (int k = 0; k < kUnroll; ++k) {
+            const int64_t i = i0 + int64_t(k) * qm::kVecStride;
+            if (i < b) {
+              W[k] = qm::ld_last4(w + i);
+              G[k] = qm::ld_last4(g + i);
+              M[k] = St::mu ? qm::ld_last4(mu + i) : z;
+              N[k] = St::nu_in ? qm::ld_last4(nu + i) : z;
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < kUnroll; ++k) {
+            const int64_t i = i0 + int64_t(k) * qm::kVecStride;
+            if (i < b) {
+              step4<CORE, PEN, FP4, HAS_FD, HAS_MOM>(W[k], G[k], M[k], N[k], s,
+                                                     a.h, sc, acc);
+              if (sc.ok) {
+                qm::st_last4(w + i, W[k]);
+                if (St::mu) qm::st_last4(mu + i, M[k]);
+                if (St::nu_out) qm::st_last4(nu + i, N[k]);
+              }
+            }
+          }
+        },
+        [&](int64_t i) {
+          step_at<CORE, PEN, FP4, HAS_FD, HAS_MOM>(a, i, s, sc, acc);
+        });
+  }
+  if (PEN) qm::penalty_epilogue(acc, a.partials, a.ticket, a.pen);
+}
+
+// Blockwise scales: one warp per quant block, a plain launch.
+template <int CORE, bool FP4, bool HAS_FD, bool HAS_MOM>
+__global__ void __launch_bounds__(kThreads)
+opt_step_block_kernel(const Args a) {
+  using St = Streams<CORE, true, HAS_FD, HAS_MOM>;
+  const Scalars sc = load_scalars(a.sc);
+  const int64_t n = a.n;
+  const int bs = a.block_size;
+  const bool v4 = a.vec && a.off == 0 && bs % 4 == 0;
+  const int64_t n_warps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
+  const int64_t n_blocks = (n + bs - 1) / bs;
+  double acc = 0.0;
+  for (int64_t blk = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+       blk < n_blocks; blk += n_warps) {
+    const int64_t base = blk * bs;
+    const int64_t end = base + bs < n ? base + bs : n;
+    unsigned m = 0;
+    qm::warp_range(
+        base, end, v4,
+        [&](int64_t i) {
+          m = max(m, qm::abs_bits4(*reinterpret_cast<const float4*>(a.w + i)));
+        },
+        [&](int64_t i) { m = max(m, qm::abs_bits(a.w[i])); });
+    // every lane has read its elements of the block before any lane
+    // writes w' over them (each writes only the elements it read)
+    const float s = qm::scale_of(
+        __uint_as_float(__reduce_max_sync(0xffffffffu, m)), a.h.qmax);
+    qm::warp_range(
+        base, end, v4,
+        [&](int64_t i) {
+          const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+          float4 W = *reinterpret_cast<const float4*>(a.w + i);
+          const float4 G = qm::ld_last4(a.g + i);
+          float4 M = St::mu ? qm::ld_last4(a.mu + i) : z;
+          float4 N = St::nu_in ? qm::ld_last4(a.nu + i) : z;
+          step4<CORE, true, FP4, HAS_FD, HAS_MOM>(W, G, M, N, s, a.h, sc, acc);
+          if (sc.ok) {
+            qm::st_last4(a.w + i, W);
+            if (St::mu) qm::st_last4(a.mu + i, M);
+            if (St::nu_out) qm::st_last4(a.nu + i, N);
+          }
+        },
+        [&](int64_t i) {
+          step_at<CORE, true, FP4, HAS_FD, HAS_MOM>(a, i, s, sc, acc);
+        });
+  }
+  qm::penalty_epilogue(acc, a.partials, a.ticket, a.pen);
 }
 
 template <int CORE, int MODE, bool FP4, bool HAS_FD, bool HAS_MOM>
-void launch(float* w, const float* g, float* mu, float* nu, const float* sc,
-            const float* scales, double* partials, float* pen, int64_t n,
-            int64_t mat_numel, int block_size, const Hyper& h, dim3 grid,
-            cudaStream_t stream) {
-  opt_step_kernel<CORE, MODE, FP4, HAS_FD, HAS_MOM><<<grid, kThreads, 0, stream>>>(
-      w, g, mu, nu, sc, scales, partials, n, mat_numel, block_size, h);
-  if (MODE != kNone)
-    qm::half_sum_kernel<<<1, kThreads, 0, stream>>>(partials, grid.x * grid.y, pen);
+const void* kernel() {
+  if constexpr (MODE == kBlock)
+    return reinterpret_cast<const void*>(
+        opt_step_block_kernel<CORE, FP4, HAS_FD, HAS_MOM>);
+  else
+    return reinterpret_cast<const void*>(
+        opt_step_kernel<CORE, MODE, FP4, HAS_FD, HAS_MOM>);
 }
 
-using LaunchFn = void (*)(float*, const float*, float*, float*, const float*,
-                          const float*, double*, float*, int64_t, int64_t, int,
-                          const Hyper&, dim3, cudaStream_t);
-
 template <int CORE, int MODE, bool FP4>
-LaunchFn pick_sgd(int has_fd, int has_mom) {
-  if (has_fd) return has_mom ? launch<CORE, MODE, FP4, true, true>
-                             : launch<CORE, MODE, FP4, true, false>;
-  return has_mom ? launch<CORE, MODE, FP4, false, true>
-                 : launch<CORE, MODE, FP4, false, false>;
+const void* pick_sgd(int has_fd, int has_mom) {
+  if (has_fd) return has_mom ? kernel<CORE, MODE, FP4, true, true>()
+                             : kernel<CORE, MODE, FP4, true, false>();
+  return has_mom ? kernel<CORE, MODE, FP4, false, true>()
+                 : kernel<CORE, MODE, FP4, false, false>();
 }
 
 template <int MODE, bool FP4>
-LaunchFn pick_core(int core, int has_fd, int has_mom) {
-  if (core == kAdamW) return launch<kAdamW, MODE, FP4, false, false>;
+const void* pick_core(int core, int has_fd, int has_mom) {
+  if (core == kAdamW) return kernel<kAdamW, MODE, FP4, false, false>();
   return pick_sgd<kSgd, MODE, FP4>(has_fd, has_mom);
 }
 
-LaunchFn pick(int core, int mode, int fp4, int has_fd, int has_mom) {
+const void* pick(int core, int mode, int fp4, int has_fd, int has_mom) {
   if (mode == kNone) return pick_core<kNone, false>(core, has_fd, has_mom);
   if (mode == kMatrix)
     return fp4 ? pick_core<kMatrix, true>(core, has_fd, has_mom)
@@ -178,29 +294,53 @@ LaunchFn pick(int core, int mode, int fp4, int has_fd, int has_mom) {
 
 }  // namespace
 
+// Blocks of the instance that fit on one SM at once (the cooperative
+// launch's limit is this times the SM count), or minus the CUDA error.
+extern "C" int opt_step_blocks_per_sm(int core, int mode, int fp4,
+                                      int has_fd, int has_mom) {
+  int nb = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nb, pick(core, mode, fp4, has_fd, has_mom), kThreads, 0);
+  return err == cudaSuccess ? nb : -static_cast<int>(err);
+}
+
 // w, mu, nu: n contiguous fp32, updated in place; g: n fp32; sc: device
-// fp32 [lr, bc1, bc2, clip, ok]; scales: fp32 per matrix (mode 1) or null;
-// partials: grid_x * grid_y doubles of scratch and pen one fp32 (modes 1
-// and 2, else null).  mode: 0 none (mat_numel = n), 1 per-matrix scales, 2
-// blockwise; core: 0 AdamW, 1 SGD.  Grid as in quant_launch.  Returns
-// cudaGetLastError().
+// fp32 [lr, bc1, bc2, clip, ok].  mode: 0 none (mat_numel = n), 1
+// per-matrix scales (amax: n / mat_numel zeroed uint32), 2 blockwise;
+// modes 0 and 1 walk (chunk, chunks, scan) of ops.py::plan with `grid`
+// blocks (mode 1 one cooperative launch, at most the co-resident count),
+// mode 2 `grid` blocks of warps per quant block.  Modes 1 and 2: partials
+// `grid` doubles of scratch, ticket one zeroed uint32, pen one fp32.
+// core: 0 AdamW, 1 SGD.  Returns the launch's CUDA error.
 extern "C" int opt_step_launch(void* w, const void* g, void* mu, void* nu,
-                               const void* sc, const void* scales,
-                               void* partials, void* pen, int64_t n,
-                               int64_t mat_numel, int block_size, int mode,
-                               int core, int fp4, int has_fd, int has_mom,
-                               float b1, float omb1, float b2, float omb2,
-                               float eps, float wd, float half_lam,
-                               float momentum, float fd, float omfd,
-                               float qmax, int grid_x, int grid_y,
+                               const void* sc, void* amax, void* partials,
+                               void* ticket, void* pen, int64_t n,
+                               int64_t mat_numel, int64_t chunk,
+                               int64_t chunks, int64_t scan, int block_size,
+                               int mode, int core, int fp4, int has_fd,
+                               int has_mom, float b1, float omb1, float b2,
+                               float omb2, float eps, float wd,
+                               float half_lam, float momentum, float fd,
+                               float omfd, float qmax, int grid,
                                void* stream) {
-  const Hyper h{b1, omb1, b2, omb2, eps, wd, half_lam, momentum, fd, omfd, qmax};
-  const dim3 grid(grid_x, grid_y);
-  pick(core, mode, fp4, has_fd, has_mom)(
-      static_cast<float*>(w), static_cast<const float*>(g),
-      static_cast<float*>(mu), static_cast<float*>(nu),
-      static_cast<const float*>(sc), static_cast<const float*>(scales),
-      static_cast<double*>(partials), static_cast<float*>(pen), n, mat_numel,
-      block_size, h, grid, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  const uintptr_t al = reinterpret_cast<uintptr_t>(w) & 15;
+  auto same = [al](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == al;
+  };
+  Args a{static_cast<float*>(w), static_cast<const float*>(g),
+         static_cast<float*>(mu), static_cast<float*>(nu),
+         static_cast<const float*>(sc), static_cast<unsigned*>(amax),
+         static_cast<double*>(partials), static_cast<unsigned*>(ticket),
+         static_cast<float*>(pen),
+         qm::Walk{mat_numel, n / mat_numel, chunk, chunks, scan}, n,
+         block_size, static_cast<int>(al >> 2), same(g) && same(mu) && same(nu),
+         Hyper{b1, omb1, b2, omb2, eps, wd, half_lam, momentum, fd, omfd, qmax}};
+  void* args[] = {&a};
+  const void* k = pick(core, mode, fp4, has_fd, has_mom);
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      mode == kMatrix
+          ? cudaLaunchCooperativeKernel(k, dim3(grid), dim3(kThreads), args, 0, s)
+          : cudaLaunchKernel(k, dim3(grid), dim3(kThreads), args, 0, s);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -1,6 +1,8 @@
 """Wrapper of the ``opt_step`` CUDA kernel (``csrc/opt_step.cu``): one
 fused clip + LOTION + AdamW/SGD step of one parameter leaf, in one launch
-whatever the leaf's rank.
+whatever the leaf's rank (with per-matrix scales one cooperative launch on
+``kernels/quant/ops.py::plan``'s walk: the absmax phase, a grid barrier,
+the step phase).
 
 For CUDA tensors it launches the kernel or raises; the kernel writes w',
 mu' and nu' IN PLACE over ``w``, ``mu`` and ``nu`` and the wrapper returns
@@ -12,14 +14,13 @@ launches (nothing else adds to it).
 
 from __future__ import annotations
 
-import math
 from typing import Tuple
 
 import torch
 
 from ...core.formats import CodebookFormat, get_format
-from ...core.quantize import matrix_axes, matrix_scales
 from .. import _build
+from ..quant import ops as quant_ops
 from ...numerics import scalar
 from .ref import opt_step_ref
 
@@ -32,6 +33,32 @@ def step_scalars(lr, bc1, bc2, clip_scale, ok, device) -> torch.Tensor:
     device tensors stay on the device, so a step makes no host sync."""
     return torch.stack([scalar(x, device)
                         for x in (lr, bc1, bc2, clip_scale, ok)])
+
+
+def _mode(lam: float, block_size: int) -> str:
+    return "none" if lam == 0.0 else "matrix" if block_size == -1 else "block"
+
+
+def _co_resident(w, mode: str, core: str, fp4: int, fisher_decay,
+                 momentum) -> int:
+    return _build.co_resident(
+        w.device, "opt_step_blocks_per_sm", _CORES[core], _MODES[mode],
+        fp4 if mode != "none" else 0, int(fisher_decay is not None),
+        int(bool(momentum)))
+
+
+def launch_plan(w: torch.Tensor, *, lam: float, fmt_name: str,
+                core: str = "adamw", momentum: float = 0.0,
+                fisher_decay=None) -> quant_ops.Plan:
+    """The plan of a ``fused_opt_step_leaf`` call with per-matrix scales
+    (or ``lam = 0``: mode none, the leaf one matrix) on the CUDA tensor
+    ``w``."""
+    mode = _mode(lam, -1)
+    fp4 = int(isinstance(get_format(fmt_name), CodebookFormat))
+    n = w.numel()
+    return quant_ops.plan(
+        n, quant_ops.matrix_numel(w) if mode == "matrix" else n,
+        _co_resident(w, mode, core, fp4, fisher_decay, momentum))
 
 
 def fused_opt_step_leaf(w, g, mu, nu, *, lr, bc1, bc2, clip_scale,
@@ -70,32 +97,38 @@ def fused_opt_step_leaf(w, g, mu, nu, *, lr, bc1, bc2, clip_scale,
     n = w.numel()
     sc = step_scalars(lr, bc1, bc2, clip_scale, ok, w.device)
     pen = torch.zeros((), dtype=torch.float32, device=w.device)
-    mode = ("none" if lam == 0.0 else "matrix" if block_size == -1
-            else "block")
+    mode = _mode(lam, block_size)
     if n == 0:
         return w, mu, nu, pen
-    scales = partials = None
-    mat_numel = n
-    if mode == "matrix":
-        scales = matrix_scales(w, fmt)
-        mat_numel = math.prod(w.shape[a] for a in matrix_axes(w))
-    gx, gy = _build.grid_for(n, n // mat_numel)
+    fp4 = int(isinstance(fmt, CodebookFormat))
+    mat_numel = quant_ops.matrix_numel(w) if mode == "matrix" else n
+    if mode == "block":
+        p = quant_ops.Plan(quant_ops.block_grid(n, block_size, _co_resident(
+            w, mode, core, fp4, fisher_decay, momentum)), 0, 0, 0)
+    else:
+        p = launch_plan(w, lam=lam, fmt_name=fmt_name, core=core,
+                        momentum=momentum, fisher_decay=fisher_decay)
+    amax = ticket = partials = None
     if mode != "none":
-        partials = torch.empty(gx * gy, dtype=torch.float64, device=w.device)
+        # the per-matrix |w| bits (mode matrix) and the penalty's ticket
+        zeros = torch.zeros(n // mat_numel + 1 if mode == "matrix" else 1,
+                            dtype=torch.int32, device=w.device)
+        amax, ticket = zeros.data_ptr(), zeros[-1].data_ptr()
+        partials = torch.empty(p.blocks, dtype=torch.float64, device=w.device)
     fd = 0.0 if fisher_decay is None else float(fisher_decay)
     with torch.no_grad():
         # in place: w', mu', nu' overwrite w, mu, nu in the kernel
         err = _build.lib().opt_step_launch(
             w.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
-            sc.data_ptr(), None if scales is None else scales.data_ptr(),
-            None if partials is None else partials.data_ptr(),
+            sc.data_ptr(), amax if mode == "matrix" else None,
+            None if partials is None else partials.data_ptr(), ticket,
             pen.data_ptr() if mode != "none" else None, n, mat_numel,
-            block_size, _MODES[mode], _CORES[core],
-            int(isinstance(fmt, CodebookFormat)),
-            int(fisher_decay is not None), int(bool(momentum)),
+            p.chunk, p.chunks, p.scan_chunks, block_size, _MODES[mode],
+            _CORES[core], fp4, int(fisher_decay is not None),
+            int(bool(momentum)),
             # constants folded on the host in double, as JAX folds them
             b1, 1 - b1, b2, 1 - b2, eps, weight_decay, 0.5 * lam,
-            momentum, fd, 1 - fd, float(fmt.qmax), gx, gy,
+            momentum, fd, 1 - fd, float(fmt.qmax), p.blocks,
             torch.cuda.current_stream(w.device).cuda_stream)
     _build.check(err, "opt_step")
     fused_opt_step_leaf.launches += 1

@@ -11,29 +11,49 @@
 // w-space, u < (w - lo) / (hi - lo) (the Pallas kernel compares in z-space,
 // which can decide a rare element differently).
 //
-// What bounds it on an H100: bytes.  Each element is read once (4 bytes,
-// 8 with the uniform) and written once (4 bytes), with a few dozen
-// operations: at 3.35 TB/s one RTN cast of the 2.43e9 eligible Granite-3-2B
-// weights needs at least 5.8 ms, an RR cast 8.7 ms.
+// What bounds it on an H100: bytes.  With per-matrix scales w is read
+// twice (the absmax, then the cast) and the output written once: 12 bytes
+// per element (16 with the uniform), at 3.35 TB/s at least 8.7 ms for one
+// RTN cast of the 2.43e9 eligible Granite-3-2B weights (5.8 ms if w were
+// read once).
 //
-// Design.  Two layouts of one grid-stride pass:
-//   * per matrix: the wrapper computes the per-matrix scales with one torch
-//     reduction (as the JAX code keeps the absmax outside its kernel) and
-//     passes them as a (n_matrices,) vector.  A 2-D grid: blockIdx.y walks
-//     the matrices, so a stacked leaf is one launch and each block loads
-//     its matrix's scale once (no per-element division to find it);
-//     blockIdx.x and the threads walk the matrix, four elements a stride
-//     apart per iteration (coalesced, four loads in flight).
+// Design.
+//   * per matrix (block_size = -1): one cooperative launch of a persistent
+//     kernel, as many blocks as are co-resident, on the chunk walk of
+//     ops.py::plan.  Phase 1 streams w and folds each matrix's nanmax(|w|)
+//     into a zeroed (n_matrices,) buffer with atomicMax on the bits;
+//     cooperative_groups' grid barrier; phase 2 streams w (and u) again
+//     and casts.  Every stream moves as 16-byte vectors, several per
+//     thread in flight (qm::range_absmax, qm::stream_range); a scalar
+//     prologue and epilogue take the ends of a chunk that are not 16-byte
+//     aligned.  A ring of TMA bulk copies instead of the vector loads
+//     gained under 2% on an H100 80GB HBM3 at 700 W
+//     (scripts/ablate_quant_opt_torch.py).
 //   * blockwise: one warp per quant block of block_size contiguous
-//     elements: the lanes take the block's absmax with shuffles, then
-//     cast the block (read again, from L1/L2).  The ragged tail block is
-//     masked; its absent padding is zeros, which never change an absmax.
+//     elements, a plain launch: the lanes take the block's absmax with a
+//     warp max, then cast the block (read again, from L1), as float4 where
+//     the block starts 16-byte aligned.  The ragged tail block is masked;
+//     its absent padding is zeros, which never change an absmax.
+
+#include <cooperative_groups.h>
 
 #include "quant_math.cuh"
 
 namespace {
 
 using qm::kThreads;
+
+struct Args {
+  const float* w;
+  const float* u;        // RR only
+  float* out;
+  unsigned* amax;        // per matrix: (n_mats,) zeroed |w| bits
+  qm::Walk wk;           // per matrix
+  int64_t n;             // blockwise
+  int block_size;        // blockwise
+  int off, vec;          // 16-byte alignment of every stream (qm::vec_range)
+  float qmax;
+};
 
 template <bool FP4, bool RR>
 __device__ __forceinline__ float cast_one(float w, float u, float s,
@@ -53,83 +73,147 @@ __device__ __forceinline__ float cast_one(float w, float u, float s,
 }
 
 template <bool FP4, bool RR>
+__device__ __forceinline__ float4 cast4(float4 w, float4 u, float s,
+                                        float qmax) {
+  return make_float4(cast_one<FP4, RR>(w.x, u.x, s, qmax),
+                     cast_one<FP4, RR>(w.y, u.y, s, qmax),
+                     cast_one<FP4, RR>(w.z, u.z, s, qmax),
+                     cast_one<FP4, RR>(w.w, u.w, s, qmax));
+}
+
+constexpr int kUnroll = 4;   // phase 2: vectors per thread per stream in flight
+
+template <bool FP4, bool RR>
 __global__ void __launch_bounds__(kThreads)
-quant_matrix_kernel(const float* __restrict__ w, const float* __restrict__ u,
-                    const float* __restrict__ scales, float* __restrict__ out,
-                    int64_t n_mats, int64_t mat_numel, float qmax) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t m = blockIdx.y; m < n_mats; m += gridDim.y) {
-    const float s = scales[m];
-    const int64_t base = m * mat_numel;
-    for (int64_t j0 = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-         j0 < mat_numel; j0 += 4 * stride) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int64_t i = base + j0 + k * stride;
-        if (j0 + k * stride < mat_numel)
-          out[i] = cast_one<FP4, RR>(w[i], RR ? u[i] : 0.f, s, qmax);
-      }
+quant_matrix_kernel(const Args a) {
+  const float* __restrict__ w = a.w;
+  const float* __restrict__ u = a.u;
+  float* __restrict__ out = a.out;
+  qm::scan_absmax(w, a.amax, a.wk, a.off, a.vec);
+  cooperative_groups::this_grid().sync();
+  int64_t cur = -1;
+  float s = 1.f;
+  for (qm::ChunkIter it(a.wk, a.wk.chunks); it.left > 0; it.next()) {
+    if (it.m != cur) {
+      cur = it.m;
+      s = qm::scale_of(__uint_as_float(__ldcg(a.amax + cur)), a.qmax);
     }
+    int64_t c0, c1;
+    qm::chunk_range(a.wk, it.m, it.j, c0, c1);
+    qm::stream_range<kUnroll>(
+        c0, c1, a.off, a.vec,
+        [&](int64_t i0, int64_t b) {
+          float4 x[kUnroll], r[kUnroll];
+#pragma unroll
+          for (int k = 0; k < kUnroll; ++k) {
+            const int64_t i = i0 + int64_t(k) * qm::kVecStride;
+            if (i < b) {
+              x[k] = qm::ld_last4(w + i);
+              r[k] = RR ? qm::ld_last4(u + i) : x[k];
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < kUnroll; ++k) {
+            const int64_t i = i0 + int64_t(k) * qm::kVecStride;
+            if (i < b) qm::st_last4(out + i, cast4<FP4, RR>(x[k], r[k], s, a.qmax));
+          }
+        },
+        [&](int64_t i) {
+          out[i] = cast_one<FP4, RR>(w[i], RR ? u[i] : 0.f, s, a.qmax);
+        });
   }
 }
 
 template <bool FP4, bool RR>
 __global__ void __launch_bounds__(kThreads)
-quant_block_kernel(const float* __restrict__ w, const float* __restrict__ u,
-                   float* __restrict__ out, int64_t n, int block_size,
-                   float qmax) {
-  const int lane = threadIdx.x & 31;
+quant_block_kernel(const Args a) {
+  const float* __restrict__ w = a.w;
+  const float* __restrict__ u = a.u;
+  float* __restrict__ out = a.out;
+  const int64_t n = a.n;
+  const int bs = a.block_size;
+  const bool v4 = a.vec && a.off == 0 && bs % 4 == 0;
   const int64_t n_warps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
-  const int64_t n_blocks = (n + block_size - 1) / block_size;
-  for (int64_t b = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-       b < n_blocks; b += n_warps) {
-    const int64_t base = b * block_size;
-    const int64_t end = base + block_size < n ? base + block_size : n;
-    float m = 0.f;
-    for (int64_t i = base + lane; i < end; i += 32) m = qm::nanmax(m, fabsf(w[i]));
-    const float s = qm::scale_of(qm::warp_absmax(m), qmax);
-    for (int64_t i = base + lane; i < end; i += 32)
-      out[i] = cast_one<FP4, RR>(w[i], RR ? u[i] : 0.f, s, qmax);
+  const int64_t n_blocks = (n + bs - 1) / bs;
+  for (int64_t blk = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+       blk < n_blocks; blk += n_warps) {
+    const int64_t base = blk * bs;
+    const int64_t end = base + bs < n ? base + bs : n;
+    unsigned m = 0;
+    qm::warp_range(
+        base, end, v4,
+        [&](int64_t i) {
+          m = max(m, qm::abs_bits4(*reinterpret_cast<const float4*>(w + i)));
+        },
+        [&](int64_t i) { m = max(m, qm::abs_bits(w[i])); });
+    const float s = qm::scale_of(
+        __uint_as_float(__reduce_max_sync(0xffffffffu, m)), a.qmax);
+    qm::warp_range(
+        base, end, v4,
+        [&](int64_t i) {
+          const float4 x = *reinterpret_cast<const float4*>(w + i);
+          const float4 r = RR ? qm::ld_last4(u + i) : x;
+          qm::st_last4(out + i, cast4<FP4, RR>(x, r, s, a.qmax));
+        },
+        [&](int64_t i) {
+          out[i] = cast_one<FP4, RR>(w[i], RR ? u[i] : 0.f, s, a.qmax);
+        });
   }
 }
 
-template <bool FP4, bool RR>
-void launch(const float* w, const float* u, const float* scales, float* out,
-            int64_t n, int64_t mat_numel, int block_size, float qmax,
-            dim3 grid, cudaStream_t stream) {
-  if (block_size > 0)
-    quant_block_kernel<FP4, RR><<<grid, kThreads, 0, stream>>>(
-        w, u, out, n, block_size, qmax);
-  else
-    quant_matrix_kernel<FP4, RR><<<grid, kThreads, 0, stream>>>(
-        w, u, scales, out, n / mat_numel, mat_numel, qmax);
+const void* pick(int blockwise, int fp4, int rr) {
+  if (blockwise) {
+    if (fp4) return rr ? (const void*)quant_block_kernel<true, true>
+                       : (const void*)quant_block_kernel<true, false>;
+    return rr ? (const void*)quant_block_kernel<false, true>
+              : (const void*)quant_block_kernel<false, false>;
+  }
+  if (fp4) return rr ? (const void*)quant_matrix_kernel<true, true>
+                     : (const void*)quant_matrix_kernel<true, false>;
+  return rr ? (const void*)quant_matrix_kernel<false, true>
+            : (const void*)quant_matrix_kernel<false, false>;
 }
 
 }  // namespace
 
-// w, u (RR only, else null), out: n contiguous fp32; scales: fp32 per
-// matrix (block_size = -1, matrices of mat_numel elements) or null
-// (block_size > 0); fp4: 1 for the e2m1 codebook, else an INT grid of
-// +-qmax.  Grid (grid_x, grid_y): per matrix, grid_y blocks walk the
-// matrices and grid_x the elements of each; blockwise, grid_y = 1.
-// Returns cudaGetLastError().
-extern "C" int quant_launch(const void* w, const void* u, const void* scales,
-                            void* out, int64_t n, int64_t mat_numel,
-                            int block_size, int fp4, float qmax, int grid_x,
-                            int grid_y, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(grid_x, grid_y);
-  auto wp = static_cast<const float*>(w);
-  auto up = static_cast<const float*>(u);
-  auto sp = static_cast<const float*>(scales);
-  auto op = static_cast<float*>(out);
+// Blocks of the instance (blockwise or per matrix, fp4, rr) that fit on one
+// SM at once (the cooperative launch's limit is this times the SM count),
+// or minus the CUDA error.
+extern "C" int quant_blocks_per_sm(int blockwise, int fp4, int rr) {
+  int nb = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nb, pick(blockwise, fp4, rr), kThreads, 0);
+  return err == cudaSuccess ? nb : -static_cast<int>(err);
+}
+
+// w, u (RR only, else null), out: n contiguous fp32; fp4: 1 for the e2m1
+// codebook, else an INT grid of +-qmax.  block_size > 0: blockwise scales,
+// a plain launch of `grid` blocks.  block_size = -1: per-matrix scales over
+// matrices of mat_numel elements, one cooperative launch of `grid` blocks
+// (at most the co-resident count) on the walk (chunk, chunks, scan) of
+// ops.py::plan; amax: n / mat_numel zeroed uint32.  Returns the launch's
+// CUDA error.
+extern "C" int quant_launch(const void* w, const void* u, void* out,
+                            void* amax, int64_t n, int64_t mat_numel,
+                            int64_t chunk, int64_t chunks, int64_t scan,
+                            int block_size, int fp4, float qmax, int grid,
+                            void* stream) {
+  const uintptr_t al = reinterpret_cast<uintptr_t>(w) & 15;
   const bool rr = u != nullptr;
-  if (fp4) {
-    if (rr) launch<true, true>(wp, up, sp, op, n, mat_numel, block_size, qmax, grid, s);
-    else launch<true, false>(wp, up, sp, op, n, mat_numel, block_size, qmax, grid, s);
-  } else {
-    if (rr) launch<false, true>(wp, up, sp, op, n, mat_numel, block_size, qmax, grid, s);
-    else launch<false, false>(wp, up, sp, op, n, mat_numel, block_size, qmax, grid, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  Args a{static_cast<const float*>(w), static_cast<const float*>(u),
+         static_cast<float*>(out), static_cast<unsigned*>(amax),
+         qm::Walk{mat_numel, n / mat_numel, chunk, chunks, scan}, n,
+         block_size, static_cast<int>(al >> 2),
+         (reinterpret_cast<uintptr_t>(out) & 15) == al &&
+             (!rr || (reinterpret_cast<uintptr_t>(u) & 15) == al),
+         qmax};
+  void* args[] = {&a};
+  const bool blockwise = block_size > 0;
+  const void* k = pick(blockwise, fp4, rr);
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      blockwise ? cudaLaunchKernel(k, dim3(grid), dim3(kThreads), args, 0, s)
+                : cudaLaunchCooperativeKernel(k, dim3(grid), dim3(kThreads),
+                                              args, 0, s);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
