@@ -10,10 +10,14 @@ take; ``wqt_matmul``, ``wq_matmul``, ``decode_attn`` and
 ``decode_attn_paged`` rows also name the instance that ran and its
 splits, and check that two launches agree bit for bit; ``quant`` and
 ``opt_step`` are also held on adversarial leaves for their in-kernel
-per-matrix absmax), drives the K-major
+per-matrix absmax; the two W4A8 entries, ``wqt_matmul_a8`` from int8
+codes and ``wqt_matmul_a8_x`` with the row quantizer inside, bitwise,
+also on adversarial rows: zero, NaN, inf, ties, the absmax in the last K
+split), drives the K-major
 ``wq_matmul`` (which no serving path reaches) through one layer's
-matmuls, times one decode layer's 7 matmuls back to back for both (the
-``layer`` rows), then drives the ported paths with their launch counts
+matmuls, times one decode layer's 7 matmuls back to back for each (the
+``layer`` rows; W4A8 beside the parent's composition of quantizer,
+kernel and cast), then drives the ported paths with their launch counts
 checked:
 
 * serving: full-width 40-layer Granite-3-2B with int4 weights and an int8
@@ -415,8 +419,9 @@ def check_paged(timer, dev):
 
 
 # --------------------------------------------------------------------------
-# phase 3b'': wqt_matmul_a8 (W4A8) and wq_matmul (K-major) against their
-# plain versions at the seven matmul shapes of a Granite layer
+# phase 3b'': wqt_matmul_a8 / wqt_matmul_a8_x (W4A8) and wq_matmul
+# (K-major) against their plain versions at the seven matmul shapes of a
+# Granite layer
 # --------------------------------------------------------------------------
 
 A8_MS = (8, 16, 128)      # decode (8 slots), a 16-token prefill chunk, more
@@ -445,8 +450,8 @@ def check_a8_one(timer, gen, dev, *, m, n, k, bits, block_k):
     torch.cuda.synchronize()
     same = bool(torch.equal(got, ref))
     row = dict(phase="check", kernel="wqt_matmul_a8", M=m, N=n, K=k,
-               bits=bits, block_k=block_k, bitwise=same,
-               max_abs_err=float((got - ref).abs().max()))
+               bits=bits, block_k=block_k, **_a8_plan_fields(xq, qt, block_k),
+               bitwise=same, max_abs_err=float((got - ref).abs().max()))
     if not (same and torch.isfinite(got).all()):
         emit(row)
         raise AssertionError(f"wqt_matmul_a8 disagrees: {row}")
@@ -475,12 +480,146 @@ def check_a8_one(timer, gen, dev, *, m, n, k, bits, block_k):
     return row
 
 
+def _a8_plan_fields(x, qt, block_k):
+    from repro_torch.kernels.wq_matmul.ops import a8_plan
+    p = a8_plan(x.shape[0], qt.codes.shape[0], x.shape[1], block_k, qt.bits,
+                x.element_size())
+    return dict(variant=f"mma_s8 {p.tile_m}x{p.tile_n}", splits=p.splits)
+
+
+def _composed_a8(x, qt):
+    """The parent's serving composition of a W4A8 matmul: the plain row
+    quantizer, the integer matmul from codes, the cast to x's dtype."""
+    from repro_torch.kernels.wq_matmul import quantize_acts_ref, wqt_matmul_a8
+    xq, xs = quantize_acts_ref(x)
+    return wqt_matmul_a8(xq, xs, qt.codes, qt.scales, qt.block_k,
+                         qt.bits).to(x.dtype)
+
+
+def check_a8_x_one(timer, gen, dev, *, m, n, k, bits, block_k):
+    """``wqt_matmul_a8_x`` (row quantizer inside) against its plain
+    version, bitwise; timed beside the parent-style composition."""
+    from repro_torch.core.qtensor import quantize_qtensor
+    from repro_torch.kernels.wq_matmul import (wqt_matmul_a8_x,
+                                               wqt_matmul_a8_x_ref)
+    w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+    qt = quantize_qtensor(w, f"int{bits}", block_k)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    args = (x, qt.codes, qt.scales, block_k)
+    got = wqt_matmul_a8_x(*args, bits)
+    ref = wqt_matmul_a8_x_ref(*args, bits == 4)
+    torch.cuda.synchronize()
+    same = _same_bits(got, ref)
+    row = dict(phase="check", kernel="wqt_matmul_a8_x", M=m, N=n, K=k,
+               bits=bits, block_k=block_k, dtype="bfloat16",
+               **_a8_plan_fields(x, qt, block_k), bitwise=same,
+               max_abs_err=float((got.float() - ref.float()).abs().max()))
+    if not (same and torch.isfinite(got).all()):
+        emit(row)
+        raise AssertionError(f"wqt_matmul_a8_x disagrees: {row}")
+    nbytes = x.numel() * 2 + qt.nbytes + m * n * 2
+    b_ms, b_by = bound(nbytes, 2.0 * m * n * k, INT8_OPS)
+    row.update(ms=timer(lambda: wqt_matmul_a8_x(*args, bits)),
+               composed_ms=timer(lambda: _composed_a8(x, qt)),
+               plain_ms=timer(lambda: wqt_matmul_a8_x_ref(*args, bits == 4),
+                              iters=3),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    emit(row)
+    return row
+
+
+A8_X_MS = (1, 8, 16, 128)
+
+
 def check_a8(timer, dev):
     gen = torch.Generator(device=dev).manual_seed(7)
-    return [check_a8_one(timer, gen, dev, m=m, n=n, k=k, bits=bits,
+    rows = [check_a8_one(timer, gen, dev, m=m, n=n, k=k, bits=bits,
                          block_k=bk)
             for (n, k) in LAYER_MATMULS for bits in (4, 8)
             for bk in (-1, 128) for m in A8_MS]
+    rows += [check_a8_x_one(timer, gen, dev, m=m, n=n, k=k, bits=bits,
+                            block_k=bk)
+             for (n, k) in LAYER_MATMULS for bits in (4, 8)
+             for bk in (-1, 128) for m in A8_X_MS]
+    return rows + check_a8_adversarial(dev)
+
+
+def _adversarial_acts(gen, dev, m, k, dtype, split_k):
+    """Rows that stress the in-kernel row quantizer: 0 all zero, 1 a NaN,
+    2 a +inf, 3 a -inf, 4 on .5 ties after scaling (absmax 127 / 4, the
+    rest multiples of 1/8), 5 its absmax at K's last element, 6 its
+    absmax at the first element of the last K split (``split_k``), 7 and
+    on ordinary."""
+    x = torch.randn((m, k), generator=gen, device=dev)
+    x[0] = 0.0
+    x[1, k // 3] = float("nan")
+    x[2, 5] = float("inf")
+    x[3, k - 9] = float("-inf")
+    x[4] = torch.round(torch.rand((k,), generator=gen, device=dev) * 240
+                       - 120) / 8
+    x[4, k // 2] = 127 / 4
+    x[5, k - 1] = 11.0
+    x[6, split_k] = -12.0
+    return x.to(dtype)
+
+
+def check_a8_adversarial(dev):
+    """Both W4A8 entries on adversarial rows (``_adversarial_acts``) at
+    two Granite shapes, bitwise (NaN places aside) against their plain
+    versions: what a wrong absmax combine or code cast in the kernel
+    fails.  M = 16 also puts the rows in the second n8 tile."""
+    from repro_torch.core.qtensor import quantize_qtensor
+    from repro_torch.kernels.wq_matmul import (quantize_acts_ref,
+                                               wqt_matmul_a8,
+                                               wqt_matmul_a8_ref,
+                                               wqt_matmul_a8_x,
+                                               wqt_matmul_a8_x_ref)
+    from repro_torch.kernels.wq_matmul.ops import a8_plan
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows, failed = [], []
+    for (n, k) in ((2048, 2048), (2048, 8192)):
+        w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+        for bits in (4, 8):
+            for block_k in (-1, 128):
+                qt = quantize_qtensor(w, f"int{bits}", block_k)
+                for dtype in (torch.bfloat16, torch.float32):
+                    for m in (8, 16):
+                        p = a8_plan(m, n, k, block_k, bits,
+                                    torch.empty((), dtype=dtype).element_size())
+                        x = _adversarial_acts(
+                            gen, dev, m, k, dtype,
+                            (p.splits - 1) * p.k_per_split)
+                        if m == 16:
+                            x = x.roll(8, dims=0)
+                        args = (qt.codes, qt.scales, block_k)
+                        got = wqt_matmul_a8_x(x, *args, bits)
+                        ref = wqt_matmul_a8_x_ref(x, *args, bits == 4)
+                        xq, xs = quantize_acts_ref(x)
+                        got8 = wqt_matmul_a8(xq, xs, *args, bits)
+                        ref8 = wqt_matmul_a8_ref(xq, xs, *args, bits == 4)
+                        torch.cuda.synchronize()
+                        err, same, _ = _bitwise(
+                            [("x", got.float(), ref.float()),
+                             ("codes", got8, ref8)])
+                        row = dict(phase="check", kernel="wqt_matmul_a8_x",
+                                   adversarial=True, M=m, N=n, K=k, bits=bits,
+                                   block_k=block_k,
+                                   dtype=str(dtype).replace("torch.", ""),
+                                   **_a8_plan_fields(x, qt, block_k),
+                                   bitwise=same and _same_bits(got, ref),
+                                   max_abs_err=err)
+                        emit(row)
+                        rows.append(row)
+                        if not row["bitwise"]:
+                            failed.append(row)
+    emit(dict(phase="a8_adversarial", rows=len(rows), failed=len(failed),
+              max_abs_err=max(r["max_abs_err"] for r in rows)))
+    if failed:
+        raise AssertionError(
+            "wqt_matmul_a8 disagrees on adversarial rows",
+            dict(failed=len(failed), max_abs_err=max(
+                r["max_abs_err"] for r in failed)))
+    return rows
 
 
 def check_wq_one(timer, gen, dev, *, m, n, k, bits, block_k=128,
@@ -574,12 +713,16 @@ def layer_rows(timer, dev):
     step meets them (no per-call floor counted seven times), for each
     kernel and for its library call (``torch.matmul`` on the dequantized
     bf16 weights): ``wqt_matmul`` on int4 per-tensor out-major codes,
-    ``wq_matmul`` on K-major int4 codes with block 128.  Four flush reads
-    (about 0.6 ms of device work) cover the host's enqueue of 7 calls."""
+    ``wq_matmul`` on K-major int4 codes with block 128; and W4A8 on the
+    same codes, ``wqt_matmul_a8_x`` (quantizer inside) against the
+    parent's composition of each call (``_composed_a8``: the plain row
+    quantizer, ``wqt_matmul_a8`` from codes, the cast).  Four flush reads
+    (about 0.6 ms of device work) cover the host's enqueue of 7 calls,
+    sixteen that of the composition's 7 x 15 launches."""
     from repro_torch.core.qtensor import quantize_qtensor
     from repro_torch.kernels.wq_matmul import (dequant_ref, dequant_t_ref,
                                                pack_weight, wq_matmul,
-                                               wqt_matmul)
+                                               wqt_matmul, wqt_matmul_a8_x)
     gen = torch.Generator(device=dev).manual_seed(10)
     x = {k: torch.randn((8, k), generator=gen, device=dev).to(torch.bfloat16)
          for k in {s[1] for s in LAYER_MATMULS}}
@@ -609,6 +752,14 @@ def layer_rows(timer, dev):
         for (_, k), w in zip(mats, lib_k):
             torch.matmul(x[k], w)
 
+    def a8():
+        for (_, k), q in zip(mats, qts):
+            wqt_matmul_a8_x(x[k], q.codes, q.scales, -1, 4)
+
+    def a8_composed():
+        for (_, k), q in zip(mats, qts):
+            _composed_a8(x[k], q)
+
     rows = []
     for name, run, lib in (("wqt_matmul", wqt, wqt_lib),
                            ("wq_matmul", wq, wq_lib)):
@@ -617,6 +768,11 @@ def layer_rows(timer, dev):
                    library_ms=timer(lib, flushes=4))
         emit(row)
         rows.append(row)
+    row = dict(phase="layer", kernel="wqt_matmul_a8_x", M=8,
+               matmuls=len(mats), ms=timer(a8, flushes=4),
+               composed_ms=timer(a8_composed, flushes=16), library_ms=None)
+    emit(row)
+    rows.append(row)
     return rows
 
 
@@ -647,9 +803,9 @@ def _same_bits(a, b):
     """Bit for bit (so -0.0 is not 0.0), where a NaN matches a NaN at the
     same place whatever its payload."""
     na, nb = torch.isnan(a), torch.isnan(b)
-    return torch.equal(na, nb) and torch.equal(
-        a.masked_fill(na, 0.0).view(torch.int32),
-        b.masked_fill(nb, 0.0).view(torch.int32))
+    bits = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0.0).view(bits), b.masked_fill(nb, 0.0).view(bits))
 
 
 def _bitwise(pairs):
@@ -1896,7 +2052,11 @@ def sched_kernel_lines(out):
     launched by the ``sched`` phase; ``wq_matmul`` over the same 7 shapes
     (M = 8, int4, block 128), launched by its own ``wq_path``."""
     a8 = {(r["N"], r["K"]): r for r in out["a8"]
-          if r["M"] == 8 and r["bits"] == 4 and r["block_k"] == -1}
+          if r["kernel"] == "wqt_matmul_a8" and r["M"] == 8
+          and r["bits"] == 4 and r["block_k"] == -1}
+    a8_x = {(r["N"], r["K"]): r for r in out["a8"]
+            if r["kernel"] == "wqt_matmul_a8_x" and not r.get("adversarial")
+            and r["M"] == 8 and r["bits"] == 4 and r["block_k"] == -1}
     wq = {(r["N"], r["K"]): r for r in out["wq"]
           if r["M"] == 8 and r["bits"] == 4 and r["dtype"] == "bfloat16"
           and (r["N"], r["K"]) in LAYER_MATMULS}
@@ -1921,11 +2081,22 @@ def sched_kernel_lines(out):
              max_abs_err=max(r["max_abs_err"] for r in out["a8"]),
              tol="bitwise equal to the plain version",
              bitwise=all(r["bitwise"] for r in out["a8"]),
+             adversarial_rows=sum(1 for r in out["a8"]
+                                  if r.get("adversarial")),
              shape="one decode layer: 7 matmuls, M=8, int4 per-tensor, "
                    "int8 activations",
              ms=_layer_sum(a8, "ms"), plain_ms=_layer_sum(a8, "plain_ms"),
              bound_ms=a8_bound[0], bound_by=a8_bound[1],
-             library_ms=_layer_sum(a8, "library_ms")),
+             library_ms=_layer_sum(a8, "library_ms"),
+             variants=sorted({r["variant"] for r in out["a8"]}),
+             fused_shape="the same layer from bf16 activations, the row "
+                         "quantizer inside (wqt_matmul_a8_x)",
+             fused_ms=_layer_sum(a8_x, "ms"),
+             fused_composed_ms=_layer_sum(a8_x, "composed_ms"),
+             fused_plain_ms=_layer_sum(a8_x, "plain_ms"),
+             fused_bound_ms=_layer_sum(a8_x, "bound_ms"),
+             layer_ms=layer["wqt_matmul_a8_x"]["ms"],
+             layer_composed_ms=layer["wqt_matmul_a8_x"]["composed_ms"]),
         dict(name="decode_attn_paged", route="cuda",
              source="src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
              replaces="src/repro/kernels/decode_attn/decode_attn.py:249",

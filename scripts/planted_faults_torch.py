@@ -11,6 +11,18 @@ penalty):
 * ``no_update``     — ``opt_step`` with ok = 0 (no parameter update);
 * ``unrounded_rtn`` — the RTN eval cast returns the weights unrounded.
 
+The W4A8 row quantizer inside ``wqt_matmul_a8.cu`` (phase
+``a8_adversarial``: ``chip_smoke.py``'s adversarial rows of both W4A8
+entries, among them rows whose absmax sits at K's last element or at the
+first of the last K split):
+
+* ``acts_absmax_short`` — the cluster combines the row maxima of all K
+  splits but the last (the launch plan's ``amax_ranks`` one short; with
+  one split no maxima, so every row scale is 1 and the codes saturate):
+  rows whose absmax lies in the last split get too small a scale.  The
+  scheduler's card-against-CPU phase, at its 5% logit tolerance for int8
+  activations, does not see it; the bitwise check rows do.
+
 The per-matrix absmax phase of ``quant`` and ``opt_step`` (phases
 ``quant_adversarial`` and ``opt_step_adversarial``: the adversarial check
 rows of ``chip_smoke.py``, the largest |w| of each matrix at its first or
@@ -31,8 +43,6 @@ paged W4A8 scheduler on 2 and 4 full-width layers):
 
 * ``paged_first_block`` — ``decode_attn_paged`` reads every tile through
   each row's first table entry;
-* ``acts_scale_one``    — the int8 activation quantizer uses a row scale
-  of 1 (codes saturate);
 * ``shadow_view``       — prefix-trie payloads are views of the partial
   cache buffer instead of copies;
 * ``dropped_attn_split`` — ``decode_attn``'s launch plan has one split
@@ -94,14 +104,11 @@ def _first_block(orig):
     return attn
 
 
-def _scale_one(orig):
-    def quantize(x):
-        if not x.is_cuda:
-            return orig(x)
-        xf = x.to(torch.float32)
-        return (torch.clamp(torch.round(xf), -127, 127).to(torch.int8),
-                torch.ones(xf.shape[:-1] + (1,), device=x.device))
-    return quantize
+def _absmax_short(orig):
+    def plan(*args, **kw):
+        p = orig(*args, **kw)
+        return p._replace(amax_ranks=p.splits - 1)
+    return plan
 
 
 def _view(orig):
@@ -140,7 +147,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("planted_faults_torch: needs a CUDA device", file=sys.stderr)
         return 1
-    import repro_torch.core.qtensor as qtensor
     import repro_torch.kernels.quant as quant
     from repro_torch.kernels.quant import ops as quant_ops
     from repro_torch.kernels.decode_attn import ops as attn_ops
@@ -166,6 +172,10 @@ def main() -> int:
             sound,
             ("absmax_short", lambda: _patched(quant_ops, "plan",
                                               _scan_short))]),
+        ([("a8_adversarial", cs.check_a8_adversarial)], [
+            sound,
+            ("acts_absmax_short", lambda: _patched(wq_ops, "a8_plan",
+                                                   _absmax_short))]),
         ([("serve_card_vs_cpu", cs.card_vs_cpu)], [
             sound,
             ("dropped_k_split", lambda: _patched(wq_ops, "plan",
@@ -175,8 +185,6 @@ def main() -> int:
             sound,
             ("paged_first_block", lambda: _patched(
                 layers, "decode_attn_paged", _first_block)),
-            ("acts_scale_one", lambda: _patched(
-                qtensor, "quantize_acts_ref", _scale_one)),
             ("shadow_view", lambda: _patched(scheduler, "_chunk_copy",
                                              _view)),
             ("dropped_attn_split", lambda: _patched(attn_ops, "plan",

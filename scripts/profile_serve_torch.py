@@ -18,7 +18,9 @@ paged int8 KV pool, chunked prefill with the prefix trie),
 ``chip_smoke.sched_full_width``'s workload: its 16 requests are submitted
 at once and ``steps`` scheduler steps (each one prefill chunk and one
 tick of 4 decode steps) are profiled after 3 unprofiled ones, giving the
-same numbers per scheduler step.
+same numbers per scheduler step, with the W4A8 kernels and the torch
+kernels of the kind an activation row quantizer launches (reductions,
+abs, round, clamp, where, divisions, casts) by name.
 
 Prints one JSON line; writes the Chrome trace of the profiled window to
 ``--out``.  Needs CUDA.
@@ -74,6 +76,21 @@ def _attn_ms(by_name):
     return sum(v[0] for k, v in by_name.items() if "decode_attn" in k)
 
 
+# kernel-name fragments of the activation row quantizer's torch kernels
+# (amax, abs, compare, where, divide, round, clamp, cast), which the KV
+# quantizer also launches; the W4A8 kernel's own names
+QUANT_LIKE = ("reduce_kernel", "abs", "round", "clamp", "where", "div",
+              "compare", "copy_kernel")
+A8_NAMES = ("wqt_a8", "a8_epilogue")
+
+
+def _by_group(by_name, per, frags):
+    """{name: [device ms, launches] per step} of the kernels whose name
+    holds one of ``frags``."""
+    return {k[:100]: [ms / per, c / per] for k, (ms, c) in by_name.items()
+            if any(f in k for f in frags)}
+
+
 def profile_sched(args) -> int:
     """``steps`` steady scheduler steps of the sched workload, profiled."""
     from torch.profiler import ProfilerActivity, profile
@@ -111,6 +128,8 @@ def profile_sched(args) -> int:
         device_busy_share=dev_ms / wall_ms,
         launches_per_step=sum(c for _, c in by_name.values()) / n,
         decode_attn_device_ms=_attn_ms(by_name) / n,
+        w4a8_kernels=_by_group(by_name, n, A8_NAMES),
+        quantizer_like_kernels=_by_group(by_name, n, QUANT_LIKE),
         top=_top(by_name, n))), flush=True)
     return 0
 

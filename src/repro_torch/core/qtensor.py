@@ -14,9 +14,10 @@ A stacked ``(r, N, K)`` QTensor (one matrix per layer) gives its per-layer
 2-D view with ``qt.layer(i)``.  ``matmul`` serves 2-D storage through the
 ``wqt_matmul`` CUDA kernel for CUDA tensors and through its plain version
 for CPU tensors.  Under ``qtensor_act_fmt("int8")`` (W4A8 / W8A8 serving)
-``matmul`` first row-quantizes its activations to int8 codes and fp32 row
-scales and serves through the ``wqt_matmul_a8`` kernel instead.  3-D (MoE)
-storage is not in these slices of the port.
+it serves through ``wqt_matmul_a8_x`` instead, which row-quantizes its
+activations to int8 codes and fp32 row scales, contracts and casts back in
+one ``wqt_matmul_a8`` launch.  3-D (MoE) storage is not in these slices of
+the port.
 """
 
 from __future__ import annotations
@@ -28,8 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..kernels.wq_matmul import (dequant_t_ref, quantize_acts_ref, wqt_matmul,
-                                 wqt_matmul_a8)
+from ..kernels.wq_matmul import dequant_t_ref, wqt_matmul, wqt_matmul_a8_x
 from ..kernels.wq_matmul.ref import _pack_last
 from .formats import IntFormat, get_format
 from .policy import QuantPolicy, path_str, tree_leaves, tree_map_with_path
@@ -179,8 +179,8 @@ def from_matmul_weight(w: torch.Tensor, fmt, block_k: int = -1) -> QTensor:
 def matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """``x (..., K) @ dequant(qt)^T -> (..., N)`` for 2-D storage: one
     ``wqt_matmul`` call over the flattened leading dims of x, or under
-    ``act_fmt="int8"`` the row quantization of x and one ``wqt_matmul_a8``
-    call (its fp32 result cast to x's dtype)."""
+    ``act_fmt="int8"`` one ``wqt_matmul_a8_x`` call (the row quantization
+    of x, the integer matmul and the cast to x's dtype)."""
     if qt.codes.ndim != 2:
         raise NotImplementedError(
             f"{qt.codes.ndim}-D QTensor matmul (MoE expert stacks) is not "
@@ -188,9 +188,8 @@ def matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if act_fmt_enabled() == "int8":
-        xq, xs = quantize_acts_ref(x2)
-        out = wqt_matmul_a8(xq, xs, qt.codes, qt.scales, block_k=qt.block_k,
-                            bits=qt.bits).to(x.dtype)
+        out = wqt_matmul_a8_x(x2, qt.codes, qt.scales, block_k=qt.block_k,
+                              bits=qt.bits)
     else:
         out = wqt_matmul(x2, qt.codes, qt.scales, block_k=qt.block_k,
                          bits=qt.bits)

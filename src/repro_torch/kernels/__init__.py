@@ -16,7 +16,8 @@ from .opt_step import fused_opt_step_leaf
 from .quant import quant_rr, quant_rtn
 from .wq_matmul import wq_matmul, wqt_matmul, wqt_matmul_a8
 
-# kernel name -> the wrappers that launch it (quant: the RTN and RR casts)
+# kernel name -> the wrappers whose count holds its launches (quant: the
+# RTN and RR casts; wqt_matmul_a8_x adds to wqt_matmul_a8's)
 WRAPPERS = {"wqt_matmul": (wqt_matmul,), "decode_attn": (decode_attn,),
             "wqt_matmul_a8": (wqt_matmul_a8,),
             "decode_attn_paged": (decode_attn_paged,),

@@ -34,9 +34,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 # return cudaGetLastError())
 SIGNATURES = {
     "wqt_matmul_launch": [_P] * 6 + [_I] * 12 + [_P],
-    "wqt_matmul_a8_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _P],
-    "wqt_matmul_a8_segments": [_I, _I, _I, _I],
+    "wqt_matmul_a8_launch": [_P] * 5 + [_I] * 12 + [_P],
     "wq_matmul_launch": [_P] * 6 + [_I] * 12 + [_P],
     "decode_attn_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 6 + [_P],
     "decode_attn_paged_launch": [_P] * 8 + [_I] * 8 + [_F] + [_I] * 6 + [_P],

@@ -1,7 +1,8 @@
 // Device helpers shared by the port's tensor-core kernels (wqt_matmul.cu,
-// decode_attn.cu): dtype conversions, cp.async, mma.sync m16n8k16 bf16,
-// and the exact conversion of int8 / packed int4 codes to bf16 pairs in
-// registers.  Everything is in an anonymous namespace, one copy per
+// wqt_matmul_a8.cu, decode_attn.cu): dtype conversions, cp.async,
+// mma.sync m16n8k16 bf16 and m16n8k32 s8, the exact conversion of int8 /
+// packed int4 codes to bf16 pairs in registers, and packed int4 codes as
+// int8 operands.  Everything is in an anonymous namespace, one copy per
 // translation unit.
 
 #pragma once
@@ -64,6 +65,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a (16 x 32, row) . b (32 x 8, col), int8 in, int32 accumulate: exact.
+// Lane (g, t) = (lane / 4, lane % 4) holds a[0] = A[g][4t .. 4t+3],
+// a[1] = A[g+8][4t ..], a[2] = A[g][16+4t ..], a[3] = A[g+8][16+4t ..],
+// b0 = B[4t .. 4t+3][g], b1 = B[16+4t ..][g]; d as for mma_bf16.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -113,6 +127,27 @@ __device__ __forceinline__ void dequant4(uint32_t w, uint32_t& p01,
     p01 = *reinterpret_cast<uint32_t*>(&a);
     p23 = *reinterpret_cast<uint32_t*>(&b);
   }
+}
+
+// ---- int4 codes as int8 operands ----------------------------------------
+
+// 4 packed int4 bytes (8 codes c0 .. c7, the even one low in each byte) ->
+// two words of 4 int8 each holding 16 * c: `even` = (c0, c2, c4, c6) and
+// `odd` = (c1, c3, c5, c7).  A nibble in the high half of its byte is, read
+// as int8, its signed value times 16 (-128 .. 112), so an s8 mma on these
+// words sums 16x the codes' products: exact, and shifted right by 4 after.
+__device__ __forceinline__ void int4_s8x16(uint32_t w, uint32_t& even,
+                                           uint32_t& odd) {
+  even = (w << 4) & 0xF0F0F0F0u;
+  odd = w & 0xF0F0F0F0u;
+}
+
+// 8 int8 codes (c0 .. c7 as the bytes of lo, hi) -> the order int4_s8x16
+// gives the weights: lo' = (c0, c2, c4, c6), hi' = (c1, c3, c5, c7).
+__device__ __forceinline__ void s8_even_odd(uint32_t& lo, uint32_t& hi) {
+  const uint32_t e = __byte_perm(lo, hi, 0x6420), o = __byte_perm(lo, hi, 0x7531);
+  lo = e;
+  hi = o;
 }
 
 }  // namespace

@@ -1,13 +1,17 @@
 """Wrappers of the weight-quantized matmul CUDA kernels (``csrc/``):
 ``wqt_matmul`` (out-major codes) and ``wq_matmul`` (K-major codes), the two
-entry points of ``wqt_matmul.cu``, and ``wqt_matmul_a8`` (int8 activation
-codes against out-major codes, ``wqt_matmul_a8.cu``).
+entry points of ``wqt_matmul.cu``, and the two of ``wqt_matmul_a8.cu``
+against out-major codes: ``wqt_matmul_a8`` (int8 activation codes and row
+scales in, fp32 out) and ``wqt_matmul_a8_x`` (activations in, row-quantized
+inside the launch, x's dtype out).
 
 For a CUDA tensor each launches its kernel or raises; for a CPU tensor it
-takes the plain version in ``ref.py``.  Each wrapper's ``.launches`` counts
-its kernel's launches (nothing else adds to it).  ``plan`` chooses how
+takes the plain version in ``ref.py``.  Each kernel's launches are counted
+on its wrapper's ``.launches`` (both entries of ``wqt_matmul_a8.cu`` on
+``wqt_matmul_a8.launches``); nothing else adds to them.  ``plan`` chooses how
 ``wqt_matmul.cu`` runs a call: its instance (tensor-core GEMV or GEMM for
-bf16 x, fp32 FMA tiles otherwise), tile and K splits.
+bf16 x, fp32 FMA tiles otherwise), tile and K splits; ``a8_plan`` chooses
+the tile and the K splits (one cluster) of ``wqt_matmul_a8.cu``.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from .ref import (quantize_weights_ref, wq_matmul_ref, wqt_matmul_a8_ref,
-                  wqt_matmul_ref)
+                  wqt_matmul_a8_x_ref, wqt_matmul_ref)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -245,14 +249,127 @@ def wqt_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
 wqt_matmul.launches = 0
 
 
+# --------------------------------------------------------------------------
+# W4A8 / W8A8: the launch plan of wqt_matmul_a8.cu and its two entries
+# --------------------------------------------------------------------------
+
+A8_K = 128                 # K step of the kernel's pipeline stages
+A8_STAGES = 4              # its cp.async ring depth (kStages)
+A8_SMEM_MAX = 100 * 1024   # dynamic shared memory of a block: two per SM
+# the int4 contraction sums 16 * c: |16 * acc| <= 16 * 127 * 8 * K < 2^31
+A8_MAX_K = 131072
+_A8_XDTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+class A8Plan(NamedTuple):
+    """How ``wqt_matmul_a8.cu`` runs one call: blocks of ``tile_m`` x rows
+    (8 or 16; ``m_tiles`` of them over grid.y) and ``tile_n`` weight rows,
+    the ``splits`` K splits of ``k_per_split`` of each (m, n) tile launched
+    as one cluster, the cluster ranks whose row maxima the quantizer
+    combines (``amax_ranks``, all of them), the grid's block count and a
+    block's dynamic shared memory."""
+    tile_m: int
+    tile_n: int
+    m_tiles: int
+    splits: int
+    k_per_split: int
+    amax_ranks: int
+    blocks: int
+    smem_bytes: int
+
+
+def a8_smem(bits: int, x_bytes: int, tile_m: int, tile_n: int,
+            k_per_split: int, block_k: int) -> int:
+    """A block's dynamic shared memory (the kernel's ``Layout.total``): the
+    code ring (rows padded to 80 or 160 bytes), the x codes (rows padded by
+    32 bytes), blockwise the staged scales, and one region for the raw x
+    slice and then, blockwise, the int32 sums of the split's quant blocks
+    from each of the block's k-groups (k-groups x ``tile_n`` = 64)."""
+    stride = A8_K // 2 + 16 if bits == 4 else A8_K + 32
+    bps = k_per_split // block_k if block_k > 0 else 0
+    return (A8_STAGES * tile_n * stride + tile_m * (k_per_split + 32)
+            + bps * tile_n * 4 + max(tile_m * k_per_split * x_bytes,
+                                     bps * tile_m * 64 * 4))
+
+
+@functools.lru_cache(maxsize=4096)
+def a8_plan(M: int, N: int, K: int, block_k: int, bits: int,
+            x_bytes: int) -> A8Plan:
+    """The launch plan for x (M, K) against (N, K) codes of ``bits``, x
+    given as ``x_bytes``-byte activations (4 fp32, 2 bf16) or int8 codes
+    (1).  Blocks take 8 rows of x at M <= 8, else 16 (M > 16 in several
+    m tiles).  K is split toward about two blocks per SM, at most 8 ways
+    (one cluster, which spans all of K), each split a multiple of 128 and
+    of ``block_k``, and further where a block's slice of K would not fit
+    its shared-memory budget; the widest tile (64, 32, 16 columns) whose
+    grid then holds a block per SM.  Raises for a shape the kernel does
+    not take."""
+    if K % A8_K or K > A8_MAX_K:
+        raise ValueError(f"the wqt_matmul_a8 kernel takes K a multiple of "
+                         f"{A8_K} up to {A8_MAX_K}, got {K}")
+    if block_k != -1 and (block_k <= 0 or block_k % 32 or K % block_k):
+        raise ValueError(f"the wqt_matmul_a8 kernel takes block_k = -1 or "
+                         f"a multiple of 32 dividing K, got {block_k}")
+    unit = math.lcm(A8_K, block_k) if block_k > 0 else A8_K
+    units = K // unit
+    tile_m = 8 if M <= 8 else 16
+    m_tiles = _cdiv(M, tile_m)
+    best = None
+    for tile_n in (64, 32, 16):
+        tiles = _cdiv(N, tile_n) * m_tiles
+        splits, _ = _split(tiles, units, GEMV_TARGET_BLOCKS, CLUSTER_SPLITS)
+        # more splits where a block's slice of K is too big
+        for want in range(splits, min(units, CLUSTER_SPLITS) + 1):
+            per = _cdiv(units, want)
+            smem = a8_smem(bits, x_bytes, tile_m, tile_n, per * unit,
+                           block_k)
+            if smem <= A8_SMEM_MAX:
+                break
+        else:
+            continue
+        splits = _cdiv(units, per)
+        best = A8Plan(tile_m, tile_n, m_tiles, splits, per * unit, splits,
+                      tiles * splits, smem)
+        if tiles * splits >= SMS:
+            break
+    if best is None:
+        raise ValueError(f"no wqt_matmul_a8 tile fits {A8_SMEM_MAX} bytes of "
+                         f"shared memory for K={K}, block_k={block_k}")
+    return best
+
+
+def _launch_a8(name: str, x, xs, codes, scales, block_k: int, bits: int,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    from repro_torch.kernels import _build
+    lib = _build.lib()
+    M, K = x.shape
+    N = codes.shape[0]
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    if codes.data_ptr() % 16:
+        raise ValueError(f"{name}: codes must start 16-byte aligned")
+    if x.data_ptr() % 16:          # a view into another tensor's storage
+        x = x.clone()
+    p = a8_plan(M, N, K, block_k, bits, x.element_size())
+    err = lib.wqt_matmul_a8_launch(
+        x.data_ptr(), xs.data_ptr() if xs is not None else None,
+        codes.data_ptr(), scales.data_ptr(), out.data_ptr(), M, N, K,
+        block_k, bits, _A8_XDTYPES[x.dtype], p.tile_m, p.tile_n, p.splits,
+        p.k_per_split, p.amax_ranks, p.smem_bytes,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, name)
+    return out
+
+
 def wqt_matmul_a8(xq: torch.Tensor, xs: torch.Tensor, codes: torch.Tensor,
                   scales: torch.Tensor, block_k: int = -1,
                   bits: int = 8) -> torch.Tensor:
     """W4A8 / W8A8: int8 activation codes xq (M, K) with fp32 row scales
     xs (M, 1) against out-major codes (N, K[/2]) -> fp32 (M, N).  The
     contraction is exact in int32 and both scales fold into an fp32
-    epilogue (``wqt_matmul_a8_ref``'s order).  The kernel takes blockwise
-    scales with ``block_k`` a multiple of 4."""
+    epilogue (``wqt_matmul_a8_ref``'s order).  The kernel takes K a
+    multiple of 128 and ``block_k`` -1 or a multiple of 32."""
     M, N, K = _check(xq, codes, scales, block_k, bits)
     if xq.dtype != torch.int8:
         raise ValueError(f"xq must be int8 codes, got {xq.dtype}")
@@ -262,30 +379,33 @@ def wqt_matmul_a8(xq: torch.Tensor, xs: torch.Tensor, codes: torch.Tensor,
     if xq.device.type == "cpu":
         return wqt_matmul_a8_ref(xq, xs, codes, scales, block_k, bits == 4)
     _check_cuda("wqt_matmul_a8", xq=xq, xs=xs, codes=codes, scales=scales)
-    if block_k != -1 and block_k % 4:
-        raise ValueError(f"the wqt_matmul_a8 kernel takes block_k = -1 or a "
-                         f"multiple of 4 (four int8 codes per __dp4a word), "
-                         f"got {block_k}")
-    from repro_torch.kernels import _build
-    lib = _build.lib()
-    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
-    if M == 0 or N == 0:
-        return out
-    segs = lib.wqt_matmul_a8_segments(M, N, K, block_k)
-    # int32 partial sums of the K segments (kept alive through the launch)
-    work = (torch.empty((segs, M, N), dtype=torch.int32, device=xq.device)
-            if segs > 0 else None)
-    stream = torch.cuda.current_stream(xq.device).cuda_stream
-    err = lib.wqt_matmul_a8_launch(
-        xq.data_ptr(), xs.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-        out.data_ptr(), work.data_ptr() if work is not None else None,
-        M, N, K, block_k, bits, _vec_ok(codes, codes.shape[1]), stream)
-    _build.check(err, "wqt_matmul_a8")
+    out = _launch_a8("wqt_matmul_a8", xq, xs, codes, scales, block_k, bits,
+                     torch.float32)
     wqt_matmul_a8.launches += 1
     return out
 
 
 wqt_matmul_a8.launches = 0
+
+
+def wqt_matmul_a8_x(x: torch.Tensor, codes: torch.Tensor,
+                    scales: torch.Tensor, block_k: int = -1,
+                    bits: int = 8) -> torch.Tensor:
+    """W4A8 / W8A8 from the activations: x (M, K) bf16 or fp32 is
+    row-quantized to int8 (``quantize_acts_ref``), contracted with
+    out-major codes (N, K[/2]) as ``wqt_matmul_a8`` does and cast to
+    x.dtype, in one launch -> (M, N) in x.dtype, bitwise equal to
+    ``wqt_matmul_a8_x_ref``.  Kernel shapes as ``wqt_matmul_a8``."""
+    M, N, K = _check(x, codes, scales, block_k, bits)
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.device.type == "cpu":
+        return wqt_matmul_a8_x_ref(x, codes, scales, block_k, bits == 4)
+    _check_cuda("wqt_matmul_a8_x", x=x, codes=codes, scales=scales)
+    out = _launch_a8("wqt_matmul_a8_x", x, None, codes, scales, block_k,
+                     bits, x.dtype)
+    wqt_matmul_a8.launches += 1          # the kernel's one count
+    return out
 
 
 def pack_weight(w: torch.Tensor, block_k: int = 128, bits: int = 4):

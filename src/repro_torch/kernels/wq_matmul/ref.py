@@ -3,8 +3,9 @@
 The same arithmetic as ``repro.kernels.wq_matmul.ref``: the out-major
 ``wqt_matmul`` (unpack, dequantize in fp32, contract in fp32, cast to x's
 dtype), its integer-activation twin ``wqt_matmul_a8`` (int8 codes
-contracted exactly, the scales in an fp32 epilogue) and the K-major
-``wq_matmul``, with the quantizers that feed them.  The CPU tests hold
+contracted exactly, the scales in an fp32 epilogue) with
+``wqt_matmul_a8_x`` (the row quantizer in front, the cast behind) and the
+K-major ``wq_matmul``, with the quantizers that feed them.  The CPU tests hold
 them to the JAX oracles; ``chip_smoke.py`` holds the CUDA kernels to them
 on the card.
 """
@@ -93,6 +94,18 @@ def wqt_matmul_a8_ref(xq: torch.Tensor, xs: torch.Tensor, codes: torch.Tensor,
     for b in range(1, kb):
         out = out + acc[..., b] * scales[..., b].unsqueeze(-2)
     return out * xs
+
+
+def wqt_matmul_a8_x_ref(x: torch.Tensor, codes: torch.Tensor,
+                        scales: torch.Tensor, block_k: int,
+                        int4: bool) -> torch.Tensor:
+    """W4A8 / W8A8 from the activations, as the JAX package's
+    ``core/qtensor.py::matmul`` composes it under ``act_fmt="int8"``:
+    ``quantize_acts_ref``, then ``wqt_matmul_a8_ref``, then the cast to
+    x's dtype."""
+    xq, xs = quantize_acts_ref(x)
+    return wqt_matmul_a8_ref(xq, xs, codes, scales, block_k,
+                             int4).to(x.dtype)
 
 
 def dequant_ref(codes: torch.Tensor, scales: torch.Tensor, block_k: int,
