@@ -32,7 +32,17 @@ checked:
   (fused AdamW, decoupled penalty) then evaluated with fp32, RTN and RR
   weights; 8 layers with the loss-side penalty; and 2 layers trained on
   the card and on the CPU from the same weights and batches (losses,
-  per-step penalties and eval CEs compared).
+  per-step penalties and eval CEs compared);
+* the paper's baselines: the straight-through estimators on the card
+  (forward bitwise equal to the cast, gradient to the upstream one);
+  full-width 40-layer QAT and RAT (3 steps each) with exact cast counts;
+  RAT on 8 layers with and without int8 activations (the ``quant``
+  kernel's bf16 instance, recomputed in backward); QAT and RAT on 2
+  layers, card against CPU from the same uniforms, and RAT's two
+  microbatches against one (one cast per step);
+* serving what they train: RR-cast int4 QTensors (re-quantizing the
+  cast is the identity, bitwise) through ``wqt_matmul`` and the dense
+  fp4 cast, 4 layers, prefill logits against the CPU's.
 
 Each phase prints one JSON line; a failed check raises and the script
 exits non-zero.  The last three lines are the ``kernels`` summary, the
@@ -842,6 +852,9 @@ def _pen_rel(got, want):
 #     matrix's absmax is NaN, its scale 1, as torch's amax gives).
 ADVERSARIAL = ("max_last", "max_first", "max_boundary", "zero", "nan")
 ADVERSARIAL_SHAPES = [(40, 2048, 8192), (40, 2048)]
+# the normed block inputs of a full-width training step (batch 4 x 1024,
+# d_model 2048) that LMConfig.act_fmt fake-quantizes, one scale per row
+ACT_SHAPE = (4, 1024, 2048)
 
 
 def _plant(w, kind, plan):
@@ -871,14 +884,16 @@ def _elem_bound(kernel, n, nbytes):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def check_quant_one(timer, gen, dev, shape, fmt, bs, rr, adversarial=None):
+def check_quant_one(timer, gen, dev, shape, fmt, bs, rr, adversarial=None,
+                    dtype=torch.float32):
     """One check row; with ``adversarial`` (per-matrix scales) the leaf
-    gets that planted case and the row is checked, not timed."""
+    gets that planted case and the row is checked, not timed.  ``dtype``
+    bf16 is the bf16 instance (per-matrix RTN, activations)."""
     from repro_torch.core.formats import get_format
     from repro_torch.core.quantize import matrix_scales
     from repro_torch.kernels.quant import quant_rr, quant_rtn, rr_ref, rtn_ref
     from repro_torch.kernels.quant import ops as quant_ops
-    w = torch.randn(shape, generator=gen, device=dev) * 0.02
+    w = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
     u = torch.rand(shape, generator=gen, device=dev) if rr else None
     plan = quant_ops.launch_plan(w, fmt, rr) if bs == -1 else None
     if adversarial:
@@ -901,6 +916,7 @@ def check_quant_one(timer, gen, dev, shape, fmt, bs, rr, adversarial=None):
     n = w.numel()
     row = dict(phase="check", kernel="quant", cast="rr" if rr else "rtn",
                shape=_fmt_shape(shape), fmt=fmt, block_size=bs,
+               dtype=str(dtype).replace("torch.", ""),
                adversarial=adversarial, bitwise=same, max_abs_err=err,
                blocks=plan.blocks if plan else None)
     if not same or adversarial:
@@ -910,9 +926,11 @@ def check_quant_one(timer, gen, dev, shape, fmt, bs, rr, adversarial=None):
     if adversarial:
         return row
     del got, want
-    b_ms, b_by = _elem_bound("quant", n, n * 4 * (3 if rr else 2))
+    b_ms, b_by = _elem_bound("quant", n,
+                             n * w.element_size() * (3 if rr else 2))
     library_ms = library_with_scale_ms = None
-    if not rr and bs == -1 and fmt.startswith("int"):
+    if not rr and bs == -1 and fmt.startswith("int") \
+            and dtype == torch.float32:
         qmax = 2 ** (int(fmt[3:]) - 1) - 1
         library_ms = timer(lambda: torch.fake_quantize_per_tensor_affine(
             w, 0.01, 0, -qmax, qmax))
@@ -931,20 +949,28 @@ def check_quant_one(timer, gen, dev, shape, fmt, bs, rr, adversarial=None):
 
 
 def check_quant_adversarial(dev, casts=(False, True)):
-    """The adversarial per-matrix rows (int4, RTN and RR); raises
-    AssertionError(message, summary) after all of them if any disagrees."""
+    """The adversarial per-matrix rows (int4, RTN and RR in fp32; the bf16
+    instance's RTN at the activation shape and a weight shape, int4 and
+    int8); raises AssertionError(message, summary) after all of them if
+    any disagrees."""
     gen = torch.Generator(device=dev).manual_seed(13)
     rows, failed = [], []
-    for shape in ADVERSARIAL_SHAPES:
+    cases = [(shape, "int4", rr, torch.float32)
+             for shape in ADVERSARIAL_SHAPES for rr in casts]
+    if False in casts:
+        cases += [(shape, fmt, False, torch.bfloat16)
+                  for shape in (ACT_SHAPE, ADVERSARIAL_SHAPES[0])
+                  for fmt in ("int4", "int8")]
+    for shape, fmt, rr, dtype in cases:
         for kind in ADVERSARIAL:
-            for rr in casts:
-                try:
-                    rows.append(check_quant_one(None, gen, dev, shape, "int4",
-                                                -1, rr, adversarial=kind))
-                except AssertionError as e:
-                    rows.append(e.args[1])
-                    failed.append(f"{'rr' if rr else 'rtn'} "
-                                  f"{_fmt_shape(shape)} {kind}")
+            try:
+                rows.append(check_quant_one(None, gen, dev, shape, fmt, -1,
+                                            rr, adversarial=kind,
+                                            dtype=dtype))
+            except AssertionError as e:
+                rows.append(e.args[1])
+                failed.append(f"{'rr' if rr else 'rtn'} {fmt} "
+                              f"{_fmt_shape(shape)} {dtype} {kind}")
     torch.cuda.empty_cache()
     return _adversarial_summary("quant", rows, failed)
 
@@ -965,6 +991,9 @@ def _adversarial_summary(kernel, rows, failed):
 def check_quant(timer, dev):
     rows = check_quant_adversarial(dev)["rows"]
     gen = torch.Generator(device=dev).manual_seed(3)
+    for fmt in ("int8", "int4"):         # the bf16 instance: activations
+        rows.append(check_quant_one(timer, gen, dev, ACT_SHAPE, fmt, -1,
+                                    False, dtype=torch.bfloat16))
     for shape in CHECK_SHAPES:
         for bs in (-1, 128):
             rows.append(check_quant_one(timer, gen, dev, shape, "int4", bs,
@@ -1583,27 +1612,35 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 1024
 
 
 def granite_trainer(dev, *, n_layers=None, dtype="bfloat16",
-                    placement="decoupled", lam=1e3, seed=0):
+                    placement="decoupled", lam=1e3, seed=0, method="lotion",
+                    act_fmt=None, n_microbatches=1, rat_uniforms=None):
     """The training path's workload: Granite-3-2B at full width (depth
     ``n_layers`` if given), random fp32 master weights from ``seed``,
-    ``dtype`` activations; LOTION int4 per-tensor at ``lam`` with the given
-    penalty placement; AdamW on a cosine schedule with warmup, fused into
-    the opt_step core.  Returns (cfg, train_step, eval_fn, state)."""
+    ``dtype`` activations (fake-quantized under ``act_fmt``); ``method``
+    int4 per-tensor (LOTION at ``lam`` with the given penalty placement,
+    or the QAT/RAT baselines: RAT from ``rat_uniforms(step)`` or the
+    per-step generator of ``seed``); AdamW on a cosine schedule with
+    warmup, fused into the opt_step core.  Returns (cfg, train_step,
+    eval_fn, state)."""
     from repro_torch.configs import get_config
     from repro_torch.core.modes import QuantConfig
     from repro_torch.models.lm import lm_init
     from repro_torch.optim import adamw, cosine_with_warmup
     from repro_torch.train import (TrainConfig, init_state, make_eval_fn,
                                    make_optimizer, make_train_step)
-    cfg = dataclasses.replace(get_config("granite-3-2b"), dtype=dtype)
+    cfg = dataclasses.replace(get_config("granite-3-2b"), dtype=dtype,
+                              act_fmt=act_fmt)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    qcfg = QuantConfig(method="lotion", fmt_name="int4", block_size=-1,
-                       lam=lam, penalty_placement=placement)
-    tcfg = TrainConfig(quant=qcfg, clip_norm=1.0)
+    qcfg = QuantConfig(method=method, fmt_name="int4", block_size=-1,
+                       lam=lam if method == "lotion" else 0.0,
+                       penalty_placement=placement)
+    tcfg = TrainConfig(quant=qcfg, clip_norm=1.0,
+                       n_microbatches=n_microbatches, seed=seed)
     opt = make_optimizer(tcfg, adamw(cosine_with_warmup(3e-3, 5, 100)))
     state = init_state(lm_init(cfg, seed=seed, device=dev), opt)
-    return cfg, make_train_step(cfg, tcfg, opt), make_eval_fn(cfg, qcfg), state
+    return (cfg, make_train_step(cfg, tcfg, opt, rat_uniforms=rat_uniforms),
+            make_eval_fn(cfg, qcfg), state)
 
 
 def _pipeline(cfg, dev, batch, seq):
@@ -1808,6 +1845,374 @@ def train_card_vs_cpu(dev, steps=3):
 
 
 # --------------------------------------------------------------------------
+# phase 7: the paper's QAT and RAT baselines (straight-through estimators
+# on the quant kernel) and serving what they train (RR QTensors, dense
+# casts)
+# --------------------------------------------------------------------------
+
+STE_SHAPE = (40, 2048, 8192)     # Granite-3-2B's stacked w_up / w_gate
+
+
+def check_ste(dev):
+    """The straight-through estimators on the card: the forward value
+    bitwise equal to ``quant_rtn`` / ``quant_rr`` on the same input and
+    the gradient reaching ``w`` bitwise equal to the upstream gradient,
+    for a stacked (40, 2048, 8192) fp32 leaf (RTN and RR, int4) and the
+    bf16 activations of a training step (RTN, int8)."""
+    from repro_torch.core import ste
+    from repro_torch.kernels.quant import quant_rr, quant_rtn
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows, failed = [], []
+    for shape, dtype, cast, fmt in ((STE_SHAPE, torch.float32, "rtn", "int4"),
+                                    (STE_SHAPE, torch.float32, "rr", "int4"),
+                                    (ACT_SHAPE, torch.bfloat16, "rtn",
+                                     "int8")):
+        w = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
+        w.requires_grad_(True)
+        g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        if cast == "rr":
+            u = torch.rand(shape, generator=gen, device=dev)
+            q = ste.fake_quant_rr(w, fmt, u, -1)
+            want = quant_rr(w.detach(), u, fmt, -1)
+            del u
+        else:
+            q = ste.fake_quant_rtn(w, fmt, -1)
+            want = quant_rtn(w.detach(), fmt, -1)
+        q.backward(g)
+        torch.cuda.synchronize()
+        fwd = _same_bits(q.detach(), want)
+        grad = w.grad is not None and _same_bits(w.grad, g)
+        row = dict(phase="check_ste", shape=_fmt_shape(shape),
+                   dtype=str(dtype).replace("torch.", ""), cast=cast,
+                   fmt=fmt, forward_bitwise=fwd, grad_bitwise=grad)
+        emit(row)
+        rows.append(row)
+        if not (fwd and grad):
+            failed.append(f"{cast} {row['shape']} {row['dtype']}")
+        del w, g, q, want
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("the STE disagrees", dict(
+            phase="check_ste", failed=failed, rows=rows))
+    return rows
+
+
+def _baseline_run(dev, method, *, steps, n_layers=None, act_fmt=None):
+    """``method`` (qat or rat) int4 per-tensor training of Granite-3-2B at
+    full width, then the fp32, RTN and RR eval CE, with its launch counts
+    checked exactly: per step 7 weight casts (``quant_rtn`` for QAT,
+    ``quant_rr`` for RAT) and 11 ``opt_step`` launches; under ``act_fmt``
+    2 activation casts per layer and forward (the bf16 instance), whose
+    forward recomputation in backward (``cfg.remat``) casts again; the RTN
+    and RR evals 7 casts each plus their forwards' activation casts."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.quant import quant_rr, quant_rtn
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, train_step, eval_fn, state = granite_trainer(
+        dev, n_layers=n_layers, method=method, act_fmt=act_fmt)
+    pipe, val = _pipeline(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_leaves = len(tree_leaves(state["params"]))
+    n_eligible = len(_eligible(state["params"]))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    try:
+        state, rows = _train_steps(train_step, state, pipe, steps)
+    finally:
+        pipe.close()
+    train_peak = torch.cuda.max_memory_allocated()
+    ce = {"fp32": float(eval_fn(state["params"], val)),
+          "rtn": float(eval_fn(state["params"], val, "rtn")),
+          "rr": float(eval_fn(state["params"], val, "rr",
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(1)))}
+    counts = launch_counts()
+    got = {"quant_rtn": quant_rtn.launches, "quant_rr": quant_rr.launches}
+    acts = 2 * cfg.n_layers if act_fmt else 0
+    act_train = acts * (2 if cfg.remat else 1)
+    per_step = {"quant_rtn": act_train, "quant_rr": 0}
+    per_step["quant_rtn" if method == "qat" else "quant_rr"] += n_eligible
+    want_casts = {"quant_rtn": steps * per_step["quant_rtn"] + n_eligible
+                  + 3 * acts,
+                  "quant_rr": steps * per_step["quant_rr"] + n_eligible}
+    want = dict.fromkeys(counts, 0)
+    want.update(opt_step=n_leaves * steps, quant=sum(want_casts.values()))
+    checks = {"counts": counts == want, "casts": got == want_casts,
+              "leaves": (n_leaves, n_eligible) == (11, 7),
+              "ce_finite": all(map(math.isfinite, ce.values()))}
+    row = dict(method=f"{method} int4 per-tensor", act_fmt=act_fmt,
+               n_layers=cfg.n_layers, setup_s=setup_s, steps=rows,
+               step_ms=[r["step_ms"] for r in rows], eval_ce=ce,
+               launches=counts, expected_launches=want, casts=got,
+               expected_casts=want_casts,
+               # the bf16 instance's: all quant_rtn launches but the
+               # weights' (QAT's per step, the RTN eval's)
+               act_cast_launches=got["quant_rtn"] - n_eligible * (
+                   1 + (steps if method == "qat" else 0)),
+               peak_memory_gib_train=train_peak / 2 ** 30,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               checks=checks)
+    del state, train_step, eval_fn
+    torch.cuda.empty_cache()
+    return cfg, row
+
+
+def train_qat_full_width(dev, steps=3):
+    """The baselines' main path: 40 layers at full width, QAT then RAT
+    (3 steps each, fused AdamW at lam = 0), then the eval CEs."""
+    out = {}
+    for method in ("qat", "rat"):
+        cfg, out[method] = _baseline_run(dev, method, steps=steps)
+    row = dict(phase="train_qat_full_width", model=cfg.name,
+               n_layers=cfg.n_layers, d_model=cfg.d_model,
+               dtype=str(cfg.dtype), batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               optimizer="fused AdamW, cosine warmup", **out)
+    emit(row)
+    bad = {m: r["checks"] for m, r in out.items()
+           if not all(r["checks"].values())}
+    if bad:
+        raise AssertionError(f"baseline training failed its checks: {bad}")
+    return row
+
+
+def train_rat_act(dev, n_layers=8, steps=2):
+    """RAT at 8 layers, then RAT with int8 activations (the bf16 instance
+    of quant, its launches counted with the recomputation)."""
+    out = {}
+    for act in (None, "int8"):
+        cfg, out[f"act_{act}"] = _baseline_run(dev, "rat", steps=steps,
+                                               n_layers=n_layers, act_fmt=act)
+    row = dict(phase="train_rat_act", model=cfg.name, n_layers=cfg.n_layers,
+               d_model=cfg.d_model, dtype=str(cfg.dtype), remat=cfg.remat,
+               **out)
+    emit(row)
+    bad = {k: r["checks"] for k, r in out.items()
+           if not all(r["checks"].values())}
+    if bad:
+        raise AssertionError(f"RAT phase failed its checks: {bad}")
+    return row
+
+
+# RAT's microbatches on the card: one step from the generator with 2
+# microbatches against 1 on the same state and batch (fp32, TF32 off).
+# Sharing one cast, they differ by summation order only (9.9e-8); fresh
+# uniforms in the second microbatch read 4.4e-3 (planted_faults_torch.py,
+# rat_uniforms_per_microbatch; NVIDIA H100 80GB HBM3 at 700 W).
+RAT_MICRO_RTOL = 1e-5
+# QAT and RAT, card against CPU: the first two steps' losses and the fp32
+# eval CE are held at TRAIN_CPU_RTOL (the sound runs agree to 7e-6).  The
+# third step's loss and the RTN and RR eval CEs run cast weights after two
+# updates: Adam's first steps on elements whose gradient is within
+# rounding of eps differ between card and CPU, and where such an element
+# is its matrix's absmax the per-tensor scale, and every code of the
+# matrix, moves (ROADMAP Queue 3).  The sound run read up to 4.4e-4
+# there (QAT's RR CE; NVIDIA H100 80GB HBM3 at 700 W), so they are held at
+# 1e-3.  A dropped STE gradient (w_gate) reads 2.4e-3 on the first two
+# steps and 1.9e-3 after (planted_faults_torch.py, ste_drops_grad).
+TRAIN_BASELINE_LATE_RTOL = 1e-3
+
+
+def _uniform_source(dev, params, seed, n):
+    """n dicts of uniforms (eligible leaf path -> tensor on the card, in
+    the leaf's shape), drawn from a generator seeded with ``seed``."""
+    from repro_torch.core.policy import path_str
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [{path_str(p): torch.rand(_get(params, p).shape, generator=gen,
+                                     device=dev) for p in _eligible(params)}
+            for _ in range(n)]
+
+
+def train_baselines_card_vs_cpu(dev, steps=3):
+    """QAT and RAT on 2 full-width layers, fp32, trained on the card and
+    on the CPU from the same weights, batches and (RAT) uniforms: the
+    first two steps' losses and the fp32 eval CE within TRAIN_CPU_RTOL,
+    the third step's loss and the RTN and RR eval CEs within
+    TRAIN_BASELINE_LATE_RTOL.  Then RAT's microbatches on the card
+    against one microbatch (RAT_MICRO_RTOL)."""
+    from repro_torch.core.policy import tree_map_with_path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for method in ("qat", "rat"):
+        res = {}
+        for side in ("cpu", "cuda"):
+            d = torch.device("cpu") if side == "cpu" else dev
+            draws = []          # per step, then the RR eval's
+            cfg, train_step, eval_fn, state = granite_trainer(
+                dev, n_layers=2, dtype="float32", seed=3, method=method,
+                rat_uniforms=(lambda step: draws[step]) if method == "rat"
+                else None)
+            draws += [{k: v.to(d) for k, v in u.items()} for u in
+                      _uniform_source(dev, state["params"], 17, steps + 1)]
+            if side == "cpu":
+                # the same random weights (drawn on the card), moved over
+                state = tree_map_with_path(
+                    lambda p, x: x.cpu() if torch.is_tensor(x) else x, state)
+            pipe, val = _pipeline(cfg, d, 2, 128)
+            state, rows = _train_steps(train_step, state, pipe, steps)
+            pipe.close()
+            p = state["params"]
+            res[side] = dict(losses=[r["loss"] for r in rows],
+                             ce_fp32=float(eval_fn(p, val)),
+                             ce_rtn=float(eval_fn(p, val, "rtn")),
+                             ce_rr=float(eval_fn(p, val, "rr",
+                                                 uniforms=draws[steps])))
+            del state, train_step, eval_fn, draws
+        c, g = res["cpu"], res["cuda"]
+        early = list(zip(c["losses"][:2], g["losses"][:2])) + [
+            (c["ce_fp32"], g["ce_fp32"])]
+        late = list(zip(c["losses"][2:], g["losses"][2:])) + [
+            (c[k], g[k]) for k in ("ce_rtn", "ce_rr")]
+        out[method] = dict(cpu=c, card=g,
+                           max_rel_diff=max(_rel(a, b) for a, b in early),
+                           late_max_rel_diff=max(_rel(a, b)
+                                                 for a, b in late))
+    # RAT's microbatches share one cast (the generator, on the card)
+    micro = {}
+    for n in (1, 2):
+        cfg, train_step, _, state = granite_trainer(
+            dev, n_layers=2, dtype="float32", seed=3, method="rat",
+            n_microbatches=n)
+        pipe, _ = _pipeline(cfg, dev, 4, 128)
+        _, rows = _train_steps(train_step, state, pipe, 1)
+        pipe.close()
+        micro[n] = rows[0]
+        del state, train_step
+    micro_diff = max(_rel(micro[1][k], micro[2][k])
+                     for k in ("loss", "grad_norm"))
+    worst = max(r["max_rel_diff"] for r in out.values())
+    late = max(r["late_max_rel_diff"] for r in out.values())
+    row = dict(phase="train_baselines_card_vs_cpu", n_layers=2,
+               dtype="float32", batch=2, seq=128, steps=steps, **out,
+               max_rel_diff=worst, rtol=TRAIN_CPU_RTOL,
+               late_max_rel_diff=late, late_rtol=TRAIN_BASELINE_LATE_RTOL,
+               rat_microbatches={n: {k: micro[n][k] for k in
+                                     ("loss", "grad_norm")} for n in micro},
+               rat_micro_rel_diff=micro_diff, rat_micro_rtol=RAT_MICRO_RTOL)
+    emit(row)
+    if not (worst <= TRAIN_CPU_RTOL and late <= TRAIN_BASELINE_LATE_RTOL
+            and micro_diff <= RAT_MICRO_RTOL):
+        raise AssertionError("baseline training: card and CPU, or RAT's "
+                             "microbatches, disagree", row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def _prefill_logits(params, cfg, toks, lens, device):
+    from repro_torch.models.lm import lm_prefill
+    with torch.inference_mode():
+        logits, _ = lm_prefill(params, cfg, torch.as_tensor(toks,
+                                                            device=device),
+                               cache_len=64, kv_quant="int8",
+                               prompt_lens=torch.tensor(lens, device=device))
+    return logits.float().cpu()
+
+
+def serve_rr(dev, n_layers=4, mnt=8):
+    """Serving what the baselines train, 4 full-width layers: RR-cast int4
+    QTensors (the cast in the stored orientation, re-quantized: from
+    explicit uniforms its dequantized tree equals the dense RR cast of the
+    same uniforms through quant_rr, bitwise up to the sign of zero)
+    served by ``rr:int4`` (drawn
+    from ``ServeConfig.seed``) through wqt_matmul, and the dense fp4 RTN
+    cast (``rtn:fp4``, no QTensor) served dense; each engine's launches
+    (its preparation's and its generation's) counted exactly and its
+    prefill logits held to the CPU's on the same weights (5% of the
+    largest logit, as card_vs_cpu)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (QuantPolicy, dequantize_params,
+                                  quantize_params)
+    from repro_torch.core.policy import path_str, tree_map_with_path
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.quant import quant_rr
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=n_layers)
+    params = lm_init(cfg, seed=4, device=dev)
+    stored = tree_map_with_path(
+        lambda p, x: x.transpose(-1, -2).contiguous()
+        if x.ndim >= 2 and p[-1] != "embed" else x, params)
+    u = _uniform_source(dev, stored, 23, 1)[0]
+    reset_launch_counts()
+    qparams = quantize_params(params, "int4", QuantPolicy(), -1, mode="rr",
+                              uniforms=u)
+    prep_counts = launch_counts()
+    # 7 casts: quant_rr (rr:int4) or quant_rtn (rtn:fp4), one per leaf
+    want_prep = dict.fromkeys(prep_counts, 0)
+    want_prep.update(quant=len(_eligible(params)))
+    dense = dequantize_params(qparams)
+    identity = {}
+    for path in _eligible(params):
+        key = path_str(path)
+        cast = quant_rr(_get(stored, path), u[key], "int4", -1)
+        # equal values: a -0.0 of the cast comes back from its code as 0.0
+        identity[key] = torch.equal(_get(dense, path),
+                                    cast.transpose(-1, -2))
+        del cast
+    del dense, stored, u
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(4)
+    prompts = _prompts(rng, 4, 16, 32, cfg.vocab)
+    max_len = max(map(len, prompts))
+    toks = np.zeros((len(prompts), max_len), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, max_len - len(p):] = p
+    lens = [len(p) for p in prompts]
+    runs = {}
+    del qparams
+    for name in ("rr:int4", "rtn:fp4"):
+        reset_launch_counts()
+        eng = Engine(cfg, params, ServeConfig(weights=name, kv_quant="int8",
+                                              max_new_tokens=mnt, seed=4),
+                     device=dev)
+        prep = launch_counts()
+        reset_launch_counts()
+        outs = eng.generate(prompts)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        qt = name.startswith("rr")
+        want = dict.fromkeys(counts, 0)
+        want.update(wqt_matmul=7 * n_layers * mnt if qt else 0,
+                    decode_attn=n_layers * (mnt - 1))
+        cpu_params = tree_map_with_path(lambda p, x: x.to("cpu"),
+                                        eng.params)
+        pg = _prefill_logits(eng.params, cfg, toks, lens, dev)
+        pc = _prefill_logits(cpu_params, cfg, toks, lens, "cpu")
+        err, scale = float((pg - pc).abs().max()), float(pc.abs().max())
+        runs[name] = dict(
+            prepare_launches=prep, expected_prepare_launches=want_prep,
+            launches=counts, expected_launches=want,
+            max_abs_logit_err=err, tol=0.05 * scale,
+            tokens_ok=[len(o) for o in outs] == [mnt] * len(prompts)
+            and all(0 <= t < cfg.vocab for o in outs for t in o),
+            first_tokens=[o[:4] for o in outs[:2]])
+        runs[name]["ok"] = (counts == want and prep == want_prep
+                            and err <= 0.05 * scale
+                            and runs[name]["tokens_ok"])
+        del eng, cpu_params
+        torch.cuda.empty_cache()
+    row = dict(phase="serve_rr", model=cfg.name, n_layers=n_layers,
+               dtype=str(cfg.dtype), rr_quantize_launches=prep_counts,
+               rr_requantize_identity_bitwise=all(identity.values()),
+               rr_identity=identity, **runs)
+    emit(row)
+    ok = (all(identity.values()) and len(identity) == 7
+          and prep_counts == want_prep
+          and all(r["ok"] for r in runs.values()))
+    if not ok:
+        raise AssertionError("serve_rr failed its checks", row)
+    return row
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1850,7 +2255,13 @@ def main() -> int:
               "sched_chaos": lambda: sched_chaos(dev),
               "train": lambda: train_full_width(dev),
               "train_loss_placement": lambda: train_loss_placement(dev),
-              "train_card_vs_cpu": lambda: train_card_vs_cpu(dev)}
+              "train_card_vs_cpu": lambda: train_card_vs_cpu(dev),
+              "ste": lambda: check_ste(dev),
+              "train_qat": lambda: train_qat_full_width(dev),
+              "train_rat_act": lambda: train_rat_act(dev),
+              "train_baselines_card_vs_cpu":
+                  lambda: train_baselines_card_vs_cpu(dev),
+              "serve_rr": lambda: serve_rr(dev)}
     out = {}
     for name, run in phases.items():
         t0 = time.perf_counter()
@@ -1982,13 +2393,26 @@ def kernels_line(out):
     q, reg, opt = out["quant"], out["lotion_reg"], out["opt_step"]
     train, loss_ph = out["train"], out["train_loss_placement"]
     tol = "bitwise equal elementwise outputs"
+    bf16 = {r["fmt"]: r for r in q if r["dtype"] == "bfloat16"
+            and not r.get("adversarial")}
+    act_run = out["train_rat_act"]["act_int8"]
     lines.append(dict(
         name="quant", route="cuda",
         source="src/repro_torch/kernels/quant/csrc/quant.cu",
         replaces="src/repro/kernels/quant/quant_blockwise.py:113",
         path="train (eval casts)", launches=train["launches"]["quant"],
+        qat_launches=out["train_qat"]["qat"]["launches"]["quant"],
+        rat_launches=out["train_qat"]["rat"]["launches"]["quant"],
         tol=tol, shape="one RTN cast of Granite-3-2B's 7 eligible leaves, "
         "int4 per-tensor, fp32",
+        bf16_shape="the bf16 instance: one RTN cast of a full-width "
+        "step's normed block input (4, 1024, 2048), one scale per row",
+        bf16_launches=act_run["act_cast_launches"],
+        bf16_path="train_rat_act (act_fmt=int8, 8 layers)",
+        bf16_int8_ms=bf16["int8"]["ms"], bf16_int4_ms=bf16["int4"]["ms"],
+        bf16_plain_ms=bf16["int8"]["plain_ms"],
+        bf16_bound_ms=bf16["int8"]["bound_ms"],
+        bf16_bound_by=bf16["int8"]["bound_by"],
         library_with_scale_ms=_leaf_sum(q, "library_with_scale_ms", rtn4,
                                         True),
         rr_ms=_leaf_sum(q, "ms", rr4, True),

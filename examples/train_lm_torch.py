@@ -1,12 +1,17 @@
-"""End-to-end LOTION training through the PyTorch/CUDA port: the twin of
-``examples/train_lm.py``, with quantized evaluation at the end.
+"""End-to-end quantized training through the PyTorch/CUDA port: the twin
+of ``examples/train_lm.py``, with quantized evaluation at the end.
+``--method`` picks LOTION (default), the paper's QAT and RAT baselines
+(straight-through RTN / RR fake-quant of the eligible weights in the
+forward pass), PTQ or fp32; ``--act-fmt int8`` also fake-quantizes the
+normed block inputs (RTN, one scale per batch row).
 
 On the GPU (the default, ``--device cuda``): the full published config
 with random weights, trained through the fused ``opt_step`` kernel (and
-``lotion_reg`` with ``--placement loss``), evaluated through ``quant``:
+``lotion_reg`` with ``--placement loss``; the QAT/RAT casts and the
+activation casts through ``quant``), evaluated through ``quant``:
 
     PYTHONPATH=src python examples/train_lm_torch.py --arch granite-3-2b \
-        --steps 20 --batch 4 --seq 1024
+        --steps 20 --batch 4 --seq 1024 [--method qat|rat] [--act-fmt int8]
 
 On the CPU, the reduced smoke config through the plain PyTorch paths:
 
@@ -44,7 +49,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--method", default="lotion",
-                    choices=["fp32", "ptq", "lotion"])
+                    choices=["fp32", "ptq", "qat", "rat", "lotion"])
+    ap.add_argument("--act-fmt", default=None, choices=["int8", "int4"],
+                    help="fake-quantize the normed block inputs (RTN)")
     ap.add_argument("--fmt", default="int4")
     ap.add_argument("--block-size", type=int, default=-1)
     ap.add_argument("--lam", type=float, default=1000.0)
@@ -59,18 +66,21 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    cfg = dataclasses.replace(cfg, act_fmt=args.act_fmt)
     qcfg = QuantConfig(method=args.method, fmt_name=args.fmt, lam=args.lam,
                        block_size=args.block_size,
                        policy=QuantPolicy(min_size=256 if args.smoke
                                           else 1024))
-    tcfg = TrainConfig(quant=qcfg, penalty_placement=args.placement)
+    tcfg = TrainConfig(quant=qcfg, penalty_placement=args.placement,
+                       seed=args.seed)
     opt = make_optimizer(tcfg, adamw(
         cosine_with_warmup(args.lr, max(args.steps // 20, 5), args.steps)))
 
     params = lm_init(cfg, seed=args.seed, device=dev)
     n_params = sum(t.numel() for t in tree_leaves(params))
     print(f"# {cfg.name}: {n_params:,} params, {cfg.n_layers} layers, "
-          f"method={args.method} placement={tcfg.placement} device={dev}")
+          f"method={args.method} placement={tcfg.placement} "
+          f"act_fmt={args.act_fmt} device={dev}")
     state = init_state(params, opt)
 
     perm = permutation_table(args.seed, cfg.vocab)

@@ -59,8 +59,11 @@ NOSCAN_O = ("    qm::scan_absmax(w, a.amax, a.wk, a.off, a.vec);\n"
             "    cooperative_groups::this_grid().sync();\n",
             "    cooperative_groups::this_grid().sync();\n")
 SCALAR = ("  Args a{", "  const uintptr_t no_vec = 1;\n  Args a{")
-SCALAR_Q = ("(reinterpret_cast<uintptr_t>(out) & 15) == al &&",
-            "!no_vec && (reinterpret_cast<uintptr_t>(out) & 15) == al &&")
+SCALAR_Q = ("(reinterpret_cast<uintptr_t>(out) & vb) == al &&",
+            "!no_vec && (reinterpret_cast<uintptr_t>(out) & vb) == al &&")
+# the TMA ring streams fp32 only: leave the bf16 instance out of its build
+NOBF16 = ("  if (bf16) return (const void*)quant_matrix_kernel<false, false, "
+          "__nv_bfloat16>;\n", "")
 SCALAR_O = ("same(g) && same(mu) && same(nu)",
             "!no_vec && same(g) && same(mu) && same(nu)")
 
@@ -153,7 +156,7 @@ QUANT_VARIANTS = {
     "u8": [("constexpr int kUnroll = 4;", "constexpr int kUnroll = 8;")],
     "lb4": [("__launch_bounds__(kThreads)\nquant_matrix_kernel",
              "__launch_bounds__(kThreads, 4)\nquant_matrix_kernel")],
-    "tma": [_tma], "tma_noscan": [NOSCAN_Q, _tma],
+    "tma": [NOBF16, _tma], "tma_noscan": [NOBF16, NOSCAN_Q, _tma],
 }
 OPT_VARIANTS = {
     "base": [], "noscan": [NOSCAN_O], "scalar": [SCALAR, SCALAR_O],

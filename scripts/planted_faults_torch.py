@@ -31,6 +31,16 @@ last element or on a chunk boundary, an all-zero matrix, a NaN):
 * ``absmax_short`` — the launch plan's absmax phase walks one chunk fewer
   per matrix than the cast or step phase.
 
+The paper's baselines (phases ``check_ste``: the straight-through
+estimators on a stacked leaf, and ``train_baselines_card_vs_cpu``: QAT
+and RAT on 2 full-width layers, card against CPU from the same uniforms,
+then RAT's two microbatches against one on the card):
+
+* ``ste_drops_grad``            — the STE of one weight leaf (the first
+  (..., 2048, 8192) one of each forward: ``w_gate``) passes no gradient;
+* ``rat_uniforms_per_microbatch`` — RAT's per-step generator is not
+  re-seeded for the second microbatch, which casts against fresh draws.
+
 Static serving (phase ``serve_card_vs_cpu``: 2-layer Granite-3-2B at full
 width, int4 weights, prefill and first decode-step logits):
 
@@ -95,6 +105,34 @@ def _unrounded(orig):
     return rtn
 
 
+def _drop_grad(orig):
+    """fake_quant_rtn whose every other call on a CUDA (..., 2048, 8192)
+    tensor (the first such leaf of each forward_params) passes a zero
+    gradient to it."""
+    calls = [0]
+
+    def fq(x, fmt, block_size=-1):
+        if x.is_cuda and tuple(x.shape[-2:]) == (2048, 8192):
+            calls[0] += 1
+            if calls[0] % 2:
+                return orig(x.detach(), fmt, block_size) + 0.0 * x
+        return orig(x, fmt, block_size)
+    return fq
+
+
+def _one_generator_per_step(orig):
+    """step_generator that hands every microbatch of a step the same
+    generator object, so the second one draws on from the first's state."""
+    made = {}
+
+    def gen(seed, step, device):
+        key = (seed, step, str(device))
+        if key not in made:
+            made[key] = orig(seed, step, device)
+        return made[key]
+    return gen
+
+
 def _first_block(orig):
     def attn(q, kc, ks, vc, vs, block_tables, pos, **kw):
         if q.is_cuda:
@@ -147,7 +185,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("planted_faults_torch: needs a CUDA device", file=sys.stderr)
         return 1
+    import repro_torch.core.ste as ste
     import repro_torch.kernels.quant as quant
+    import repro_torch.train.loop as loop
     from repro_torch.kernels.quant import ops as quant_ops
     from repro_torch.kernels.decode_attn import ops as attn_ops
     from repro_torch.kernels.wq_matmul import ops as wq_ops
@@ -167,6 +207,13 @@ def main() -> int:
                                            _step_with(ok=0.0))),
             ("unrounded_rtn", lambda: _patched(quant, "quant_rtn",
                                                _unrounded))]),
+        ([("check_ste", cs.check_ste),
+          ("train_baselines_card_vs_cpu", cs.train_baselines_card_vs_cpu)], [
+            sound,
+            ("ste_drops_grad", lambda: _patched(ste, "fake_quant_rtn",
+                                                _drop_grad)),
+            ("rat_uniforms_per_microbatch", lambda: _patched(
+                loop, "step_generator", _one_generator_per_step))]),
         ([("quant_adversarial", cs.check_quant_adversarial),
           ("opt_step_adversarial", cs.check_opt_adversarial)], [
             sound,
@@ -191,6 +238,8 @@ def main() -> int:
                                                     _drop_first_split))]),
     ]
     keys = ("max_rel_diff", "rtol", "penalty_max_rel_diff", "penalty_rtol",
+            "late_max_rel_diff", "late_rtol", "rat_micro_rel_diff",
+            "rat_micro_rtol",
             "max_abs_logit_err", "tol", "partings", "tokens_identical",
             "token_agreement", "attn_launches_equal", "failed",
             "max_abs_err")

@@ -135,3 +135,10 @@ def get_format(name: str):
     except KeyError:
         raise ValueError(f"unknown quantization format {name!r}; have "
                          f"{sorted(FORMATS)}") from None
+
+
+def bits_of(fmt) -> float:
+    """Storage bits per element (for serving-memory accounting)."""
+    if isinstance(fmt, IntFormat):
+        return float(fmt.bits)
+    return float(np.ceil(np.log2(len(fmt.codes))))

@@ -1,16 +1,19 @@
 """Training-mode strategies (port of ``repro.core.modes``): one
-``QuantConfig`` drives the penalty and the eval casts.
+``QuantConfig`` drives the whole stack.
 
+* ``forward_params`` — the parameter transform applied before the model
+  forward: the identity for fp32/ptq/lotion, the straight-through
+  fake-quant of ``core/ste.py`` over the eligible leaves for qat (RTN)
+  and rat (RR against explicit uniforms);
 * ``penalty``     — the loss-side LOTION term
   ``lam * 1/2 sum f (hi-w)(w-lo)`` over the eligible leaves, through the
   ``lotion_reg`` kernel's autograd function (zero for every other method);
 * ``cast_params`` — eval-time quantization of a parameter tree, RTN or RR,
   through the ``quant`` kernel (its plain version for CPU tensors).
 
-The ``qat`` and ``rat`` baselines need the straight-through estimators of
-``core/ste.py``, which are not in this slice of the port.  There is no
-switch between kernels and plain paths: every kernel wrapper launches its
-kernel for CUDA tensors and takes its plain version for CPU tensors.
+There is no switch between kernels and plain paths: every kernel wrapper
+launches its kernel for CUDA tensors and takes its plain version for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Dict, Optional
 
 import torch
 
+from . import ste
 from .formats import get_format
 from .policy import QuantPolicy, path_str, tree_leaves, tree_map_multi
 
@@ -45,11 +49,6 @@ class QuantConfig:
         if self.penalty_placement not in PENALTY_PLACEMENTS:
             raise ValueError(f"penalty_placement {self.penalty_placement!r} "
                              f"not in {PENALTY_PLACEMENTS}")
-        if self.method in ("qat", "rat"):
-            raise NotImplementedError(
-                f"method {self.method!r} needs the straight-through "
-                f"estimators of core/ste.py, not ported yet: ROADMAP Queue 1 "
-                f"item 2 (core/ste.py)")
 
     @property
     def fmt(self):
@@ -58,6 +57,39 @@ class QuantConfig:
     @property
     def is_noop(self) -> bool:
         return self.method in ("fp32", "ptq")
+
+
+def leaf_uniforms(path, x, uniforms, generator) -> torch.Tensor:
+    """The RR uniforms of one leaf: ``uniforms[path_str(path)]``, or a
+    fresh draw in ``x``'s shape from ``generator`` on ``x``'s device."""
+    if uniforms is not None:
+        return uniforms[path_str(path)]
+    return torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype)
+
+
+def forward_params(cfg: QuantConfig, params,
+                   uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                   generator: Optional[torch.Generator] = None):
+    """Parameter transform applied inside the loss (differentiable through
+    the straight-through estimators).  ``rat`` takes its uniforms from
+    ``uniforms`` (``{path_str: tensor}`` in each leaf's shape) or draws
+    them from ``generator``, leaf by leaf in tree order; each leaf's draw
+    is dropped once its cast is made, so at most one leaf's uniforms are
+    alive."""
+    if cfg.is_noop or cfg.method == "lotion":
+        return params
+    fmt, bs = cfg.fmt, cfg.block_size
+    if cfg.method == "qat":
+        return cfg.policy.map_eligible(
+            lambda p, x: ste.fake_quant_rtn(x, fmt, bs), params)
+    if cfg.method == "rat":
+        if uniforms is None and generator is None:
+            raise ValueError("RAT needs uniforms or a generator per step")
+        return cfg.policy.map_eligible(
+            lambda p, x: ste.fake_quant_rr(
+                x, fmt, leaf_uniforms(p, x, uniforms, generator), bs), params)
+    raise AssertionError(cfg.method)
 
 
 def penalty(cfg: QuantConfig, params, fisher) -> torch.Tensor:
@@ -100,11 +132,7 @@ def cast_params(params, fmt, policy: QuantPolicy, block_size: int = -1,
         if uniforms is None and generator is None:
             raise ValueError("RR cast needs uniforms or a generator")
 
-        def _rr(path, x):
-            u = (uniforms[path_str(path)] if uniforms is not None else
-                 torch.rand(x.shape, generator=generator, device=x.device,
-                            dtype=x.dtype))
-            return quant_rr(x, u, fmt_name, block_size)
-
-        return policy.map_eligible(_rr, params)
+        return policy.map_eligible(
+            lambda p, x: quant_rr(x, leaf_uniforms(p, x, uniforms, generator),
+                                  fmt_name, block_size), params)
     raise ValueError(f"mode {mode!r} not in ('rtn', 'rr')")

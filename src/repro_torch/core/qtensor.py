@@ -25,7 +25,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -225,25 +225,45 @@ def _convertible(last: str, x: torch.Tensor, fmt, block_k: int) -> bool:
 
 
 def quantize_params(params, fmt, policy: Optional[QuantPolicy] = None,
-                    block_size: int = -1, mode: str = "rtn"):
+                    block_size: int = -1, mode: str = "rtn",
+                    uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                    generator: Optional[torch.Generator] = None):
     """Convert eligible weight leaves to QTensor storage; eligible leaves
-    that cannot become a QTensor get the dense RTN cast, the rest stay.
-    Only ``mode="rtn"`` is ported; the randomized-rounding cast is not."""
+    that cannot become a QTensor get the dense RTN or RR cast, the rest
+    stay.
+
+    ``mode="rr"`` casts a convertible leaf by unbiased randomized rounding
+    IN THE STORED ORIENTATION, in fp32, through the ``quant`` kernel, and
+    keeps its codes: on the stored matrix the cast's blocks are the
+    QTensor's K-blocks and RR keeps each block's absmax, so re-quantizing
+    the cast is the identity.  The uniforms of a leaf have the shape the
+    cast sees (stored for convertible leaves, as given otherwise): from
+    ``uniforms`` (``{path_str: tensor}``) or drawn from ``generator`` leaf
+    by leaf in tree order."""
+    from ..kernels.quant import quant_rr
     from . import quantize as qz
+    from .modes import leaf_uniforms
     if mode == "rr":
-        raise NotImplementedError(
-            "the randomized-rounding (rr:) cast is not ported yet: ROADMAP "
-            "Queue 1 item 2 (core/quantize.py cast_rr)")
-    if mode != "rtn":
+        if uniforms is None and generator is None:
+            raise ValueError("RR cast needs uniforms or a generator")
+    elif mode != "rtn":
         raise ValueError(f"mode {mode!r} not in ('rtn', 'rr')")
     fmt = get_format(fmt) if isinstance(fmt, str) else fmt
     policy = policy if policy is not None else QuantPolicy()
+
+    def rr(path, x):
+        return quant_rr(x, leaf_uniforms(path, x, uniforms, generator),
+                        fmt.name, block_size)
 
     def leaf(path, x):
         last = path_str(path).rsplit("/", 1)[-1]
         if _convertible(last, x, fmt, block_size):
             stored = x if last in _NATURAL_LEAVES else x.transpose(-1, -2)
+            if mode == "rr":
+                stored = rr(path, stored.to(torch.float32).contiguous())
             return quantize_qtensor(stored, fmt, block_size)
+        if mode == "rr":
+            return rr(path, x)
         return qz.cast_rtn(x, fmt, block_size)
 
     return policy.map_eligible(leaf, params)

@@ -118,3 +118,58 @@ def rr_variance(w: torch.Tensor, fmt, block_size: int = -1) -> torch.Tensor:
     """Elementwise Var[eps] of unbiased RR: (hi - w)(w - lo)."""
     lo, hi = rr_neighbors(w, fmt, block_size)
     return (hi - w) * (w - lo)
+
+
+def scales_like(w: torch.Tensor, fmt, block_size: int = -1) -> torch.Tensor:
+    """Per-element scale tensor (the block scales broadcast back to
+    ``w.shape``)."""
+    if block_size == -1:
+        return torch.broadcast_to(fmt.scale(_absmax_pertensor(w)), w.shape)
+    blocked, shape, n_pad = _block_view(w, block_size)
+    s = fmt.scale(torch.amax(torch.abs(blocked), dim=-1, keepdim=True))
+    return _unblock(torch.broadcast_to(s, blocked.shape), shape, n_pad)
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """Pack int8 codes in [-7, 7] into uint8 nibbles, two per byte (the
+    even element in the low nibble), flattened; an odd count is padded
+    with a zero code."""
+    flat = codes.reshape(-1)
+    if flat.shape[0] % 2:
+        flat = torch.nn.functional.pad(flat, (0, 1))
+    u = (flat.to(torch.int32) & 0xF).to(torch.uint8)
+    return u[0::2] | (u[1::2] << 4)
+
+
+def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: int8 codes of length ``n``."""
+    lo = (packed & 0xF).to(torch.int8)
+    hi = ((packed >> 4) & 0xF).to(torch.int8)
+    lo = torch.where(lo > 7, lo - 16, lo)      # 4-bit two's complement
+    hi = torch.where(hi > 7, hi - 16, hi)
+    return torch.stack([lo, hi], dim=-1).reshape(-1)[:n]
+
+
+def quantize_store(w: torch.Tensor, fmt, block_size: int = -1):
+    """Storage form ``(codes, scales, meta)``: int8 codes (int formats) or
+    uint8 codebook indices.  ``block_size=-1`` takes the per-matrix scales
+    of :func:`cast_rtn` (keepdims, codes in ``w``'s shape); blockwise codes
+    are ``(n_blocks, block)`` with ``(n_blocks,)`` scales."""
+    if block_size == -1:
+        s = fmt.scale(_absmax_pertensor(w))
+        return fmt.quantize_codes(w, s), s, dict(
+            shape=tuple(w.shape), n_pad=0, block_size=-1)
+    blocked, shape, n_pad = _block_view(w, block_size)
+    s = fmt.scale(torch.amax(torch.abs(blocked), dim=-1, keepdim=True))
+    return fmt.quantize_codes(blocked, s), s[..., 0], dict(
+        shape=tuple(shape), n_pad=n_pad, block_size=block_size)
+
+
+def dequantize_store(codes: torch.Tensor, scales: torch.Tensor, meta,
+                     fmt) -> torch.Tensor:
+    """Inverse of :func:`quantize_store` (up to the cast)."""
+    if meta["block_size"] == -1 and tuple(codes.shape) == tuple(meta["shape"]):
+        return fmt.dequantize(codes, scales)
+    # blockwise, or a per-tensor artifact stored as one flat block
+    w = fmt.dequantize(codes, scales[..., None])
+    return _unblock(w, tuple(meta["shape"]), meta["n_pad"])

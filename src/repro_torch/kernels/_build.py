@@ -39,8 +39,8 @@ SIGNATURES = {
     "decode_attn_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 6 + [_P],
     "decode_attn_paged_launch": [_P] * 8 + [_I] * 8 + [_F] + [_I] * 6 + [_P],
     "quant_launch": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _F, _I,
-                     _P],
-    "quant_blocks_per_sm": [_I, _I, _I],
+                     _I, _P],
+    "quant_blocks_per_sm": [_I, _I, _I, _I],
     "lotion_reg_launch": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _F, _F,
                           _I, _I, _P],
     "opt_step_launch": [_P] * 9 + [_L] * 5 + [_I] * 6 + [_F] * 11
@@ -168,15 +168,18 @@ def grid_for(n: int, n_mats: int = 1) -> Tuple[int, int]:
     return gx, gy
 
 
-def check_f32_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous fp32 tensor on the first
-    one's CUDA device (what the elementwise kernels take)."""
+def check_cuda_inputs(name: str, *tensors: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless every tensor is a contiguous ``dtype`` (fp32 unless
+    given) tensor on the first one's CUDA device (what the elementwise
+    kernels take)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: inputs must be on one device, got "
                              f"{t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: the kernel takes float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: the kernel takes {dtype}, got "
+                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")

@@ -48,7 +48,7 @@ def lotion_penalty_fused_vg(w: torch.Tensor, fisher: torch.Tensor,
         return reg_ref(w, fisher, fmt_name, block_size, lam)
     if w.device.type != "cuda":
         raise ValueError(f"lotion_reg runs on cuda or cpu, got {w.device}")
-    _build.check_f32_cuda("lotion_reg", w, fisher)
+    _build.check_cuda_inputs("lotion_reg", w, fisher)
     fmt = get_format(fmt_name)
     n = w.numel()
     grad = torch.empty_like(w)

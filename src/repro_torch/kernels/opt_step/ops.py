@@ -92,7 +92,7 @@ def fused_opt_step_leaf(w, g, mu, nu, *, lr, bc1, bc2, clip_scale,
                             ok=ok)
     if w.device.type != "cuda":
         raise ValueError(f"opt_step runs on cuda or cpu, got {w.device}")
-    _build.check_f32_cuda("opt_step", w, g, mu, nu)
+    _build.check_cuda_inputs("opt_step", w, g, mu, nu)
     fmt = get_format(fmt_name)
     n = w.numel()
     sc = step_scalars(lr, bc1, bc2, clip_scale, ok, w.device)

@@ -17,6 +17,15 @@
 // RTN cast of the 2.43e9 eligible Granite-3-2B weights (5.8 ms if w were
 // read once).
 //
+// The bf16 instance (activations: LMConfig.act_fmt fake-quantizes the
+// normed bf16 hidden states per batch row) is the per-matrix RTN cast for
+// INT grids with bf16 in and out.  It rounds as core/quantize.py's cast_rtn
+// does on a bf16 tensor, once per operation: the scale absmax / qmax and
+// the quotient w / s are rounded to bf16 (an fp32 quotient of bf16 values
+// rounded to bf16 is the correctly rounded bf16 quotient), then rint,
+// clamp, and the product rounded to bf16 by the store.  Its floor is 4
+// bytes per element (w read twice, the output written once).
+//
 // Design.
 //   * per matrix (block_size = -1): one cooperative launch of a persistent
 //     kernel, as many blocks as are co-resident, on the chunk walk of
@@ -44,9 +53,9 @@ namespace {
 using qm::kThreads;
 
 struct Args {
-  const float* w;
+  const void* w;         // float, or __nv_bfloat16 for the bf16 instance
   const float* u;        // RR only
-  float* out;
+  void* out;
   unsigned* amax;        // per matrix: (n_mats,) zeroed |w| bits
   qm::Walk wk;           // per matrix
   int64_t n;             // blockwise
@@ -55,11 +64,18 @@ struct Args {
   float qmax;
 };
 
-template <bool FP4, bool RR>
+// Rounds to T's precision (bf16: to nearest even; float: nothing).
+template <class T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+template <bool FP4, bool RR, class T = float>
 __device__ __forceinline__ float cast_one(float w, float u, float s,
                                           float qmax) {
   if (!RR && !FP4) {
-    float q = qm::clampf(rintf(__fdiv_rn(w, s)), -qmax, qmax);
+    float q = qm::clampf(rintf(round_to<T>(__fdiv_rn(w, s))), -qmax, qmax);
     return __fmul_rn(q, s);
   }
   float lo, hi;
@@ -72,23 +88,23 @@ __device__ __forceinline__ float cast_one(float w, float u, float s,
   return u < p_hi ? hi : lo;
 }
 
-template <bool FP4, bool RR>
+template <bool FP4, bool RR, class T = float>
 __device__ __forceinline__ float4 cast4(float4 w, float4 u, float s,
                                         float qmax) {
-  return make_float4(cast_one<FP4, RR>(w.x, u.x, s, qmax),
-                     cast_one<FP4, RR>(w.y, u.y, s, qmax),
-                     cast_one<FP4, RR>(w.z, u.z, s, qmax),
-                     cast_one<FP4, RR>(w.w, u.w, s, qmax));
+  return make_float4(cast_one<FP4, RR, T>(w.x, u.x, s, qmax),
+                     cast_one<FP4, RR, T>(w.y, u.y, s, qmax),
+                     cast_one<FP4, RR, T>(w.z, u.z, s, qmax),
+                     cast_one<FP4, RR, T>(w.w, u.w, s, qmax));
 }
 
 constexpr int kUnroll = 4;   // phase 2: vectors per thread per stream in flight
 
-template <bool FP4, bool RR>
+template <bool FP4, bool RR, class T = float>
 __global__ void __launch_bounds__(kThreads)
 quant_matrix_kernel(const Args a) {
-  const float* __restrict__ w = a.w;
+  const T* __restrict__ w = static_cast<const T*>(a.w);
   const float* __restrict__ u = a.u;
-  float* __restrict__ out = a.out;
+  T* __restrict__ out = static_cast<T*>(a.out);
   qm::scan_absmax(w, a.amax, a.wk, a.off, a.vec);
   cooperative_groups::this_grid().sync();
   int64_t cur = -1;
@@ -96,7 +112,8 @@ quant_matrix_kernel(const Args a) {
   for (qm::ChunkIter it(a.wk, a.wk.chunks); it.left > 0; it.next()) {
     if (it.m != cur) {
       cur = it.m;
-      s = qm::scale_of(__uint_as_float(__ldcg(a.amax + cur)), a.qmax);
+      s = round_to<T>(
+          qm::scale_of(__uint_as_float(__ldcg(a.amax + cur)), a.qmax));
     }
     int64_t c0, c1;
     qm::chunk_range(a.wk, it.m, it.j, c0, c1);
@@ -115,11 +132,12 @@ quant_matrix_kernel(const Args a) {
 #pragma unroll
           for (int k = 0; k < kUnroll; ++k) {
             const int64_t i = i0 + int64_t(k) * qm::kVecStride;
-            if (i < b) qm::st_last4(out + i, cast4<FP4, RR>(x[k], r[k], s, a.qmax));
+            if (i < b) qm::st_last4(out + i, cast4<FP4, RR, T>(x[k], r[k], s, a.qmax));
           }
         },
         [&](int64_t i) {
-          out[i] = cast_one<FP4, RR>(w[i], RR ? u[i] : 0.f, s, a.qmax);
+          qm::st_one(out + i, cast_one<FP4, RR, T>(qm::ld_one(w + i),
+                                                   RR ? u[i] : 0.f, s, a.qmax));
         });
   }
 }
@@ -127,9 +145,9 @@ quant_matrix_kernel(const Args a) {
 template <bool FP4, bool RR>
 __global__ void __launch_bounds__(kThreads)
 quant_block_kernel(const Args a) {
-  const float* __restrict__ w = a.w;
+  const float* __restrict__ w = static_cast<const float*>(a.w);
   const float* __restrict__ u = a.u;
-  float* __restrict__ out = a.out;
+  float* __restrict__ out = static_cast<float*>(a.out);
   const int64_t n = a.n;
   const int bs = a.block_size;
   const bool v4 = a.vec && a.off == 0 && bs % 4 == 0;
@@ -161,7 +179,8 @@ quant_block_kernel(const Args a) {
   }
 }
 
-const void* pick(int blockwise, int fp4, int rr) {
+const void* pick(int blockwise, int fp4, int rr, int bf16) {
+  if (bf16) return (const void*)quant_matrix_kernel<false, false, __nv_bfloat16>;
   if (blockwise) {
     if (fp4) return rr ? (const void*)quant_block_kernel<true, true>
                        : (const void*)quant_block_kernel<true, false>;
@@ -176,17 +195,18 @@ const void* pick(int blockwise, int fp4, int rr) {
 
 }  // namespace
 
-// Blocks of the instance (blockwise or per matrix, fp4, rr) that fit on one
-// SM at once (the cooperative launch's limit is this times the SM count),
-// or minus the CUDA error.
-extern "C" int quant_blocks_per_sm(int blockwise, int fp4, int rr) {
+// Blocks of the instance (blockwise or per matrix, fp4, rr, bf16) that fit
+// on one SM at once (the cooperative launch's limit is this times the SM
+// count), or minus the CUDA error.
+extern "C" int quant_blocks_per_sm(int blockwise, int fp4, int rr, int bf16) {
   int nb = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &nb, pick(blockwise, fp4, rr), kThreads, 0);
+      &nb, pick(blockwise, fp4, rr, bf16), kThreads, 0);
   return err == cudaSuccess ? nb : -static_cast<int>(err);
 }
 
-// w, u (RR only, else null), out: n contiguous fp32; fp4: 1 for the e2m1
+// w, u (RR only, else null), out: n contiguous fp32, or with bf16 = 1 w
+// and out bf16 (per-matrix RTN on an INT grid only); fp4: 1 for the e2m1
 // codebook, else an INT grid of +-qmax.  block_size > 0: blockwise scales,
 // a plain launch of `grid` blocks.  block_size = -1: per-matrix scales over
 // matrices of mat_numel elements, one cooperative launch of `grid` blocks
@@ -197,19 +217,20 @@ extern "C" int quant_launch(const void* w, const void* u, void* out,
                             void* amax, int64_t n, int64_t mat_numel,
                             int64_t chunk, int64_t chunks, int64_t scan,
                             int block_size, int fp4, float qmax, int grid,
-                            void* stream) {
-  const uintptr_t al = reinterpret_cast<uintptr_t>(w) & 15;
+                            int bf16, void* stream) {
+  // a vector is 4 elements: 16 bytes of fp32, 8 of bf16
+  const uintptr_t vb = bf16 ? 7 : 15;
+  const uintptr_t al = reinterpret_cast<uintptr_t>(w) & vb;
   const bool rr = u != nullptr;
-  Args a{static_cast<const float*>(w), static_cast<const float*>(u),
-         static_cast<float*>(out), static_cast<unsigned*>(amax),
+  Args a{w, static_cast<const float*>(u), out, static_cast<unsigned*>(amax),
          qm::Walk{mat_numel, n / mat_numel, chunk, chunks, scan}, n,
-         block_size, static_cast<int>(al >> 2),
-         (reinterpret_cast<uintptr_t>(out) & 15) == al &&
-             (!rr || (reinterpret_cast<uintptr_t>(u) & 15) == al),
+         block_size, static_cast<int>(al >> (bf16 ? 1 : 2)),
+         (reinterpret_cast<uintptr_t>(out) & vb) == al &&
+             (!rr || (reinterpret_cast<uintptr_t>(u) & vb) == al),
          qmax};
   void* args[] = {&a};
   const bool blockwise = block_size > 0;
-  const void* k = pick(blockwise, fp4, rr);
+  const void* k = pick(blockwise, fp4, rr, bf16);
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       blockwise ? cudaLaunchKernel(k, dim3(grid), dim3(kThreads), args, 0, s)

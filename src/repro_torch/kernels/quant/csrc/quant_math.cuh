@@ -15,6 +15,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -168,7 +169,9 @@ __device__ __forceinline__ void vec_range(int64_t s, int64_t e, int off,
 
 // Loads and stores.  ld_keep: a read that a later phase reads again (no L1
 // allocation, L2's normal policy); ld_last / st_last: the last use
-// (evict-first, __ldcs / __stcs).
+// (evict-first, __ldcs / __stcs).  A "vector" is 4 elements: 16 bytes of
+// fp32 or 8 bytes of bf16 (the bf16 overloads widen to float exactly and
+// store rounded to nearest even, as torch's conversion does).
 __device__ __forceinline__ float4 ld_keep4(const float* p) {
   float4 v;
   asm volatile("ld.global.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
@@ -187,6 +190,43 @@ __device__ __forceinline__ void st_last4(float* p, float4 v) {
   __stcs(reinterpret_cast<float4*>(p), v);
 }
 
+__device__ __forceinline__ float bf16_lo(unsigned v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned v) { return __uint_as_float(v & 0xffff0000u); }
+__device__ __forceinline__ float4 bf16x4(unsigned a, unsigned b) {
+  return make_float4(bf16_lo(a), bf16_hi(a), bf16_lo(b), bf16_hi(b));
+}
+__device__ __forceinline__ unsigned bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float4 ld_keep4(const __nv_bfloat16* p) {
+  unsigned a, b;
+  asm volatile("ld.global.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
+               : "=r"(a), "=r"(b) : "l"(p));
+  return bf16x4(a, b);
+}
+__device__ __forceinline__ float ld_keep(const __nv_bfloat16* p) {
+  unsigned short v;
+  asm volatile("ld.global.L1::no_allocate.u16 %0, [%1];" : "=h"(v) : "l"(p));
+  return __uint_as_float(static_cast<unsigned>(v) << 16);
+}
+__device__ __forceinline__ float4 ld_last4(const __nv_bfloat16* p) {
+  const uint2 v = __ldcs(reinterpret_cast<const uint2*>(p));
+  return bf16x4(v.x, v.y);
+}
+__device__ __forceinline__ void st_last4(__nv_bfloat16* p, float4 v) {
+  __stcs(reinterpret_cast<uint2*>(p),
+         make_uint2(bf16_bits(v.x) | (bf16_bits(v.y) << 16),
+                    bf16_bits(v.z) | (bf16_bits(v.w) << 16)));
+}
+__device__ __forceinline__ float ld_one(const float* p) { return *p; }
+__device__ __forceinline__ float ld_one(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st_one(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_one(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // |w| as bits: for non-negative floats the unsigned order is the float
 // order and every NaN sorts above +inf, so an unsigned max is nanmax(|w|),
 // exact and independent of order.
@@ -197,8 +237,10 @@ __device__ __forceinline__ unsigned abs_bits4(float4 x) {
   return max(max(abs_bits(x.x), abs_bits(x.y)), max(abs_bits(x.z), abs_bits(x.w)));
 }
 
-// Largest |w| bits over [s, e), this thread's share (8 vectors in flight).
-__device__ __forceinline__ unsigned range_absmax(const float* __restrict__ w,
+// Largest |w| bits over [s, e), this thread's share (8 vectors in flight);
+// T is float or __nv_bfloat16.
+template <class T>
+__device__ __forceinline__ unsigned range_absmax(const T* __restrict__ w,
                                                  int64_t s, int64_t e,
                                                  int off, int vec) {
   constexpr int U = kScanUnroll;
@@ -238,7 +280,8 @@ __device__ __forceinline__ void block_absmax_to(unsigned m, unsigned* dst) {
 // Phase 1: each matrix's largest |w| bits into amax[m] (zeroed by the
 // wrapper), over the first wk.scan chunks of each matrix.  A block keeps a
 // running max in registers and folds it once per matrix it touches.
-__device__ __forceinline__ void scan_absmax(const float* __restrict__ w,
+template <class T>
+__device__ __forceinline__ void scan_absmax(const T* __restrict__ w,
                                            unsigned* amax, const Walk& wk,
                                            int off, int vec) {
   int64_t cur = -1;

@@ -1,5 +1,9 @@
 """Wrappers of the ``quant`` CUDA kernel (``csrc/quant.cu``): the fused
-absmax scale + RTN or RR + dequantize cast of a tensor of any rank.
+absmax scale + RTN or RR + dequantize cast of a tensor of any rank, fp32
+in and out; ``quant_rtn`` also takes a bf16 tensor (the fake-quantized
+activations of ``LMConfig.act_fmt``) with per-matrix scales on an INT
+grid, which runs the kernel's bf16 instance, bf16 in and out, rounding as
+the plain version does on a bf16 tensor.
 
 For a CUDA tensor they launch the kernel or raise; for a CPU tensor they
 take the plain version in ``ref.py``.  ``quant_rtn.launches`` and
@@ -99,7 +103,8 @@ def block_grid(n: int, block_size: int, co_resident: int) -> int:
 
 def _co_resident(w: torch.Tensor, blockwise: bool, fp4: int, rr: bool) -> int:
     return _build.co_resident(w.device, "quant_blocks_per_sm",
-                              int(blockwise), fp4, int(rr))
+                              int(blockwise), fp4, int(rr),
+                              int(w.dtype == torch.bfloat16))
 
 
 def launch_plan(w: torch.Tensor, fmt_name: str, rr: bool = False) -> Plan:
@@ -109,14 +114,28 @@ def launch_plan(w: torch.Tensor, fmt_name: str, rr: bool = False) -> Plan:
     return plan(w.numel(), matrix_numel(w), _co_resident(w, False, fp4, rr))
 
 
+def _check_bf16(name: str, rr: bool, fmt, block_size: int) -> None:
+    """The bf16 instance is the per-matrix RTN cast on an INT grid."""
+    if rr or block_size != -1 or isinstance(fmt, CodebookFormat):
+        raise ValueError(
+            f"{name}: bf16 input takes the per-matrix RTN cast on an INT "
+            f"grid (block_size=-1), got rr={rr}, block_size={block_size}, "
+            f"fmt={fmt.name}")
+
+
 def _launch(name: str, w: torch.Tensor, u: Optional[torch.Tensor],
             fmt_name: str, block_size: int) -> torch.Tensor:
     if w.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, got {w.device}")
-    _build.check_f32_cuda(name, w, *(() if u is None else (u,)))
     if block_size == 0 or block_size < -1:
         raise ValueError(f"block_size must be -1 or positive, got {block_size}")
     fmt = get_format(fmt_name)
+    bf16 = w.dtype == torch.bfloat16
+    if bf16:
+        _check_bf16(name, u is not None, fmt, block_size)
+        _build.check_cuda_inputs(name, w, dtype=torch.bfloat16)
+    else:
+        _build.check_cuda_inputs(name, w, *(() if u is None else (u,)))
     out = torch.empty_like(w)
     n = w.numel()
     if n == 0:
@@ -134,14 +153,15 @@ def _launch(name: str, w: torch.Tensor, u: Optional[torch.Tensor],
         w.data_ptr(), None if u is None else u.data_ptr(), out.data_ptr(),
         None if amax is None else amax.data_ptr(), n, mat_numel, p.chunk,
         p.chunks, p.scan_chunks, block_size, fp4, float(fmt.qmax), p.blocks,
-        torch.cuda.current_stream(w.device).cuda_stream)
+        int(bf16), torch.cuda.current_stream(w.device).cuda_stream)
     _build.check(err, name)
     return out
 
 
 def quant_rtn(w: torch.Tensor, fmt_name: str = "int4",
               block_size: int = 256) -> torch.Tensor:
-    """Round-to-nearest cast of ``w`` (any rank), dequantized, in fp32."""
+    """Round-to-nearest cast of ``w`` (any rank), dequantized, in ``w``'s
+    dtype (fp32, or bf16 for the per-matrix INT cast)."""
     if w.device.type == "cpu":
         return rtn_ref(w, fmt_name, block_size)
     out = _launch("quant_rtn", w, None, fmt_name, block_size)

@@ -1,5 +1,8 @@
 """Serving launcher of the port (``repro.launch.serve``, one device):
-random weights from seed 0, optionally stored as int4/int8 QTensors, then
+random weights from seed 0, optionally cast RTN or RR (``--weights
+rtn:int4``, ``rr:int8``, ``rtn:fp4``, ...) and stored as int4/int8
+QTensors, or kept as the dense cast (``--store dense``, and formats
+without QTensor storage); RR draws from a generator seeded with 1; then
 a static prefill + decode loop, or an offered-load replay of the
 continuous-batching scheduler against the static barrier server
 (``--scheduler``), or a seeded chaos replay with the lifecycle audited
@@ -11,7 +14,7 @@ after every tick (``--chaos``).
 
 The flags are those of ``repro.launch.serve``, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the kernels' plain versions).  ``--mesh`` is
-refused (the distributed launch is ROADMAP Queue 1 item 10), and there is
+refused (the distributed launch is ROADMAP Queue 1 item 8), and there is
 no ``--use-kernel``: the port always runs its kernels on the card.
 """
 
@@ -24,8 +27,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core import (QuantPolicy, get_format, param_nbytes,
-                              quantize_params)
+from repro_torch.core import (QuantPolicy, cast_params, get_format,
+                              param_nbytes, quantize_params)
 from repro_torch.core.formats import IntFormat
 from repro_torch.core.qtensor import qtensor_act_fmt
 from repro_torch.models.lm import lm_decode, lm_init, lm_prefill
@@ -203,11 +206,7 @@ def main(argv=None):
     if args.mesh:
         raise NotImplementedError(
             "--mesh (sharded serving over several devices) is not ported "
-            "yet: ROADMAP Queue 1 item 10")
-    if args.store == "dense":
-        raise NotImplementedError(
-            "--store dense (the dense-cast serving path) is not ported yet: "
-            "ROADMAP Queue 1 item 2 (core/modes.py cast_params)")
+            "yet: ROADMAP Queue 1 item 8")
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = lm_init(cfg, seed=0, device=dev)
@@ -215,12 +214,13 @@ def main(argv=None):
     if args.weights != "fp32":
         mode, fmt_name = args.weights.split(":")
         fmt = get_format(fmt_name)
-        if not (isinstance(fmt, IntFormat) and fmt.bits in (4, 8)):
-            raise NotImplementedError(
-                f"--weights {args.weights}: only int4/int8 QTensor storage "
-                f"is ported (ROADMAP Queue 1 item 2)")
         policy = QuantPolicy(min_size=256 if args.smoke else 1024)
-        params = quantize_params(params, fmt, policy, -1, mode=mode)
+        store_q = (args.store == "qtensor"
+                   or (args.store == "auto" and isinstance(fmt, IntFormat)
+                       and fmt.bits in (4, 8)))
+        convert = quantize_params if store_q else cast_params
+        params = convert(params, fmt, policy, -1, mode=mode,
+                         generator=torch.Generator(device=dev).manual_seed(1))
     stored_bytes = param_nbytes(params)
     kv_quant = args.kv_quant or False
 

@@ -16,10 +16,13 @@ against a partial cache) and ``lm_decode`` (one token against a ring
 cache, or against the paged pool through block tables); ``cache_insert``
 / ``cache_insert_paged`` place a one-request cache into the scheduler's
 slot rows or pool blocks, ``quantize_cache`` converts a dense cache to
-codes.  The caches are updated in place.  MoE, SSM (mamba/rwkv),
-cross-attention, multi-codebook heads, the fake-quantized activations of
-``LMConfig.act_fmt`` and the shared zamba block are not in these slices
-of the port and raise ``NotImplementedError``.
+codes.  The caches are updated in place.  ``LMConfig.act_fmt``
+fake-quantizes the two normed inputs of every block (RTN, one scale per
+batch row, straight-through in backward) in the full-sequence forward
+only, as JAX does: prefill, chunked prefill and decode ignore it.  MoE,
+SSM (mamba/rwkv), cross-attention, multi-codebook heads and the shared
+zamba block are not in these slices of the port and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -89,7 +92,7 @@ class LMConfig:
     n_image_tokens: int = 0
     d_vision: int = 0
     n_codebooks: int = 1
-    # activation fake-quantization (not in this slice)
+    # activation fake-quantization of the training forward (RTN, STE)
     act_fmt: Optional[str] = None
     # misc
     max_seq: int = 8192
@@ -137,8 +140,7 @@ def check_ported(cfg: LMConfig) -> None:
     unported = {"ffn": cfg.ffn != "dense",
                 "n_codebooks": cfg.n_codebooks > 1,
                 "shared_attn_every": bool(cfg.shared_attn_every),
-                "n_image_tokens": bool(cfg.n_image_tokens),
-                "act_fmt": cfg.act_fmt is not None}
+                "n_image_tokens": bool(cfg.n_image_tokens)}
     for field, bad in unported.items():
         if bad:
             raise NotImplementedError(
@@ -235,12 +237,28 @@ def _head(params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _apply_ffn(p, cfg: LMConfig, x: torch.Tensor, o: torch.Tensor):
-    """Residual add of the attention output ``o``, then the MLP sub-block."""
+def _act_q(cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
+    """``cfg.act_fmt``'s straight-through RTN fake-quant of a normed block
+    input (b, l, d): one scale per batch row (the trailing (l, d) axes),
+    through the ``quant`` kernel in ``h``'s dtype."""
+    if cfg.act_fmt is None:
+        return h
+    from ..core.ste import fake_quant_rtn
+    return fake_quant_rtn(h.contiguous(), cfg.act_fmt, -1)
+
+
+def _apply_ffn(p, cfg: LMConfig, x: torch.Tensor, o: torch.Tensor,
+               quantize_acts: bool = False):
+    """Residual add of the attention output ``o``, then the MLP sub-block
+    (its normed input fake-quantized under ``cfg.act_fmt`` when
+    ``quantize_acts``: the full-sequence forward only)."""
     if cfg.use_post_norm:
         o = rms_norm(o, p["post_norm_scale"])
     x = x + o
-    h = mlp_apply(p["mlp"], cfg.mlp_spec(), rms_norm(x, p["ffn_norm_scale"]))
+    h = rms_norm(x, p["ffn_norm_scale"])
+    if quantize_acts:
+        h = _act_q(cfg, h)
+    h = mlp_apply(p["mlp"], cfg.mlp_spec(), h)
     if cfg.use_post_norm:
         h = rms_norm(h, p["ffn_post_norm_scale"])
     return x + h
@@ -252,10 +270,11 @@ def _apply_ffn(p, cfg: LMConfig, x: torch.Tensor, o: torch.Tensor):
 
 def _apply_block(p, cfg: LMConfig, kind: str, x: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
-    """One attention block and its MLP, full sequence."""
-    h = rms_norm(x, p["pre_norm_scale"])
+    """One attention block and its MLP, full sequence, with the normed
+    inputs of both fake-quantized under ``cfg.act_fmt``."""
+    h = _act_q(cfg, rms_norm(x, p["pre_norm_scale"]))
     o = attn_apply(p["attn"], cfg.attn_spec(kind), h, positions)
-    return _apply_ffn(p, cfg, x, o)
+    return _apply_ffn(p, cfg, x, o, quantize_acts=True)
 
 
 def _trunk(params, cfg: LMConfig, tokens: torch.Tensor,
@@ -268,7 +287,7 @@ def _trunk(params, cfg: LMConfig, tokens: torch.Tensor,
     if attn_chunk:
         raise NotImplementedError(
             "streaming attention (attn_chunk) is not ported yet: ROADMAP "
-            "Queue 1 item 4 (_streaming_sdpa)")
+            "Queue 1 item 5 (_streaming_sdpa)")
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
 
@@ -304,7 +323,7 @@ def lm_loss(params, cfg: LMConfig, tokens: torch.Tensor,
     if logit_chunk is not None and logit_chunk < tokens.shape[1]:
         raise NotImplementedError(
             "the chunked head (logit_chunk) is not ported yet: ROADMAP "
-            "Queue 1 item 4 (lm_loss logit_chunk)")
+            "Queue 1 item 5 (lm_loss logit_chunk)")
     terms = _ce_terms(lm_forward(params, cfg, tokens, attn_chunk), labels)
     if not per_example:
         return torch.mean(terms)

@@ -3,9 +3,11 @@
 Prompts are left-padded into one batch, one ``lm_prefill`` fills the KV
 cache, then ``lm_decode`` runs once per new token with greedy or
 temperature sampling.  Weights are served as ``fp32`` (the dense tree as
-given) or ``rtn:int8`` / ``rtn:int4``: the RTN codes are STORED as
-QTensors and every weight matmul streams them through the ``wqt_matmul``
-kernel; with ``act_fmt="int8"`` (W4A8) prefill and decode run under
+given) or ``rtn:`` / ``rr:`` casts: for int8 and int4 the codes are
+STORED as QTensors (the RR cast made in the stored orientation) and every
+weight matmul streams them through the ``wqt_matmul`` kernel; formats
+without QTensor storage (fp4) and ``quantized_storage=False`` serve the
+dense cast of ``cast_params`` (through the ``quant`` kernel); with ``act_fmt="int8"`` (W4A8) prefill and decode run under
 ``qtensor_act_fmt``, so every QTensor matmul row-quantizes its activations
 and runs the ``wqt_matmul_a8`` kernel instead.  ``kv_quant="int8"`` /
 ``"int4"`` keeps the KV cache as codes and decode attention runs the
@@ -18,21 +20,21 @@ patterns mask left pads (per-row ``prompt_lens``), so a request's tokens
 do not depend on its batchmates; ``cache_len`` is bucketed to the next
 power of two.
 
-Not in these slices: ``rr:`` casts, codebook formats (fp4) and the
-dense-cast path (``quantized_storage=False``).  The continuous-batching
-scheduler is ``serve/scheduler.py``.
+RR draws come from a generator seeded with ``ServeConfig.seed`` (not
+JAX's bits), or from explicit uniforms keyed by path.  The
+continuous-batching scheduler is ``serve/scheduler.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core import QuantPolicy, quantize_params
+from ..core import QuantPolicy, cast_params, quantize_params
 from ..core.formats import IntFormat, get_format
 from ..core.qtensor import QTensor, _check_act_fmt, qtensor_act_fmt
 from ..core.policy import tree_map_with_path
@@ -101,31 +103,33 @@ def _to_device(params, device):
         else x, params)
 
 
-def prepare_params(params, scfg: ServeConfig, device=None):
+def prepare_params(params, scfg: ServeConfig, device=None,
+                   uniforms: Optional[Dict[str, torch.Tensor]] = None):
     """Apply the ServeConfig weight representation to a dense fp32 tree on
     ``device`` (default ``"cuda"``): identity for fp32, QTensor storage for
-    ``rtn:int8`` / ``rtn:int4``."""
+    int8 / int4 (unless ``quantized_storage=False``), the dense RTN/RR cast
+    otherwise.  ``rr:`` takes ``uniforms`` (``{path_str: tensor}`` in the
+    shape each cast sees) or draws from a generator seeded with
+    ``scfg.seed``.  Shared by the static Engine and the Scheduler."""
     device = resolve_device(device)
     params = _to_device(params, device)
     w = scfg.weights
     if w == "fp32":
         return params
     mode, fmt_name = w.split(":")
-    if mode == "rr":
-        raise NotImplementedError(
-            "rr: weights (randomized-rounding cast) are not ported yet: "
-            "ROADMAP Queue 1 item 2 (core/quantize.py cast_rr)")
     fmt = get_format(fmt_name)
     policy = scfg.policy if scfg.policy is not None else \
         QuantPolicy(include_embeddings=scfg.include_embeddings)
+    gen = (torch.Generator(device=device).manual_seed(scfg.seed)
+           if uniforms is None else None)
     storage = scfg.quantized_storage
     if storage is None:
         storage = isinstance(fmt, IntFormat) and fmt.bits in (4, 8)
-    if not storage:
-        raise NotImplementedError(
-            "the dense-cast serving path (quantized_storage=False) is not "
-            "ported yet: ROADMAP Queue 1 item 2 (core/modes.py cast_params)")
-    return quantize_params(params, fmt, policy, scfg.block_size, mode=mode)
+    if storage:
+        return quantize_params(params, fmt, policy, scfg.block_size,
+                               mode=mode, uniforms=uniforms, generator=gen)
+    return cast_params(params, fmt, policy, scfg.block_size, mode=mode,
+                       uniforms=uniforms, generator=gen)
 
 
 def sample_token(logits: torch.Tensor, gen: Optional[torch.Generator],

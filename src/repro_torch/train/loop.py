@@ -7,12 +7,14 @@ The step is built on the update-transform chain::
     grads -> clip -> [lotion_decoupled] -> optimizer core
 
 ``make_optimizer`` assembles it and, for AdamW and SGD cores, collapses
-it into the fused single-pass core (one ``opt_step`` launch per leaf).
-``make_train_step`` computes the gradients and runs the chain; it never
-syncs with the host: the skip flag, the losses and the norms come back as
-device tensors in the metrics.  EF gradient compression, the chunked head
-and streaming attention, checkpoints and spike rollback are not in this
-slice of the port.
+it into the fused single-pass core (one ``opt_step`` launch per leaf;
+under qat, rat and loss-side LOTION at lam = 0).  ``make_train_step``
+computes the gradients of the loss at ``forward_params`` (the QAT/RAT
+straight-through casts) and runs the chain; it never syncs with the host
+(the skip flag, the losses and the norms come back as device tensors in
+the metrics), except that RAT reads the step counter to seed its draw.
+EF gradient compression, the chunked head and streaming attention,
+checkpoints and spike rollback are not in this slice of the port.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..core.modes import PENALTY_PLACEMENTS, QuantConfig, cast_params, penalty
+from ..core.modes import (PENALTY_PLACEMENTS, QuantConfig, cast_params,
+                          forward_params, penalty)
 from ..core.policy import tree_leaves, tree_map
 from ..models.lm import LMConfig, lm_forward
 from ..numerics import div_scalar
@@ -47,6 +50,7 @@ class TrainConfig:
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     clip_norm: float = 1.0
     n_microbatches: int = 1
+    seed: int = 0            # RAT's per-step draws come from (seed, step)
     attn_chunk: int = 0      # 0 = full-score attention (streaming: not ported)
     logit_chunk: int = 0     # 0 = full logits (chunked head: not ported)
     # None = follow quant.penalty_placement; "loss"/"decoupled" overrides
@@ -150,18 +154,32 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(_ce_terms(logits, labels))
 
 
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """RAT's generator of step ``step``, seeded from ``(seed, step)`` (JAX
+    folds the step into ``PRNGKey(seed)``; the numbers differ).  Every
+    microbatch of a step gets a generator in the same state, so all of
+    them see the same cast, as in JAX."""
+    mixed = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(mixed[0]))
+
+
 def make_loss_fn(cfg: LMConfig, tcfg: TrainConfig):
-    """``loss_fn(params, batch, fisher) -> (loss, aux)``; under loss-side
-    placement the LOTION penalty is part of ``loss``."""
+    """``loss_fn(params, batch, fisher, uniforms=None, generator=None) ->
+    (loss, aux)``: the CE of the model at ``forward_params`` (RAT's
+    uniforms keyed by path, or drawn from ``generator``); under loss-side
+    placement the LOTION penalty of the master ``params`` is part of
+    ``loss``."""
     from ..models.lm import lm_loss
 
     loss_side = tcfg.placement == "loss"
 
-    def loss_fn(params, batch, fisher):
-        ce, ce_ex = lm_loss(params, cfg, batch["tokens"], batch["labels"],
+    def loss_fn(params, batch, fisher, uniforms=None, generator=None):
+        fwd = forward_params(tcfg.quant, params, uniforms, generator)
+        ce, ce_ex = lm_loss(fwd, cfg, batch["tokens"], batch["labels"],
                             attn_chunk=tcfg.attn_chunk or None,
                             logit_chunk=tcfg.logit_chunk or None,
                             per_example=True)
+        del fwd
         aux = {"ce": ce, "ce_ex": ce_ex}
         if loss_side:
             pen = penalty(tcfg.quant, params, fisher)
@@ -201,11 +219,16 @@ def _split(batch: dict, n: int, k: int) -> dict:
 
 
 def make_train_step(cfg: LMConfig, tcfg: TrainConfig, optimizer,
-                    loss_fn: Optional[Callable] = None):
+                    loss_fn: Optional[Callable] = None,
+                    rat_uniforms: Optional[Callable] = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``optimizer`` is anything ``make_optimizer`` accepts; the SAME chain
-    must have produced ``state["opt"]``.  With the fused core the new
+    must have produced ``state["opt"]``.  Under RAT every microbatch of a
+    step casts against the same uniforms: ``rat_uniforms(step)`` (a
+    ``{path_str: tensor}`` dict, for tests that feed JAX's draws) or the
+    draws of ``step_generator(tcfg.seed, step, device)``, one eligible
+    leaf at a time.  With the fused core the new
     parameters and moments are written in place (the returned state holds
     the same tensors); with the unfused chain they are new tensors.  A
     step whose loss, per-example CE or gradient norm is not finite applies
@@ -213,9 +236,17 @@ def make_train_step(cfg: LMConfig, tcfg: TrainConfig, optimizer,
     tx = make_optimizer(tcfg, optimizer)
     loss_fn = loss_fn or make_loss_fn(cfg, tcfg)
 
-    def grads_of(params, batch, fisher):
+    rat = tcfg.quant.method == "rat"
+
+    def grads_of(params, batch, fisher, step):
         p = tree_map(lambda x: x.detach().requires_grad_(True), params)
-        loss, aux = loss_fn(p, batch, fisher)
+        kw = {}
+        if rat and rat_uniforms is not None:
+            kw["uniforms"] = rat_uniforms(step)
+        elif rat:
+            kw["generator"] = step_generator(
+                tcfg.seed, step, tree_leaves(params)[0].device)
+        loss, aux = loss_fn(p, batch, fisher, **kw)
         leaves = tree_leaves(p)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
@@ -230,11 +261,13 @@ def make_train_step(cfg: LMConfig, tcfg: TrainConfig, optimizer,
         if fisher is None:
             fisher = tree_map(torch.zeros_like, params)
 
+        step = int(state["step"]) if rat else None
         n = tcfg.n_microbatches
         if n > 1:
             acc_l, acc_g, auxs = 0.0, tree_map(torch.zeros_like, params), []
             for k in range(n):
-                l_k, aux_k, g_k = grads_of(params, _split(batch, n, k), fisher)
+                l_k, aux_k, g_k = grads_of(params, _split(batch, n, k),
+                                           fisher, step)
                 acc_l = acc_l + l_k
                 acc_g = tree_map(torch.add, acc_g, g_k)
                 auxs.append(aux_k)
@@ -244,7 +277,7 @@ def make_train_step(cfg: LMConfig, tcfg: TrainConfig, optimizer,
             aux = {k: torch.mean(torch.stack([a[k] for a in auxs]))
                    for k in auxs[0]}
         else:
-            loss, aux, grads = grads_of(params, batch, fisher)
+            loss, aux, grads = grads_of(params, batch, fisher, step)
             ce_ex = aux.pop("ce_ex", None)
 
         # on-device skip gate: isfinite(loss) and all per-example CE

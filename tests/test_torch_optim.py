@@ -261,5 +261,9 @@ def test_make_optimizer_rules():
     assert not plain_sgd.applies_updates
     assert [t.tag for t in plain_sgd.links][1:] == ["lotion_decoupled",
                                                     "sgd_core"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QuantConfig(method="qat")
+    # the QAT/RAT baselines fuse into the opt_step core at lam = 0, as JAX's
+    # make_optimizer fuses them with its kernels on
+    for method in ("qat", "rat"):
+        core = make_optimizer(TrainConfig(quant=QuantConfig(method=method)),
+                              base)
+        assert core.applies_updates and core.meta["lam"] == 0.0

@@ -126,9 +126,58 @@ def test_policy_eligibility_matches_jax():
         assert tmask == {k: bool(v) for k, v in jmask.items()}
 
 
+def _jax_rr_draws(jparams, key, policy, fmt, block_k):
+    """JAX's quantize_params(mode="rr") draws: eligible leaf i (JAX's tree
+    order, from 1) from fold_in(key, i), in the shape its cast sees (the
+    stored orientation for convertible leaves; the padded block shape for
+    blockwise casts, cut back to the leaf's size)."""
+    from repro.core.quantize import _block_view
+    out, counter = {}, [0]
+
+    def leaf(path, x):
+        if not policy.eligible(path, x):
+            return x
+        counter[0] += 1
+        last = str(path[-1].key).lower()
+        if jqt._convertible(last, x, jax_get_format(fmt), block_k) \
+                and last not in jqt._NATURAL_LEAVES:
+            x = jnp.swapaxes(x, -1, -2)
+        k = jax.random.fold_in(key, counter[0])
+        blocked = x if block_k == -1 else _block_view(x, block_k)[0]
+        u = np.asarray(jax.random.uniform(k, blocked.shape, x.dtype))
+        out["/".join(str(p.key) for p in path).lower()] = torch.from_numpy(
+            u.reshape(-1)[: x.size].reshape(x.shape).copy())
+        return x
+
+    jax.tree_util.tree_map_with_path(leaf, jparams)
+    return out
+
+
+@pytest.mark.parametrize("bits,block_k", [(4, -1), (8, -1), (4, 8)])
+def test_quantize_params_rr_matches_jax(bits, block_k):
+    """RR in the stored orientation, then QTensor storage: codes, scales
+    and the dense leaves bitwise, fed JAX's draws."""
+    jparams = jlm.lm_init(jax.random.PRNGKey(2), CFG)
+    tparams = bridge.to_torch(jax.tree.map(np.asarray, jparams))
+    key, fmt = jax.random.PRNGKey(9), f"int{bits}"
+    want = bridge.flatten(bridge.to_numpy(bridge.to_torch(jax.tree.map(
+        np.asarray, jqt.quantize_params(jparams, fmt, JQuantPolicy(),
+                                        block_k, mode="rr", key=key)))))
+    got = bridge.flatten(bridge.to_numpy(tqt.quantize_params(
+        tparams, fmt, QuantPolicy(), block_k, mode="rr",
+        uniforms=_jax_rr_draws(jparams, key, JQuantPolicy(), fmt, block_k))))
+    assert set(got) == set(want)
+    for path, t in got.items():
+        if isinstance(t, dict):
+            for f in ("codes", "scales", "bits", "block_k"):
+                np.testing.assert_array_equal(t[f], want[path][f])
+        else:
+            np.testing.assert_array_equal(t, want[path])
+    with pytest.raises(ValueError, match="uniforms or a generator"):
+        tqt.quantize_params(tparams, fmt, mode="rr")
+
+
 def test_unsupported_storage_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqt.quantize_params({}, "int4", mode="rr")
     qt = tqt.quantize_qtensor(torch.zeros(2, 4, 8), "int8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tqt.matmul(torch.zeros(2, 3, 8), qt)

@@ -193,17 +193,79 @@ def test_bucket_cache_len_matches_jax():
 
 
 @pytest.mark.parametrize("scfg,exc", [
-    (ServeConfig(weights="rr:int4"), NotImplementedError),
-    (ServeConfig(weights="rtn:fp4"), NotImplementedError),
-    (ServeConfig(weights="rtn:int4", quantized_storage=False),
-     NotImplementedError),
-    (ServeConfig(weights="rr:int8"), NotImplementedError),
     (ServeConfig(use_kernel=True), ValueError),
 ])
 def test_features_outside_the_slice_raise(scfg, exc):
     _, _, tcfg, tparams = _setup("serve")
     with pytest.raises(exc):
         Engine(tcfg, tparams, scfg, device="cpu")
+
+
+def _jax_serve_draws(jparams, scfg):
+    """The uniforms JAX's prepare_params draws for ``scfg`` (key
+    PRNGKey(seed), eligible leaf i from fold_in(key, i) in JAX's tree
+    order), in the shape each cast sees: the stored orientation for the
+    leaves that become QTensors, the leaf's own otherwise."""
+    from repro.core import QuantPolicy as JPolicy
+    from repro.core.formats import IntFormat as JIntFormat
+    from repro.core.formats import get_format as jget_format
+    from repro.core.qtensor import _NATURAL_LEAVES, _convertible
+    fmt = jget_format(scfg.weights.split(":")[1])
+    storage = scfg.quantized_storage
+    if storage is None:
+        storage = isinstance(fmt, JIntFormat) and fmt.bits in (4, 8)
+    policy, key = JPolicy(), jax.random.PRNGKey(scfg.seed)
+    out, counter = {}, [0]
+
+    def leaf(path, x):
+        if policy.eligible(path, x):
+            counter[0] += 1
+            last = str(path[-1].key).lower()
+            shape = x.shape
+            if storage and _convertible(last, x, fmt, -1) \
+                    and last not in _NATURAL_LEAVES:
+                shape = shape[:-2] + (shape[-1], shape[-2])
+            out["/".join(str(p.key) for p in path).lower()] = \
+                torch.from_numpy(np.array(jax.random.uniform(
+                    jax.random.fold_in(key, counter[0]), shape, x.dtype)))
+        return x
+
+    jax.tree_util.tree_map_with_path(leaf, jparams)
+    return out
+
+
+@pytest.mark.parametrize("weights,storage", [
+    ("rr:int4", None), ("rtn:fp4", None), ("rtn:int4", False),
+    ("rr:int8", None)])
+def test_rr_and_dense_cast_serving_match_jax(weights, storage):
+    """RR casts into QTensor storage and the dense-cast path (fp4, and
+    int4 with ``quantized_storage=False``): the prepared weights bitwise
+    (fed JAX's draws for rr:) and the engine's greedy tokens equal."""
+    jcfg, jparams, tcfg, tparams = _setup("serve")
+    from repro.serve.engine import prepare_params as jprepare
+    jscfg = JServeConfig(weights=weights, quantized_storage=storage,
+                         max_new_tokens=6, seed=3)
+    tscfg = ServeConfig(weights=weights, quantized_storage=storage,
+                        max_new_tokens=6, seed=3)
+    uniforms = (_jax_serve_draws(jparams, jscfg)
+                if weights.startswith("rr") else None)
+    got = prepare_params(tparams, tscfg, "cpu", uniforms=uniforms)
+    want = bridge.flatten(bridge.to_numpy(bridge.to_torch(jax.tree.map(
+        np.asarray, jprepare(jparams, jscfg)))))
+    flat = bridge.flatten(bridge.to_numpy(got))
+    assert set(flat) == set(want)
+    for path, t in flat.items():
+        if isinstance(t, dict):
+            for f in ("codes", "scales"):
+                np.testing.assert_array_equal(t[f], want[path][f])
+        else:
+            np.testing.assert_array_equal(t, want[path])
+    teng = Engine(tcfg, got, ServeConfig(weights="fp32", max_new_tokens=6),
+                  device="cpu")
+    jeng = JEngine(jcfg, jparams, jscfg)
+    assert teng.generate(PROMPTS) == jeng.generate(PROMPTS)
+    # without uniforms the engine draws from a generator seeded with seed
+    assert Engine(tcfg, tparams, tscfg, device="cpu").generate(PROMPTS)
 
 
 def test_unported_block_kinds_raise():
