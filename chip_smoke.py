@@ -42,7 +42,15 @@ checked:
   microbatches against one (one cast per step);
 * serving what they train: RR-cast int4 QTensors (re-quantizing the
   cast is the identity, bitwise) through ``wqt_matmul`` and the dense
-  fp4 cast, 4 layers, prefill logits against the CPU's.
+  fp4 cast, 4 layers, prefill logits against the CPU's;
+* checkpoints and self-healing training: EF int8 gradient compression
+  on 8 layers (``quant``'s block-256 instance, one launch per gradient
+  leaf, bitwise against the plain version); crash-exact auto-resume on
+  2 layers (bitwise) and a tampered payload refused by its crc32; the
+  skip gate (a NaN step leaves the state bitwise unchanged) and the
+  training chaos harness on 2 layers with one and two simulated hosts;
+  the 40-layer state saved in the JAX checkpoint layout and loaded back
+  in place (the next step bitwise), with save and load rates.
 
 Each phase prints one JSON line; a failed check raises and the script
 exits non-zero.  The last three lines are the ``kernels`` summary, the
@@ -60,8 +68,10 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -803,6 +813,10 @@ OTHER_FMT_SHAPES = [(40, 2048, 512), (49155, 2048)]
 # fp32 operations per element, the least each function needs (for the
 # operations side of the bound; the bytes side dominates by far)
 OPS_PER_ELEM = {"quant": 4, "lotion_reg": 10, "opt_step": 16}
+# EF gradient compression's cast (train/compress.py): blockwise int8 RTN of
+# every gradient leaf, at the shapes of Granite-3-2B's 11 leaves
+EF_FMT, EF_BLOCK = "int8", 256
+EF_SHAPES = [s for s, _, _ in GRANITE_LEAVES]
 
 
 def _fmt_shape(shape):
@@ -999,6 +1013,9 @@ def check_quant(timer, dev):
             rows.append(check_quant_one(timer, gen, dev, shape, "int4", bs,
                                         False))
         rows.append(check_quant_one(timer, gen, dev, shape, "int4", -1, True))
+    for shape in EF_SHAPES:
+        rows.append(check_quant_one(timer, gen, dev, shape, EF_FMT, EF_BLOCK,
+                                    False))
     for shape in OTHER_FMT_SHAPES:
         rows.append(check_quant_one(timer, gen, dev, shape, "int4", 128, True))
         for fmt in ("int8", "fp4"):
@@ -1613,15 +1630,18 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 1024
 
 def granite_trainer(dev, *, n_layers=None, dtype="bfloat16",
                     placement="decoupled", lam=1e3, seed=0, method="lotion",
-                    act_fmt=None, n_microbatches=1, rat_uniforms=None):
+                    act_fmt=None, n_microbatches=1, rat_uniforms=None,
+                    ef_compress=False, chaos=False, lr=3e-3):
     """The training path's workload: Granite-3-2B at full width (depth
     ``n_layers`` if given), random fp32 master weights from ``seed``,
     ``dtype`` activations (fake-quantized under ``act_fmt``); ``method``
     int4 per-tensor (LOTION at ``lam`` with the given penalty placement,
     or the QAT/RAT baselines: RAT from ``rat_uniforms(step)`` or the
     per-step generator of ``seed``); AdamW on a cosine schedule with
-    warmup, fused into the opt_step core.  Returns (cfg, train_step,
-    eval_fn, state)."""
+    warmup to ``lr``, fused into the opt_step core (with ``ef_compress`` the
+    unfused chain with EF int8 gradient compression); with ``chaos`` the
+    loss carries the chaos harness's poison seam and the state its
+    ``lr_scale`` leaf.  Returns (cfg, train_step, eval_fn, state)."""
     from repro_torch.configs import get_config
     from repro_torch.core.modes import QuantConfig
     from repro_torch.models.lm import lm_init
@@ -1636,10 +1656,17 @@ def granite_trainer(dev, *, n_layers=None, dtype="bfloat16",
                        lam=lam if method == "lotion" else 0.0,
                        penalty_placement=placement)
     tcfg = TrainConfig(quant=qcfg, clip_norm=1.0,
-                       n_microbatches=n_microbatches, seed=seed)
-    opt = make_optimizer(tcfg, adamw(cosine_with_warmup(3e-3, 5, 100)))
-    state = init_state(lm_init(cfg, seed=seed, device=dev), opt)
-    return (cfg, make_train_step(cfg, tcfg, opt, rat_uniforms=rat_uniforms),
+                       n_microbatches=n_microbatches, seed=seed,
+                       ef_compress=ef_compress)
+    opt = make_optimizer(tcfg, adamw(cosine_with_warmup(lr, 5, 100)))
+    state = init_state(lm_init(cfg, seed=seed, device=dev), opt,
+                       lr_scale=chaos)
+    loss_fn = None
+    if chaos:
+        from repro_torch.train.faults import chaos_loss_fn
+        loss_fn = chaos_loss_fn(cfg, tcfg)
+    return (cfg, make_train_step(cfg, tcfg, opt, loss_fn=loss_fn,
+                                 rat_uniforms=rat_uniforms),
             make_eval_fn(cfg, qcfg), state)
 
 
@@ -2206,6 +2233,479 @@ def serve_rr(dev, n_layers=4, mnt=8):
     return row
 
 
+# --------------------------------------------------------------------------
+# phase 8: checkpoints and self-healing training: the JAX package's
+# checkpoint layout at full width, crash-exact auto-resume, the training
+# chaos harness through opt_step's skip gate, and EF gradient compression
+# through quant's int8 block-256 instance
+# --------------------------------------------------------------------------
+
+def _state_leaves(tree):
+    """(key, tensor) pairs of a state in the checkpoint's key order."""
+    from repro_torch.checkpoint.io import _paths_and_leaves
+    return _paths_and_leaves(tree)
+
+
+def _state_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for _, x in _state_leaves(tree))
+
+
+def _ckpt_dir(need: int):
+    """A fresh directory on the local filesystem with the most free space
+    (the checkout's or the temp dir's); raises if it has less than
+    ``need`` bytes free.  Returns (dir, free bytes)."""
+    best = max({ROOT, tempfile.gettempdir()},
+               key=lambda d: shutil.disk_usage(d).free)
+    free = shutil.disk_usage(best).free
+    if free < need:
+        raise AssertionError(
+            f"a checkpoint of {need} bytes does not fit: {best} has {free} "
+            f"bytes free", dict(phase="ckpt_disk", dir=best, free=free,
+                                need=need))
+    return tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=best), free
+
+
+def _host_ram_available():
+    """MemAvailable of /proc/meminfo in bytes (None where absent)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def _bits(x):
+    return x.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[x.element_size()])
+
+
+def _differing(want, got):
+    """Keys of the (key, tensor) pairs whose shape, dtype or bits differ
+    (``want`` may be on the host)."""
+    bad = []
+    for (k, a), (k2, b) in zip(want, got):
+        if (k != k2 or a.shape != b.shape or a.dtype != b.dtype
+                or not torch.equal(_bits(a.to(b.device)), _bits(b))):
+            bad.append(k)
+    return bad + [k for k, _ in want[len(got):]]
+
+
+def _counting(train_step):
+    """``train_step`` counting its calls (``.calls``)."""
+    def step(state, batch):
+        step.calls += 1
+        return train_step(state, batch)
+    step.calls = 0
+    step.optimizer = train_step.optimizer
+    return step
+
+
+_QUIET = dict(log_every=0, log=lambda *a, **k: None)
+
+
+def ckpt_full_width(dev):
+    """The 40-layer LOTION state (fp32 params, mu and nu, the step and
+    optimizer scalars) saved after step 1 into the JAX package's layout
+    (``keep=1``), step 2 taken, the saved step loaded back into the
+    state's own tensors (``load(into=state)``) and step 2 taken again:
+    the loss and every leaf bitwise equal to the first step 2.  Reports
+    the state's bytes, the save and load seconds and rates, the free
+    disk and host RAM found, and the peak device memory; removes the
+    checkpoint."""
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.empty_cache()
+    cfg, train_step, _, state = granite_trainer(dev)
+    pipe, _ = _pipeline(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    try:
+        b1, b2 = next(pipe), next(pipe)
+    finally:
+        pipe.close()
+    n_leaves = len(tree_leaves(state["params"]))
+    nbytes = _state_bytes(state)
+    d, free = _ckpt_dir(int(nbytes * 1.05))
+    ram = _host_ram_available()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    try:
+        state, _ = train_step(state, b1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt_io.save(d, 1, state, keep=1)
+        save_s = time.perf_counter() - t0
+        files = sorted(os.listdir(os.path.join(d, "step_0000000001")))
+        state, m = train_step(state, b2)
+        loss_a = float(m["loss"])
+        first = [(k, x.to("cpu", copy=True)) for k, x in _state_leaves(state)]
+        t0 = time.perf_counter()
+        state, _ = ckpt_io.load(d, into=state, step=1)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        restored_step = int(state["step"])
+        state, m = train_step(state, b2)
+        loss_b = float(m["loss"])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = launch_counts()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    differ = _differing(first, _state_leaves(state))
+    del first
+    want = dict.fromkeys(counts, 0)
+    want.update(opt_step=3 * n_leaves)
+    checks = {"restored_step": restored_step == 1,
+              "loss_bitwise": loss_a == loss_b, "state_bitwise": not differ,
+              "counts": counts == want, "removed": not os.path.exists(d)}
+    row = dict(phase="ckpt_full_width", model=cfg.name,
+               n_layers=cfg.n_layers, dtype=str(cfg.dtype),
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               n_state_leaves=len(_state_leaves(state)),
+               state_bytes=nbytes, files=files, save_s=save_s,
+               save_gb_s=nbytes / save_s / 1e9, load_s=load_s,
+               load_gb_s=nbytes / load_s / 1e9,
+               ckpt_dir_fs=os.path.dirname(d), free_disk_bytes=free,
+               host_ram_available_bytes=ram, losses=[loss_a, loss_b],
+               differing_leaves=differ, peak_memory_gib=peak / 2 ** 30,
+               launches=counts, expected_launches=want, checks=checks)
+    emit(row)
+    del state, train_step
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"checkpoint phase failed: {checks}", row)
+    return row
+
+
+def train_resume(dev, n_layers=2, steps=6, crash_after=3):
+    """Crash-exact auto-resume on 2 full-width layers (bf16, batch 4 x
+    1024): ``steps`` steps straight through ``run_loop``; then the same
+    run with checkpoints every 2 steps and a hard kill
+    (``InjectedCrash``) after step ``crash_after``, and a fresh state
+    auto-resumed to the end.  The final state and every step's loss
+    (the replayed ones too) bitwise equal.  Then the newest checkpoint's
+    payload is rewritten with one leaf changed (a valid zip whose own
+    CRCs are right): ``load`` must refuse it by the manifest's crc32."""
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train import InjectedCrash, run_loop
+    torch.cuda.empty_cache()
+
+    def fresh():
+        cfg, step, _, state = granite_trainer(dev, n_layers=n_layers)
+        pipe, _ = _pipeline(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+        return _counting(step), state, pipe
+
+    def recorder(losses, crash_at=None):
+        def hook(st, m):
+            losses.append((int(st["step"]), float(m["loss"])))
+            if len(losses) == crash_at:
+                raise InjectedCrash(f"kill after step {int(st['step'])}")
+        return hook
+
+    reset_launch_counts()
+    calls, a_losses, b_losses = 0, [], []
+    step, state, pipe = fresh()
+    try:
+        ref = run_loop(step, state, pipe, steps,
+                       step_hook=recorder(a_losses), **_QUIET)["state"]
+    finally:
+        pipe.close()
+    calls += step.calls
+    nbytes = _state_bytes(ref)
+    d, free = _ckpt_dir(4 * nbytes)
+    try:
+        step, state, pipe = fresh()
+        crashed = False
+        try:
+            run_loop(step, state, pipe, steps, ckpt_dir=d, ckpt_every=2,
+                     auto_resume=True,
+                     step_hook=recorder(b_losses, crash_after), **_QUIET)
+        except InjectedCrash:
+            crashed = True
+        finally:
+            pipe.close()
+        calls += step.calls
+        del state
+        step, state, pipe = fresh()
+        t0 = time.perf_counter()
+        try:
+            out = run_loop(step, state, pipe, steps, ckpt_dir=d,
+                           ckpt_every=2, auto_resume=True,
+                           step_hook=recorder(b_losses), **_QUIET)
+        finally:
+            pipe.close()
+        resumed_s = time.perf_counter() - t0
+        calls += step.calls
+        counts = launch_counts()
+        differ = _differing(_state_leaves(ref), _state_leaves(out["state"]))
+        want_loss = dict(a_losses)
+        losses_ok = (len(want_loss) == steps
+                     and all(want_loss.get(s) == v for s, v in b_losses))
+        # trust: one leaf changed inside a well-formed payload
+        newest = ckpt_io.latest_step(d)
+        payload = os.path.join(d, f"step_{newest:010d}", ckpt_io.PAYLOAD)
+        with np.load(payload) as pz:
+            arrays = {k: pz[k] for k in pz.files}
+        key = sorted(arrays)[0]
+        arrays[key] = arrays[key] + 1
+        np.savez(payload, **arrays)
+        del arrays
+        try:
+            ckpt_io.load(d, out["state"], step=newest)
+            refused = False
+        except ckpt_io.CorruptCheckpointError:
+            refused = True
+        verify_dir_refused = not ckpt_io.verify_dir(os.path.dirname(payload))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    n_leaves = len(tree_leaves(ref["params"]))
+    want = dict.fromkeys(counts, 0)
+    want.update(opt_step=n_leaves * calls)
+    checks = {"crashed": crashed, "resumed_from": out["resumed_from"] == 2,
+              "state_bitwise": not differ, "losses_bitwise": losses_ok,
+              "tampered_payload_refused": refused,
+              "tampered_verify_dir": verify_dir_refused,
+              "counts": counts == want}
+    row = dict(phase="train_resume", n_layers=n_layers, dtype="bfloat16",
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=steps,
+               crash_after=crash_after, resumed_from=out["resumed_from"],
+               state_bytes=nbytes, free_disk_bytes=free,
+               resumed_segment_s=resumed_s, losses=a_losses,
+               resumed_losses=b_losses, tampered_leaf=key,
+               differing_leaves=differ, train_steps_run=calls,
+               launches=counts, expected_launches=want, checks=checks)
+    emit(row)
+    del ref, out, state
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"resume phase failed: {checks}", row)
+    return row
+
+
+# the chaos phase's peak learning rate: at 3e-3 the random 2-layer model's
+# own loss jumps by 1.5 nats at the end of warmup (see train_resume's
+# losses), which the spike monitor takes for a spike; the injected faults
+# alone should decide which recovery tiers fire
+CHAOS_LR = 3e-4
+# fingerprint (heartbeat) every other step: a full-width 2-layer state is
+# 2.67 GB to bring to the host and crc32 per round, and every host-level
+# fault of the two plans is still seen (at every third step it is not)
+CHAOS_AUDIT_EVERY = 2
+
+
+def train_chaos(dev, n_layers=2, n_steps=18):
+    """The training chaos harness (``train/faults.py``) on 2 full-width
+    layers (bf16, batch 4 x 1024, LOTION decoupled, the poison seam in
+    the loss).  First the skip gate alone: after a clean step, a
+    NaN-poisoned batch goes through loss, backward, clip and
+    ``opt_step`` (launched, with its ok operand 0) and leaves every leaf
+    of the state bitwise unchanged.  Then ``run_chaos`` on one host
+    (``chaos_train_plan(1, 18)`` with the spike burst pinned at fetch 24,
+    as the JAX tests pin it) and on two simulated hosts (the launcher's
+    two-host plan, 2 payload shards): no audit violation, every tier
+    fired (skips through the gate, a rollback, a quarantine, a resume,
+    with two hosts a host kill and a straggler timeout), and exactly 11
+    ``opt_step`` launches per train step run, skipped steps included.
+    Last, the fault-free chaos replay bitwise equal to a plain run."""
+    from repro_torch.data import DataPipeline, lm_batch, permutation_table
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import chaos_ok, chaos_plan
+    from repro_torch.models.lm import lm_init
+    from repro_torch.train import (NonFiniteBudgetError, RollbackBudgetError,
+                                   init_state, run_loop)
+    from repro_torch.train import faults as tfaults
+    torch.cuda.empty_cache()
+    cfg, train_step, _, state = granite_trainer(dev, n_layers=n_layers,
+                                                chaos=True, lr=CHAOS_LR)
+    n_leaves = len(tree_leaves(state["params"]))
+    nbytes = _state_bytes(state)
+    perm = permutation_table(0, cfg.vocab)
+
+    def batch_fn(s, poison=1.0):
+        b = lm_batch(0, s, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, perm)
+        b["poison"] = torch.tensor(poison, dtype=torch.float32)
+        return b
+
+    def on_card(b):
+        return {k: v.to(dev) for k, v in b.items()}
+
+    def make_state():
+        return init_state(lm_init(cfg, seed=0, device=dev),
+                          train_step.optimizer, lr_scale=True)
+
+    reset_launch_counts()
+    state, _ = train_step(state, on_card(batch_fn(0)))
+    core = {"params": state["params"], "opt": state["opt"]}
+    before = [(k, x.clone()) for k, x in _state_leaves(core)]
+    state, m = train_step(state, on_card(batch_fn(1, float("nan"))))
+    gate = dict(skipped=bool(m["skipped"]),
+                loss_finite=math.isfinite(float(m["loss"])),
+                differing_leaves=_differing(before, _state_leaves(
+                    {"params": state["params"], "opt": state["opt"]})),
+                opt_step_launches=launch_counts()["opt_step"])
+    del state, core, before
+    torch.cuda.empty_cache()
+    checks = {"gate_skipped": gate["skipped"],
+              "gate_bitwise": not gate["differing_leaves"],
+              "gate_launched": gate["opt_step_launches"] == 2 * n_leaves}
+
+    keys = ("violations", "segments", "crashes", "resumes", "rollbacks",
+            "skipped", "replayed_steps", "steps_seen", "saves",
+            "corrupted_saves", "quarantined", "host_kills", "straggles",
+            "host_kill_timeouts", "straggler_timeouts", "divergence_checks",
+            "coord_rounds", "data_windows_skipped", "final_loss")
+    runs = {}
+    for hosts in (1, 2):
+        plan = (tfaults.chaos_train_plan(1, n_steps=n_steps, spike_at=24,
+                                         spike_len=3, n_crashes=1)
+                if hosts == 1 else chaos_plan(1, n_steps, hosts))
+        step = _counting(train_step)
+        d, _ = _ckpt_dir(5 * nbytes)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            s = tfaults.run_chaos(step, make_state, batch_fn, plan, n_steps,
+                                  d, n_hosts=hosts, ckpt_shards=hosts,
+                                  spike_warmup=4 if hosts == 1 else 6,
+                                  audit_every=CHAOS_AUDIT_EVERY, device=dev)
+        except (NonFiniteBudgetError, RollbackBudgetError) as e:
+            raise AssertionError(
+                f"chaos run on {hosts} host(s) aborted: {e}",
+                dict(phase="train_chaos", hosts=hosts, error=str(e),
+                     gate=gate))
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want.update(opt_step=n_leaves * step.calls)
+        tiers = {"skip": s["skipped"] >= 1, "rollback": s["rollbacks"] >= 1,
+                 "quarantine": s["quarantined"] >= 1,
+                 "resume": s["resumes"] >= 1}
+        if hosts > 1:
+            tiers.update(host_kill=s["host_kill_timeouts"] >= 1,
+                         straggler=s["straggler_timeouts"] >= 1)
+        runs[hosts] = dict(plan=plan.describe(), seconds=seconds,
+                           train_steps_run=step.calls, launches=counts,
+                           expected_launches=want, tiers=tiers,
+                           **{k: s[k] for k in keys})
+        checks[f"{hosts}h_ok"] = chaos_ok(s, hosts)
+        checks[f"{hosts}h_tiers"] = all(tiers.values())
+        checks[f"{hosts}h_counts"] = counts == want
+        del s
+
+    plain_pipe = DataPipeline(batch_fn, device=dev, prefetch=0)
+    try:
+        plain = run_loop(train_step, make_state(), plain_pipe, 8,
+                         **_QUIET)["state"]
+    finally:
+        plain_pipe.close()
+    d, _ = _ckpt_dir(5 * nbytes)
+    try:
+        s = tfaults.run_chaos(train_step, make_state, batch_fn, None, 8, d,
+                              ckpt_every=3, audit_every=CHAOS_AUDIT_EVERY,
+                              device=dev)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    replay = dict(segments=s["segments"], violations=s["violations"],
+                  differing_leaves=_differing(
+                      _state_leaves({k: plain[k] for k in
+                                     ("params", "opt", "step")}),
+                      _state_leaves({k: s["state"][k] for k in
+                                     ("params", "opt", "step")})))
+    checks["replay_bitwise"] = (not replay["differing_leaves"]
+                                and not replay["violations"]
+                                and replay["segments"] == 1)
+    row = dict(phase="train_chaos", n_layers=n_layers, dtype="bfloat16",
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, n_steps=n_steps,
+               skip_gate=gate, runs=runs, fault_free_replay=replay,
+               checks=checks)
+    emit(row)
+    del plain, s
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"chaos phase failed: {checks}", row)
+    return row
+
+
+def train_ef(dev, n_layers=8, steps=2):
+    """EF int8 gradient compression on 8 full-width layers: the unfused
+    chain clip -> ef -> lotion_decoupled -> AdamW, with per step one
+    ``quant`` launch (int8, block 256) per gradient leaf, ``lotion_reg``
+    per eligible leaf and no ``opt_step``.  Then one step's compression
+    of real gradients (the next batch's, at the trained weights) with
+    the carried error: the compressed gradients and the new error from
+    the kernel bitwise equal to the plain version's on the card."""
+    from repro_torch.core.modes import QuantConfig
+    from repro_torch.core.policy import tree_map
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.quant import rtn_ref
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.compress import ef_compress, wire_bytes
+    from repro_torch.train.loop import make_loss_fn
+    torch.cuda.empty_cache()
+    cfg, train_step, _, state = granite_trainer(dev, n_layers=n_layers,
+                                                ef_compress=True)
+    tags = [t.tag for t in train_step.optimizer.links]
+    pipe, _ = _pipeline(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    n_leaves = len(tree_leaves(state["params"]))
+    n_eligible = len(_eligible(state["params"]))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    try:
+        state, rows = _train_steps(train_step, state, pipe, steps)
+        batch = next(pipe)
+    finally:
+        pipe.close()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(counts, 0)
+    want.update(quant=n_leaves * steps, lotion_reg=n_eligible * steps)
+
+    loss_fn = make_loss_fn(cfg, TrainConfig(quant=QuantConfig(
+        method="lotion", fmt_name="int4", lam=1e3)))
+    leaves = [x.detach().requires_grad_(True)
+              for x in tree_leaves(state["params"])]
+    it = iter(leaves)
+    params = tree_map(lambda x: next(it), state["params"])
+    loss, _ = loss_fn(params, batch, None)
+    grads = torch.autograd.grad(loss, leaves)
+    it = iter(grads)
+    g = tree_map(lambda x: next(it), state["params"])
+    err = state["opt"][tags.index("ef_compress")]["err"]
+    q, new_err = ef_compress(g, err, EF_BLOCK)
+    pairs = []
+    for (k, gk), (_, ek), (_, qk), (_, nk) in zip(
+            _state_leaves(g), _state_leaves(err), _state_leaves(q),
+            _state_leaves(new_err)):
+        corrected = gk + ek
+        qp = rtn_ref(corrected, EF_FMT, EF_BLOCK)
+        pairs += [(f"{k}:q", qk, qp), (f"{k}:err", nk, corrected - qp)]
+    torch.cuda.synchronize()
+    err_max, same, bad = _bitwise(pairs)
+    checks = {"chain": tags[1:3] == ["ef_compress", "lotion_decoupled"],
+              "counts": counts == want, "bitwise": same,
+              "err_nonzero": any(float(e.abs().max()) > 0
+                                 for e in tree_leaves(err))}
+    row = dict(phase="train_ef", n_layers=cfg.n_layers, dtype=str(cfg.dtype),
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, chain=tags, steps=rows,
+               ef_fmt=EF_FMT, ef_block=EF_BLOCK,
+               wire_bytes=wire_bytes(g, EF_BLOCK),
+               fp32_grad_bytes=sum(x.numel() * 4 for x in tree_leaves(g)),
+               bitwise=same, max_abs_err=err_max, disagreeing=bad,
+               peak_memory_gib=peak / 2 ** 30, launches=counts,
+               expected_launches=want, checks=checks)
+    emit(row)
+    del state, train_step, g, q, new_err, pairs, grads, leaves, params
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"EF phase failed: {checks}", row)
+    return row
+
+
 def _get(tree, path):
     for k in path:
         tree = tree[k]
@@ -2261,7 +2761,11 @@ def main() -> int:
               "train_rat_act": lambda: train_rat_act(dev),
               "train_baselines_card_vs_cpu":
                   lambda: train_baselines_card_vs_cpu(dev),
-              "serve_rr": lambda: serve_rr(dev)}
+              "serve_rr": lambda: serve_rr(dev),
+              "train_ef": lambda: train_ef(dev),
+              "train_resume": lambda: train_resume(dev),
+              "train_chaos": lambda: train_chaos(dev),
+              "ckpt_full_width": lambda: ckpt_full_width(dev)}
     out = {}
     for name, run in phases.items():
         t0 = time.perf_counter()
@@ -2367,6 +2871,10 @@ def kernels_line(out):
         return (r["cast"] == "rr" and r["fmt"] == "int4"
                 and r["block_size"] == -1)
 
+    def ef8(r, eligible):
+        return (r["cast"] == "rtn" and r["fmt"] == EF_FMT
+                and r["block_size"] == EF_BLOCK and r["dtype"] == "float32")
+
     def reg4(r, eligible):
         return r["fmt"] == "int4" and r["block_size"] == -1
 
@@ -2417,6 +2925,14 @@ def kernels_line(out):
                                         True),
         rr_ms=_leaf_sum(q, "ms", rr4, True),
         rr_bound_ms=_leaf_sum(q, "bound_ms", rr4, True),
+        ef_shape="EF gradient compression: one cast of each of "
+        "Granite-3-2B's 11 gradient leaves, int8 block 256, fp32",
+        ef_path="train_ef (8 layers)",
+        ef_launches=out["train_ef"]["launches"]["quant"],
+        ef_bitwise=out["train_ef"]["bitwise"],
+        ef_ms=_leaf_sum(q, "ms", ef8), ef_plain_ms=_leaf_sum(q, "plain_ms",
+                                                             ef8),
+        ef_bound_ms=_leaf_sum(q, "bound_ms", ef8),
         **stats(q, rtn4, rtn4, eligible_only=True)))
     lines.append(dict(
         name="lotion_reg", route="cuda",
@@ -2435,6 +2951,12 @@ def kernels_line(out):
         source="src/repro_torch/kernels/opt_step/csrc/opt_step.cu",
         replaces="src/repro/kernels/opt_step/opt_step.py:115",
         path="train", launches=train["launches"]["opt_step"],
+        ckpt_launches=out["ckpt_full_width"]["launches"]["opt_step"],
+        resume_launches=out["train_resume"]["launches"]["opt_step"],
+        chaos_launches=sum(r["launches"]["opt_step"]
+                           for r in out["train_chaos"]["runs"].values()),
+        skip_gate_bitwise=not out["train_chaos"]["skip_gate"][
+            "differing_leaves"],
         tol=tol + "; penalty within 1e-6 relative",
         shape="one AdamW step over all 11 leaves of Granite-3-2B (7 with "
         "the int4 per-tensor penalty), fp32",

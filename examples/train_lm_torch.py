@@ -18,6 +18,10 @@ On the CPU, the reduced smoke config through the plain PyTorch paths:
     PYTHONPATH=src python examples/train_lm_torch.py --device cpu --smoke \
         --steps 20 --batch 4 --seq 32
 
+``--ckpt-dir D --ckpt-every N`` saves the train state every N steps (the
+JAX package's checkpoint layout); ``--resume`` first restores the newest
+checkpoint in D and continues from its step.
+
 Prints per-step loss/gnorm, an RTN eval CE every quarter of the run and
 the final fp32 / RTN / RR eval CE.
 """
@@ -27,6 +31,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.modes import QuantConfig
 from repro_torch.core.policy import QuantPolicy, tree_leaves
@@ -60,6 +65,9 @@ def main(argv=None):
                     help="LOTION penalty placement (default: decoupled)")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
 
     dev = torch.device(args.device)
@@ -83,9 +91,15 @@ def main(argv=None):
           f"act_fmt={args.act_fmt} device={dev}")
     state = init_state(params, opt)
 
+    start = 0
+    if args.resume and args.ckpt_dir and ckpt.latest_step(args.ckpt_dir):
+        state, start = ckpt.load(args.ckpt_dir, into=state)
+        print(f"# resumed from step {start}")
+
     perm = permutation_table(args.seed, cfg.vocab)
     pipe = DataPipeline(lambda s: lm_batch(args.seed, s, args.batch, args.seq,
-                                           cfg.vocab, perm), device=dev)
+                                           cfg.vocab, perm), start_step=start,
+                        device=dev)
     step = make_train_step(cfg, tcfg, opt)
     ev = make_eval_fn(cfg, qcfg)
     val = lm_batch(args.seed + 99, 10 ** 6, args.batch, args.seq, cfg.vocab,
@@ -96,9 +110,15 @@ def main(argv=None):
         print(f"  [eval] step {int(st['step'])} {args.fmt}-rtn CE = {rtn:.4f}")
         return rtn
 
+    hooks = {}
+    if args.ckpt_dir and args.ckpt_every:
+        hooks = dict(ckpt_every=args.ckpt_every,
+                     ckpt_hook=lambda st: ckpt.save(
+                         args.ckpt_dir, int(st["step"]), st))
+
     out = run_loop(step, state, pipe, args.steps,
                    eval_every=max(args.steps // 4, 1), eval_hook=eval_hook,
-                   log_every=max(args.steps // 10, 1))
+                   log_every=max(args.steps // 10, 1), **hooks)
     pipe.close()
     p = out["state"]["params"]
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)

@@ -14,11 +14,17 @@ vocab 256, fp32, batch 16 x 64, 250 steps, LOTION at lam 1e4, seed 0).
 ``--arch`` trains the published config at full width instead (depth cut
 to ``--layers``, bf16 activations, the default eligibility policy);
 ``--lams`` runs LOTION at each of several lambdas and ``--seeds`` every
-method from each of several seeds.  A run whose loss (the CE plus the
-decoupled penalty) stops being finite is reported as diverged at that
-step, with no eval: decoupled LOTION at lam 1e4 on the bench config can
-diverge, in the JAX package too (its penalty gradient feeds Adam's
-second moment, which weights the penalty).  Prints one JSON
+method from each of several seeds.  Every run goes through ``run_loop``:
+a step whose loss (the CE plus the decoupled penalty) is not finite
+applies no update, and more than 8 such steps in a row end the run,
+reported as diverged at that step, with no eval (decoupled LOTION at lam
+1e4 on the bench config can diverge, in the JAX package too: its penalty
+gradient feeds Adam's second moment, which weights the penalty).  With
+``--spike-zscore Z`` the loop also checkpoints every ``--ckpt-every``
+steps into a temporary directory and rolls back on a sustained loss
+spike (z-score above Z), with its LR backoff; the line counts the
+rollbacks and keeps the loop's rollback and cooldown messages, and a run
+that exhausts the rollback budget is reported as diverged too.  Prints one JSON
 line per (format, method, lam, seed) with its CEs and mean step ms (host
 clock, synchronized), then a summary line: the best quantized CE per
 method and the mean eval CEs per (format, method, lam) over the runs that
@@ -32,21 +38,23 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
+import shutil
 import subprocess
 import sys
-import time
+import tempfile
 
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.modes import QuantConfig
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.data import lm_batch, markov_ce_floor, permutation_table
+from repro_torch.data import (DataPipeline, lm_batch, markov_ce_floor,
+                              permutation_table)
 from repro_torch.models.lm import LMConfig, lm_init
 from repro_torch.optim import adamw, cosine_with_warmup
-from repro_torch.train import (TrainConfig, init_state, make_eval_fn,
-                               make_optimizer, make_train_step)
+from repro_torch.train import (NonFiniteBudgetError, RollbackBudgetError,
+                               TrainConfig, init_state, make_eval_fn,
+                               make_optimizer, make_train_step, run_loop)
 
 BENCH_CFG = LMConfig(name="bench-lm", n_layers=4, d_model=128, n_heads=4,
                      n_kv_heads=2, d_ff=256, vocab=256, head_dim=32,
@@ -56,7 +64,8 @@ METHODS = ("ptq", "qat", "rat", "lotion")
 
 def train_one(cfg, policy, method, fmt, lam, seed, args, dev):
     """Returns (eval CE by weights, mean step ms, last loss, the step at
-    which the loss stopped being finite or None)."""
+    which the run diverged or None, the loop's rollback count, the loop's
+    rollback and cooldown messages)."""
     qcfg = QuantConfig(method=method, fmt_name=fmt, lam=lam, policy=policy)
     tcfg = TrainConfig(quant=qcfg, seed=seed)
     opt = make_optimizer(tcfg, adamw(cosine_with_warmup(
@@ -65,25 +74,38 @@ def train_one(cfg, policy, method, fmt, lam, seed, args, dev):
     state = init_state(lm_init(cfg, seed=seed, device=dev), opt)
     step = make_train_step(cfg, tcfg, opt)
     perm = permutation_table(0, cfg.vocab)
-    times = []
-    for s in range(args.steps):
-        batch = lm_batch(0, s, args.batch, args.seq, cfg.vocab, perm,
-                         device=dev)
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        loss = float(m["loss"])           # synchronizes
-        times.append(time.perf_counter() - t0)
-        if not math.isfinite(loss):
-            return None, 1e3 * sum(times) / len(times), loss, s
+    pipe = DataPipeline(lambda s: lm_batch(0, s, args.batch, args.seq,
+                                           cfg.vocab, perm), device=dev)
+    losses, events = [], []
+    kw = {}
+    if args.spike_zscore:
+        kw = dict(ckpt_dir=tempfile.mkdtemp(prefix="lm_quant_ckpt_"),
+                  ckpt_every=args.ckpt_every, ckpt_keep=2,
+                  spike_zscore=args.spike_zscore)
+    try:
+        out = run_loop(step, state, pipe, args.steps, log_every=0,
+                       log=lambda msg: events.append(msg)
+                       if "spike" in msg or "cooldown" in msg else None,
+                       step_hook=lambda st, m: losses.append(m["loss"]),
+                       **kw)
+    except (NonFiniteBudgetError, RollbackBudgetError) as e:
+        d = e.diagnostics
+        return (None, None, d["loss"], d["step"], d.get("rollbacks", 0),
+                events)
+    finally:
+        pipe.close()
+        if kw:
+            shutil.rmtree(kw["ckpt_dir"], ignore_errors=True)
     ev = make_eval_fn(cfg, qcfg)
     val = lm_batch(99, 10_000, args.val_batch, args.seq, cfg.vocab, perm,
                    device=dev)
-    p = state["params"]
+    p = out["state"]["params"]
     gen = torch.Generator(device=dev).manual_seed(5)
     ce = {"fp32": float(ev(p, val)), "rtn": float(ev(p, val, "rtn")),
           "rr": float(ev(p, val, "rr", generator=gen))}
-    steady = times[1:] or times
-    return ce, 1e3 * sum(steady) / len(steady), loss, None
+    steady = out["step_times"][1:] or out["step_times"]
+    return (ce, 1e3 * sum(steady) / len(steady), float(losses[-1]), None,
+            out["rollbacks"], events)
 
 
 def main(argv=None) -> int:
@@ -101,6 +123,10 @@ def main(argv=None) -> int:
     ap.add_argument("--fmts", default="int4,int8")
     ap.add_argument("--seeds", default="0", help="comma-separated")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--spike-zscore", type=float, default=0.0,
+                    help="run_loop's spike rollback threshold (0: off)")
+    ap.add_argument("--ckpt-every", type=int, default=10,
+                    help="checkpoint interval under --spike-zscore")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -126,13 +152,16 @@ def main(argv=None) -> int:
             for lam in ([float(x) for x in args.lams.split(",")]
                         if method == "lotion" else [0.0])]
     for fmt, method, lam, seed in runs:
-        ce, step_ms, last, diverged = train_one(cfg, policy, method, fmt,
-                                                lam, seed, args, dev)
+        ce, step_ms, last, diverged, rollbacks, events = train_one(
+            cfg, policy, method, fmt, lam, seed, args, dev)
         row = dict(table="lm_quant", model=cfg.name, n_layers=cfg.n_layers,
                    d_model=cfg.d_model, dtype=str(cfg.dtype), fmt=fmt,
                    method=method, lam=lam, seed=seed, steps=args.steps,
                    batch=args.batch, seq=args.seq, final_train_loss=last,
-                   diverged_at_step=diverged, eval_ce=ce,
+                   diverged_at_step=diverged,
+                   spike_zscore=args.spike_zscore, rollbacks=rollbacks,
+                   loop_events=events,
+                   eval_ce=ce,
                    rtn_gap=ce and ce["rtn"] - ce["fp32"],
                    rr_gap=ce and ce["rr"] - ce["fp32"], step_ms=step_ms,
                    floor=floor, device=str(dev), card=card)
@@ -155,6 +184,7 @@ def main(argv=None) -> int:
                    diverged=[(r["fmt"], r["method"], r["lam"], r["seed"],
                               r["diverged_at_step"]) for r in lines
                              if r["diverged_at_step"] is not None],
+                   rollbacks=sum(r["rollbacks"] for r in lines),
                    card=card)
     print(json.dumps(summary), flush=True)
     if args.out:

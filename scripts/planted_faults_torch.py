@@ -41,6 +41,18 @@ then RAT's two microbatches against one on the card):
 * ``rat_uniforms_per_microbatch`` — RAT's per-step generator is not
   re-seeded for the second microbatch, which casts against fresh draws.
 
+Checkpoints and self-healing training (phases ``train_chaos``: the skip
+gate on a NaN step, then the chaos harness on one and two simulated
+hosts; ``train_resume``: crash-exact auto-resume on 2 full-width layers,
+then a payload rewritten with one leaf changed):
+
+* ``skip_gate_open``       — ``opt_step``'s ok operand forced to 1, so a
+  poisoned step updates w, mu and nu;
+* ``resume_drops_moments`` — ``checkpoint.load`` restores the parameters
+  but zeroes mu and nu;
+* ``load_skips_crc``       — ``checkpoint.load`` ignores ``verify`` (the
+  manifest's crc32s are not checked).
+
 Static serving (phase ``serve_card_vs_cpu``: 2-layer Granite-3-2B at full
 width, int4 weights, prefill and first decode-step logits):
 
@@ -133,6 +145,28 @@ def _one_generator_per_step(orig):
     return gen
 
 
+def _drop_moments(orig):
+    """checkpoint.load that zeroes the restored fused state's mu and nu
+    on the card."""
+    def load(*args, **kw):
+        tree, step = orig(*args, **kw)
+        opt = tree.get("opt") if isinstance(tree, dict) else None
+        if isinstance(opt, dict) and "mu" in opt:
+            from repro_torch.core.policy import tree_leaves
+            for x in tree_leaves(opt["mu"]) + tree_leaves(opt["nu"]):
+                if x.is_cuda:
+                    x.zero_()
+        return tree, step
+    return load
+
+
+def _skip_crc(orig):
+    def load(*args, **kw):
+        kw["verify"] = False
+        return orig(*args, **kw)
+    return load
+
+
 def _first_block(orig):
     def attn(q, kc, ks, vc, vs, block_tables, pos, **kw):
         if q.is_cuda:
@@ -185,6 +219,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("planted_faults_torch: needs a CUDA device", file=sys.stderr)
         return 1
+    import repro_torch.checkpoint.io as ckpt_io
     import repro_torch.core.ste as ste
     import repro_torch.kernels.quant as quant
     import repro_torch.train.loop as loop
@@ -214,6 +249,16 @@ def main() -> int:
                                                 _drop_grad)),
             ("rat_uniforms_per_microbatch", lambda: _patched(
                 loop, "step_generator", _one_generator_per_step))]),
+        ([("train_chaos", cs.train_chaos)], [
+            sound,
+            ("skip_gate_open", lambda: _patched(fused, "fused_opt_step_leaf",
+                                                _step_with(ok=1.0)))]),
+        ([("train_resume", cs.train_resume)], [
+            sound,
+            ("resume_drops_moments", lambda: _patched(ckpt_io, "load",
+                                                      _drop_moments)),
+            ("load_skips_crc", lambda: _patched(ckpt_io, "load",
+                                                _skip_crc))]),
         ([("quant_adversarial", cs.check_quant_adversarial),
           ("opt_step_adversarial", cs.check_opt_adversarial)], [
             sound,
@@ -242,7 +287,7 @@ def main() -> int:
             "rat_micro_rtol",
             "max_abs_logit_err", "tol", "partings", "tokens_identical",
             "token_agreement", "attn_launches_equal", "failed",
-            "max_abs_err")
+            "max_abs_err", "checks", "differing_leaves", "error", "gate")
     bad = False
     for phases, faults in groups:
         for name, ctx in faults:

@@ -1,20 +1,22 @@
 """Training loop (port of ``repro.train.loop``): step construction
-(LOTION penalty placement, microbatching, clipping), quantized
-evaluation, and a driver loop.
+(LOTION penalty placement, microbatching, clipping, EF compression),
+quantized evaluation, and the self-healing training loop.
 
 The step is built on the update-transform chain::
 
-    grads -> clip -> [lotion_decoupled] -> optimizer core
+    grads -> clip -> [ef_compress] -> [lotion_decoupled] -> optimizer core
 
-``make_optimizer`` assembles it and, for AdamW and SGD cores, collapses
-it into the fused single-pass core (one ``opt_step`` launch per leaf;
-under qat, rat and loss-side LOTION at lam = 0).  ``make_train_step``
-computes the gradients of the loss at ``forward_params`` (the QAT/RAT
-straight-through casts) and runs the chain; it never syncs with the host
-(the skip flag, the losses and the norms come back as device tensors in
-the metrics), except that RAT reads the step counter to seed its draw.
-EF gradient compression, the chunked head and streaming attention,
-checkpoints and spike rollback are not in this slice of the port.
+``make_optimizer`` assembles it and, for AdamW and SGD cores without EF
+compression, collapses it into the fused single-pass core (one
+``opt_step`` launch per leaf; under qat, rat and loss-side LOTION at
+lam = 0).  EF compression keeps the unfused chain (one ``quant`` launch
+per gradient leaf).  ``make_train_step`` computes the gradients of the
+loss at ``forward_params`` (the QAT/RAT straight-through casts) and runs
+the chain; it never syncs with the host (the skip flag, the losses and
+the norms come back as device tensors in the metrics), except that RAT
+reads the step counter to seed its draw.  ``run_loop`` adds the loop's
+own checkpoints, crash-exact auto-resume and spike rollback.  The
+chunked head and streaming attention are not in the port yet.
 """
 
 from __future__ import annotations
@@ -35,14 +37,12 @@ from ..numerics import div_scalar
 from ..optim import (UpdateTransform, apply_updates, as_transform, chain,
                      clip_global_norm, fused_lotion_adamw_core,
                      fused_lotion_sgd_core, global_norm, lotion_decoupled)
+from .compress import ef_transform
+from .guard import NonFiniteBudgetError, RollbackBudgetError, SpikeMonitor
 
-
-class NonFiniteBudgetError(RuntimeError):
-    """More consecutive non-finite (skipped) steps than ``max_skips``."""
-
-    def __init__(self, msg: str, diagnostics: Optional[dict] = None):
-        super().__init__(msg)
-        self.diagnostics = diagnostics or {}
+__all__ = ["TrainConfig", "make_optimizer", "make_train_step",
+           "make_loss_fn", "make_eval_fn", "cross_entropy", "run_loop",
+           "NonFiniteBudgetError", "RollbackBudgetError"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +50,8 @@ class TrainConfig:
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     clip_norm: float = 1.0
     n_microbatches: int = 1
+    ef_compress: bool = False    # error-feedback int8 gradient compression
+    ef_block: int = 256
     seed: int = 0            # RAT's per-step draws come from (seed, step)
     attn_chunk: int = 0      # 0 = full-score attention (streaming: not ported)
     logit_chunk: int = 0     # 0 = full logits (chunked head: not ported)
@@ -71,10 +73,11 @@ class TrainConfig:
 def make_optimizer(tcfg: TrainConfig, base) -> UpdateTransform:
     """Assemble the per-step update chain from a base optimizer, with the
     JAX package's rules: a pre-assembled chain or a pre-built fused core
-    passes through if it agrees with ``tcfg``; an AdamW core (or an SGD
-    core that can weight LOTION) makes the whole ``clip -> [lotion] ->
-    core`` chain the fused core (lam = 0 under loss-side placement); any
-    other core gets the unfused chain."""
+    passes through if it agrees with ``tcfg``; without EF compression an
+    AdamW core (or an SGD core that can weight LOTION) makes the whole
+    ``clip -> [lotion] -> core`` chain the fused core (lam = 0 under
+    loss-side placement); EF compression and any other core get the
+    unfused ``clip -> [ef] -> [lotion] -> core`` chain."""
     base_t = as_transform(base)
     q = tcfg.quant
     wants_lotion = (q.method == "lotion" and q.lam != 0.0
@@ -113,12 +116,17 @@ def make_optimizer(tcfg: TrainConfig, base) -> UpdateTransform:
                     f"pre-built fused core was built with {key}="
                     f"{meta[key]!r} but the train config says {want!r} — "
                     f"rebuild it with make_optimizer")
+        if tcfg.ef_compress:
+            raise ValueError(
+                "EF compression cannot be fused — drop the pre-built "
+                "fused core and let make_optimizer assemble the chain")
         return base_t
     meta = base_t.meta or {}
-    can_fuse = (meta.get("kind") == "adamw"
-                or (meta.get("kind") == "sgd"
-                    and (not wants_lotion
-                         or meta.get("fisher_decay") is not None)))
+    can_fuse = (not tcfg.ef_compress
+                and (meta.get("kind") == "adamw"
+                     or (meta.get("kind") == "sgd"
+                         and (not wants_lotion
+                              or meta.get("fisher_decay") is not None))))
     if can_fuse and meta["kind"] == "adamw":
         return fused_lotion_adamw_core(
             meta["lr_fn"], b1=meta["b1"], b2=meta["b2"], eps=meta["eps"],
@@ -133,6 +141,8 @@ def make_optimizer(tcfg: TrainConfig, base) -> UpdateTransform:
             clip_norm=tcfg.clip_norm, policy=q.policy)
 
     links = [clip_global_norm(tcfg.clip_norm)]
+    if tcfg.ef_compress:
+        links.append(ef_transform(tcfg.ef_block))
     if wants_lotion:
         links.append(lotion_decoupled(q.fmt_name, q.lam, q.block_size,
                                       policy=q.policy))
@@ -345,61 +355,272 @@ def make_eval_fn(cfg: LMConfig, qcfg: QuantConfig):
 
 
 # --------------------------------------------------------------------------
-# Driver loop
+# The training loop: telemetry, checkpoints and the recovery tiers
 # --------------------------------------------------------------------------
 
 TELEMETRY_WINDOW = 200
 
 
+def _eval_scalar(ev):
+    """Scalar CE out of an ``eval_hook`` result for the eval-side
+    :class:`SpikeMonitor`: a number (or 0-d tensor) passes through; a
+    dict prefers the conventional CE keys, then the first value that
+    converts to float.  ``None`` when nothing numeric is found."""
+    if isinstance(ev, dict):
+        keys = [k for k in ("ce", "eval_ce", "ce_fp32", "loss") if k in ev]
+        candidates = [ev[k] for k in keys] or list(ev.values())
+    else:
+        candidates = [ev]
+    for v in candidates:
+        try:
+            return float(v)
+        except (TypeError, ValueError, RuntimeError):
+            continue
+    return None
+
+
+def _read_step(metrics):
+    """The step's one host read: the loss and the skip flag together."""
+    loss, flag = metrics["loss"], metrics.get("skipped")
+    if torch.is_tensor(loss) and torch.is_tensor(flag):
+        loss_v, flag_v = torch.stack(
+            [loss.detach().to(torch.float32),
+             flag.to(torch.float32)]).tolist()
+        return loss_v, bool(flag_v)
+    return float(loss), bool(flag) if flag is not None else False
+
+
 def run_loop(train_step, state, pipeline, n_steps: int,
              eval_every: int = 0, eval_hook: Optional[Callable] = None,
+             ckpt_every: int = 0, ckpt_hook: Optional[Callable] = None,
              log_every: int = 50, log: Callable = print,
-             straggler_pct: float = 95.0, max_skips: int = 8
-             ) -> Dict[str, Any]:
-    """Drive ``train_step`` for ``n_steps`` from ``pipeline``: step-time
-    telemetry, periodic eval, and the skip budget (more than ``max_skips``
-    consecutive skipped steps raises :class:`NonFiniteBudgetError`).  The
-    loss read per step is the one host sync.  Checkpoints, auto-resume and
-    spike rollback are not in this slice.
+             straggler_pct: float = 95.0,
+             ckpt_dir: Optional[str] = None, ckpt_keep: int = 3,
+             ckpt_shards: int = 1,
+             auto_resume: bool = False,
+             max_skips: int = 8,
+             spike_zscore: float = 0.0, spike_ema: float = 0.98,
+             spike_patience: int = 2, spike_warmup: int = 8,
+             eval_spike_zscore: float = 0.0, eval_spike_ema: float = 0.9,
+             eval_spike_patience: int = 1, eval_spike_warmup: int = 4,
+             backoff_scale: float = 0.5, cooldown_steps: int = 16,
+             max_rollbacks: int = 4,
+             rollback_reorder: bool = True,
+             coordinator=None,
+             step_hook: Optional[Callable] = None) -> Dict[str, Any]:
+    """Self-healing loop of ``train_step`` over ``pipeline`` (the JAX
+    package's ``run_loop``): telemetry, periodic eval and checkpoints,
+    and three recovery tiers.
 
-    Returns ``{"state", "history", "step_times", "skipped"}``."""
+    * **Skip budget**: a poisoned step applied no update (decided on the
+      device); more than ``max_skips`` consecutive skipped steps raise
+      :class:`NonFiniteBudgetError` with diagnostics.
+    * **Spike rollback**: with ``spike_zscore > 0`` (needs ``ckpt_dir``)
+      a :class:`SpikeMonitor` watches the loss, and with
+      ``eval_spike_zscore > 0`` a second one the eval CE; on a sustained
+      spike the loop restores the newest valid checkpoint, seeks the
+      pipeline (past the window that fed the spike with
+      ``rollback_reorder``, else back to it) and scales the learning
+      rate by ``backoff_scale`` for ``cooldown_steps`` steps through
+      ``state["lr_scale"]``.  More than ``max_rollbacks`` raise
+      :class:`RollbackBudgetError`.
+    * **Auto-resume**: ``auto_resume=True`` (needs ``ckpt_dir``) restores
+      the newest checkpoint whose crc32s verify, quarantining corrupt
+      ones, and seeks the pipeline; batches are functions of the step,
+      so the continued run is bitwise the run that never crashed.
+
+    Every host-level decision (restore target, rollback target and seek)
+    goes through ``coordinator`` (a single-host :class:`Coordinator` by
+    default).  ``ckpt_dir`` turns on the loop's own checkpoints every
+    ``ckpt_every`` steps (``ckpt_shards`` payload shards each; an anchor
+    save when none is valid yet; none while a monitor is hot);
+    ``ckpt_hook(state)`` is called at the same boundaries.  Restores
+    copy into the state's tensors in place, so a rollback at full width
+    holds one state on the card.  ``step_hook(state, metrics)`` runs
+    after every step (the chaos harness's crash seam).  The loss and the
+    skip flag come to the host in one read per step.
+
+    Returns ``{"state", "history", "step_times", "skipped", "rollbacks",
+    "eval_rollbacks", "data_windows_skipped", "resumed_from"}``."""
+    from ..checkpoint import io as ckpt_io
+    from ..distributed.coordinator import Coordinator
+
+    coord = coordinator if coordinator is not None else Coordinator()
+    spiking = spike_zscore > 0.0
+    eval_spiking = eval_spike_zscore > 0.0
+    any_spiking = spiking or eval_spiking
+    if any_spiking and not ckpt_dir:
+        raise ValueError("spike rollback (spike/eval_spike_zscore > 0) "
+                         "needs ckpt_dir")
+    if eval_spiking and not (eval_every and eval_hook):
+        raise ValueError("eval spike monitor (eval_spike_zscore > 0) "
+                         "needs eval_every and eval_hook")
+    if auto_resume and not ckpt_dir:
+        raise ValueError("auto_resume needs ckpt_dir")
+    monitor = (SpikeMonitor(zscore=spike_zscore, ema=spike_ema,
+                            patience=spike_patience, warmup=spike_warmup)
+               if spiking else None)
+    eval_monitor = (SpikeMonitor(zscore=eval_spike_zscore,
+                                 ema=eval_spike_ema,
+                                 patience=eval_spike_patience,
+                                 warmup=eval_spike_warmup)
+                    if eval_spiking else None)
+    dev = tree_leaves(state["params"])[0].device
+
+    def lr_scale_tensor(v: float) -> torch.Tensor:
+        return torch.full((), v, dtype=torch.float32, device=dev)
+
+    # the lr_scale leaf joins the state (and so the checkpoint) exactly
+    # when the JAX loop inserts it, so the two packages' layouts match
+    if any_spiking and "lr_scale" not in state:
+        state = dict(state)
+        state["lr_scale"] = lr_scale_tensor(1.0)
+    counters: Dict[str, Any] = {"skipped": 0, "rollbacks": 0,
+                                "eval_rollbacks": 0,
+                                "data_windows_skipped": 0,
+                                "resumed_from": None}
+
+    local_best = None
+    if auto_resume:
+        local_best = ckpt_io.latest_valid(ckpt_dir, quarantine_corrupt=True)
+        # newest-common-valid election across hosts
+        best = coord.elect_checkpoint(local_best)
+        if best is not None:
+            state, s = ckpt_io.load(ckpt_dir, into=state, step=best)
+            if any_spiking:
+                # a fresh segment starts calm: a crash mid-cooldown must
+                # not pin the reduced LR
+                state = dict(state)
+                state["lr_scale"] = lr_scale_tensor(1.0)
+            counters["resumed_from"] = s
+            pipeline.seek(s)
+            log(f"run_loop: auto-resumed from {ckpt_dir} at step {s}")
+    # anchor save: rollback and resume always have a target (after an
+    # auto-resume scan the directory is unchanged: its answer stands)
+    if (ckpt_dir and (ckpt_every or any_spiking)
+            and (local_best if auto_resume
+                 else ckpt_io.latest_valid(ckpt_dir)) is None):
+        ckpt_io.save(ckpt_dir, int(state["step"]), state, keep=ckpt_keep,
+                     n_shards=ckpt_shards)
+
     history = []
     times = collections.deque(maxlen=TELEMETRY_WINDOW)
     fused = bool(getattr(getattr(train_step, "optimizer", None),
                          "applies_updates", False))
-    log(f"run_loop: opt_fused={fused} device="
-        f"{tree_leaves(state['params'])[0].device}")
+    log(f"run_loop: opt_fused={fused} device={dev}")
     cur = int(state["step"])
-    skipped = consec = 0
+    consec_skips = 0
+    lr_scale_now = 1.0
+    cooldown = 0
+    # cumulative data-reorder offset: each reordered rollback adds the
+    # width of the window it skipped
+    data_lead = 0
+
+    def do_rollback(origin: str, trigger: float, counter: str) -> None:
+        """One coordinated rollback: elect the newest checkpoint every
+        host can restore, agree on (restore, seek, origin), then restore
+        in place, seek and back the LR off."""
+        nonlocal state, cur, lr_scale_now, cooldown, data_lead
+        counters[counter] += 1
+        total = counters["rollbacks"] + counters["eval_rollbacks"]
+        if total > max_rollbacks:
+            raise RollbackBudgetError(
+                f"spike rollback budget ({max_rollbacks}) exhausted at "
+                f"step {cur} ({origin} trigger={trigger:.4f})",
+                {"step": cur, "loss": trigger, **counters})
+        best = ckpt_io.latest_valid(ckpt_dir, quarantine_corrupt=True)
+        best = coord.elect_checkpoint(best)
+        if best is None:
+            raise RollbackBudgetError(
+                f"{origin} spike at step {cur} but no commonly-valid "
+                f"checkpoint in {ckpt_dir} to roll back to",
+                {"step": cur, "loss": trigger, **counters})
+        if rollback_reorder and cur > best:
+            # replay with different data: skip the window [best, cur)
+            data_lead += cur - best
+            counters["data_windows_skipped"] += 1
+        seek_to = best + data_lead
+        # unanimity before mutating anything
+        coord.agree("rollback", (best, seek_to, origin))
+        state, s = ckpt_io.load(ckpt_dir, into=state, step=best)
+        pipeline.seek(seek_to)
+        cur = s
+        lr_scale_now *= backoff_scale
+        cooldown = cooldown_steps
+        state = dict(state)
+        state["lr_scale"] = lr_scale_tensor(lr_scale_now)
+        if monitor is not None:
+            monitor.reset()
+        if eval_monitor is not None:
+            eval_monitor.reset()
+        log(f"run_loop: {origin} spike ({trigger:.4f}) — rolled back to "
+            f"step {s} (seek {seek_to}, lead {data_lead}), "
+            f"lr_scale={lr_scale_now:g} for {cooldown_steps} steps")
+
     while cur < n_steps:
         batch = next(pipeline)
         t0 = time.perf_counter()
         state, metrics = train_step(state, batch)
-        loss_v = float(metrics["loss"])
+        loss_v, skipped = _read_step(metrics)
         times.append(time.perf_counter() - t0)
         cur += 1
-        if bool(metrics["skipped"]):
-            skipped += 1
-            consec += 1
-            if consec > max_skips:
+
+        if skipped:
+            counters["skipped"] += 1
+            consec_skips += 1
+            if consec_skips > max_skips:
                 diag = {"step": cur, "loss": loss_v,
                         "grad_norm": float(metrics["grad_norm"]),
-                        "skipped": skipped}
+                        **counters}
                 raise NonFiniteBudgetError(
-                    f"{consec} consecutive non-finite steps (budget "
-                    f"{max_skips}) at step {cur}: loss={loss_v}, gnorm="
-                    f"{diag['grad_norm']}", diag)
+                    f"{consec_skips} consecutive non-finite steps "
+                    f"(budget {max_skips}) at step {cur}: loss={loss_v}, "
+                    f"gnorm={diag['grad_norm']} — data or optimizer state "
+                    f"is persistently poisoned", diag)
         else:
-            consec = 0
-        if log_every and cur % log_every == 0:
+            consec_skips = 0
+            if monitor is not None and monitor.observe(loss_v):
+                do_rollback("loss", loss_v, "rollbacks")
+                continue
+
+        if cooldown > 0:
+            cooldown -= 1
+            if cooldown == 0 and lr_scale_now != 1.0:
+                lr_scale_now = 1.0
+                state = dict(state)
+                state["lr_scale"] = lr_scale_tensor(1.0)
+                log(f"run_loop: cooldown over at step {cur}, lr restored")
+
+        if step_hook is not None:
+            step_hook(state, metrics)
+
+        step = cur
+        if log_every and step % log_every == 0:
             window = np.asarray(times)
             p50, p95 = (np.percentile(window, 50),
                         np.percentile(window, straggler_pct))
-            log(f"step {cur:6d} loss {loss_v:.4f} "
+            log(f"step {step:6d} loss {loss_v:.4f} "
                 f"gnorm {float(metrics['grad_norm']):.3f} "
                 f"dt_p50 {p50 * 1e3:.1f}ms p95 {p95 * 1e3:.1f}ms "
-                f"skipped {skipped}")
-        if eval_every and eval_hook and cur % eval_every == 0:
-            history.append((cur, eval_hook(state)))
+                f"skipped {counters['skipped']} "
+                f"rollbacks {counters['rollbacks']} "
+                f"resumed_from {counters['resumed_from']}")
+        if eval_every and eval_hook and step % eval_every == 0:
+            ev = eval_hook(state)
+            history.append((step, ev))
+            if eval_monitor is not None:
+                ev_scalar = _eval_scalar(ev)
+                if ev_scalar is not None and eval_monitor.observe(ev_scalar):
+                    do_rollback("eval", ev_scalar, "eval_rollbacks")
+                    continue
+        if ckpt_every and step % ckpt_every == 0:
+            # never checkpoint while a spike is suspected
+            hot = ((monitor is not None and monitor.hot)
+                   or (eval_monitor is not None and eval_monitor.hot))
+            if ckpt_dir and not hot:
+                ckpt_io.save(ckpt_dir, step, state, keep=ckpt_keep,
+                             n_shards=ckpt_shards)
+            if ckpt_hook:
+                ckpt_hook(state)
     return {"state": state, "history": history, "step_times": list(times),
-            "skipped": skipped}
+            **counters}
