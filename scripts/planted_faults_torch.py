@@ -72,14 +72,29 @@ paged W4A8 scheduler on 2 and 4 full-width layers):
   read: at the scheduler's 256-slot ring (4 splits of 64) slots 0-63, the
   64-token system prompt every request of the workload starts with.
 
-    python3 scripts/planted_faults_torch.py
+The paper's synthetic testbed (phase ``synth_quadratic``: §4.1 at d =
+12000, then every method card against CPU from the same draws):
 
-Prints one JSON line per run of a phase with its numbers against their
+* ``rr_uniforms_ignore_step`` — the testbeds' RR cast on the card reuses
+  the first uniforms it was given for a shape, whatever the step.
+
+Long-context training (phase ``train_long``: 2 full-width layers at batch
+1 x 8192, streaming attention and the chunked head against the unchunked
+step):
+
+* ``softmax_drops_alpha`` — the online softmax on the card adds each key
+  chunk without rescaling the running denominator and output by
+  ``alpha = exp(m - m_new)``.
+
+    python3 scripts/planted_faults_torch.py [--only PHASE[,PHASE...]]
+
+``--only`` runs just the groups that hold one of the named phases.  Prints one JSON line per run of a phase with its numbers against their
 limits and whether the phase failed.  Exits 1 unless every sound run
 passes and every planted fault fails a phase it is run against.  The code
 in the repository is not changed.  Needs CUDA.
 """
 
+import argparse
 import contextlib
 import json
 import os
@@ -215,7 +230,34 @@ def _drop_first_split(orig):
     return plan
 
 
-def main() -> int:
+def _first_uniforms(orig):
+    """quant_rr that, on the card, casts against the first uniforms it
+    saw for each shape."""
+    seen = {}
+
+    def rr(w, uniforms, *args, **kw):
+        if w.is_cuda:
+            uniforms = seen.setdefault(tuple(w.shape), uniforms)
+        return orig(w, uniforms, *args, **kw)
+    return rr
+
+
+def _no_alpha(orig):
+    def step(m, s, o, logits, vc, dtype):
+        if not logits.is_cuda:
+            return orig(m, s, o, logits, vc, dtype)
+        m_new = torch.maximum(m, torch.amax(logits, dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        return m_new, s + torch.sum(p, dim=-1), o + torch.einsum(
+            "bgrqk,bkgd->bgrqd", p.to(dtype), vc).to(torch.float32)
+    return step
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases: run only their groups")
+    only = set(filter(None, ap.parse_args(argv).only.split(",")))
     if not torch.cuda.is_available():
         print("planted_faults_torch: needs a CUDA device", file=sys.stderr)
         return 1
@@ -229,6 +271,7 @@ def main() -> int:
     import repro_torch.models.layers as layers
     import repro_torch.optim.fused as fused
     import repro_torch.serve.scheduler as scheduler
+    import repro_torch.train.synthetic as syn
     import chip_smoke as cs
 
     dev = torch.device("cuda")
@@ -281,13 +324,28 @@ def main() -> int:
                                              _view)),
             ("dropped_attn_split", lambda: _patched(attn_ops, "plan",
                                                     _drop_first_split))]),
+        ([("synth_quadratic", cs.synth_quadratic)], [
+            sound,
+            ("rr_uniforms_ignore_step", lambda: _patched(syn, "quant_rr",
+                                                         _first_uniforms))]),
+        ([("train_long", cs.train_long)], [
+            sound,
+            ("softmax_drops_alpha", lambda: _patched(layers, "_stream_step",
+                                                     _no_alpha))]),
     ]
     keys = ("max_rel_diff", "rtol", "penalty_max_rel_diff", "penalty_rtol",
             "late_max_rel_diff", "late_rtol", "rat_micro_rel_diff",
             "rat_micro_rtol",
             "max_abs_logit_err", "tol", "partings", "tokens_identical",
             "token_agreement", "attn_launches_equal", "failed",
-            "max_abs_err", "checks", "differing_leaves", "error", "gate")
+            "max_abs_err", "checks", "differing_leaves", "error", "gate",
+            "loss_max_rel_diff", "grad_norm_max_rel_diff",
+            "first_moment_max_rel_l2", "update_max_rel_l2",
+            "grad_norm_rtol", "first_moment_rtol", "update_rtol")
+    if only:
+        groups = [g for g in groups if only & {name for name, _ in g[0]}]
+        if not groups:
+            ap.error(f"no group holds the phases {sorted(only)}")
     bad = False
     for phases, faults in groups:
         for name, ctx in faults:

@@ -2,7 +2,11 @@
 RTN and RR casts, the straight-through estimators of the QAT and RAT
 baselines, the training-mode transforms and QTensor quantized storage."""
 
-from .formats import FORMATS, INT4, INT8, IntFormat, bits_of, get_format
+from .formats import (FORMATS, FP4_E2M1, INT4, INT8, CodebookFormat,
+                      IntFormat, bits_of, get_format)
+from .lotion import (fisher_from_grads, lotion_penalty,
+                     lotion_penalty_and_grad, quadratic_smoothed,
+                     smoothed_loss_mc)
 from .modes import QuantConfig, cast_params, forward_params, penalty
 from .policy import QuantPolicy, path_str
 from .qtensor import (QTensor, dequantize_params, from_matmul_weight,
@@ -13,7 +17,10 @@ from .quantize import (block_scales, cast_rr, cast_rtn, dequantize_store,
                        scales_like, unpack_int4)
 from .ste import fake_quant_rr, fake_quant_rtn
 
-__all__ = ["FORMATS", "INT4", "INT8", "IntFormat", "bits_of", "get_format",
+__all__ = ["FORMATS", "FP4_E2M1", "INT4", "INT8", "CodebookFormat",
+           "IntFormat", "bits_of", "get_format",
+           "lotion_penalty", "lotion_penalty_and_grad", "smoothed_loss_mc",
+           "quadratic_smoothed", "fisher_from_grads",
            "QuantConfig", "cast_params", "forward_params", "penalty",
            "fake_quant_rtn", "fake_quant_rr",
            "QuantPolicy", "path_str", "QTensor", "dequantize_params",

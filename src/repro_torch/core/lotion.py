@@ -1,6 +1,14 @@
-"""LOTION's working objective, the Eq. 3 penalty (port of the
-``lotion_penalty`` / ``lotion_penalty_and_grad`` pair of
-``repro.core.lotion``):
+"""LOTION's objectives (port of ``repro.core.lotion``).
+
+The definitional smoothed loss and its closed form for quadratics:
+
+* ``smoothed_loss_mc``: Monte-Carlo ``E_{q~RR(w)}[L(q)]`` over explicit
+  uniforms (one draw of ``w``'s shape per sample);
+* ``quadratic_smoothed``: Eq. 1, ``L(w) + 1/2 tr(H Sigma_eps)``;
+* ``fisher_from_grads``: one EMA step of the empirical-Fisher diagonal.
+
+The working objective, the Eq. 3 penalty (``lotion_penalty`` /
+``lotion_penalty_and_grad``):
 
     penalty = 1/2 sum_i f_i (hi_i - w_i)(w_i - lo_i)
 
@@ -14,7 +22,7 @@ loss-side placement's parameter updates bit for bit (DESIGN.md §2).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -71,3 +79,41 @@ def lotion_penalty_and_grad(w: torch.Tensor, fisher: torch.Tensor, fmt,
     ct = (0.5 * lam) * fisher
     grad = ct * (hi - w) - ct * (w - lo)
     return value, grad
+
+
+def smoothed_loss_mc(loss_fn: Callable[[torch.Tensor], torch.Tensor],
+                     w: torch.Tensor, fmt, uniforms: torch.Tensor,
+                     block_size: int = -1) -> torch.Tensor:
+    """Monte-Carlo ``E_{q~RR(w)}[L(q)]``: the mean of ``loss_fn`` over
+    ``cast_rr(w, fmt, uniforms[i])`` for each of the ``uniforms.shape[0]``
+    draws (``uniforms`` has shape ``(n_samples, *w.shape)``; the JAX
+    function splits a key into ``n_samples`` instead)."""
+    if tuple(uniforms.shape[1:]) != tuple(w.shape):
+        raise ValueError(f"uniforms {tuple(uniforms.shape)} must be "
+                         f"(n_samples, *{tuple(w.shape)})")
+    losses = [loss_fn(quantize.cast_rr(w, fmt, u, block_size))
+              for u in uniforms]
+    return torch.mean(torch.stack(losses))
+
+
+def quadratic_smoothed(w: torch.Tensor, w_star: torch.Tensor,
+                       H: torch.Tensor, fmt,
+                       block_size: int = -1) -> torch.Tensor:
+    """Eq. 1 for L(w) = 1/2 (w - w*)^T H (w - w*): ``L(w) + 1/2 tr(H
+    Sigma_eps)`` with the diagonal RR covariance ``(hi - w)(w - lo)``."""
+    d = w - w_star
+    base = 0.5 * (d @ (H @ d))
+    var = quantize.rr_variance(w, fmt, block_size)
+    return base + 0.5 * torch.sum(torch.diagonal(H) * var)
+
+
+def fisher_from_grads(grads: Dict[str, torch.Tensor], decay: float,
+                      state: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """One EMA step of the empirical-Fisher diagonal, leaf by leaf over a
+    dict of tensors: ``F <- decay F + (1 - decay) g^2`` (zeros without
+    ``state``)."""
+    if state is None:
+        state = {k: torch.zeros_like(g) for k, g in grads.items()}
+    return {k: decay * state[k] + (1.0 - decay) * g * g
+            for k, g in grads.items()}

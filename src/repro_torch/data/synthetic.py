@@ -8,12 +8,18 @@ they are not JAX's numbers (tests feed JAX's batches through the bridge).
 * ``markov_tokens``: a fixed random permutation P of the vocab generates
   ``tok_{t+1} = P[tok_t]`` with probability ``1 - noise``, a uniform token
   otherwise; the CE floor is ``markov_ce_floor``.
+* ``linreg_batch``: the paper's §4.1 setup, x ~ N(0, diag(spectrum)),
+  y = x @ w*.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
+
+from ..numerics import sqrt_rn
 
 _MASK63 = (1 << 63) - 1
 
@@ -66,3 +72,12 @@ def markov_ce_floor(vocab: int, noise: float) -> float:
     p_other = noise / vocab
     return float(-(p_correct * np.log(p_correct)
                    + (vocab - 1) * p_other * np.log(p_other)))
+
+
+def linreg_batch(seed: int, step: int, batch: int, w_star: torch.Tensor,
+                 spectrum: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x ~ N(0, diag(spectrum)) of shape (batch, d), y = x @ w* (paper
+    §4.1), on ``w_star``'s device (drawn on the CPU)."""
+    z = torch.randn((batch, w_star.shape[0]), generator=_generator(seed, step))
+    x = z.to(w_star.device) * sqrt_rn(spectrum)
+    return x, x @ w_star

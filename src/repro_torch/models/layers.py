@@ -9,7 +9,9 @@ softmax (the JAX code there is jnp, not Pallas); every weight matmul goes
 through ``matmul`` (the ``wqt_matmul`` kernel for QTensor weights on the
 card) and quantized-cache decode through the ``decode_attn`` kernel, or
 ``decode_attn_paged`` over the paged KV pool (``attn_decode_paged``).
-Chunked prefill (``attn_chunk_apply``) is plain torch, as in JAX.
+Chunked prefill (``attn_chunk_apply``) and streaming attention over key
+chunks (``attn_apply(chunk=)``, ``_streaming_sdpa``) are plain torch, as
+in JAX.
 """
 
 from __future__ import annotations
@@ -169,10 +171,12 @@ def _sdpa(q, k, v, bias, softcap):
 
 def attn_apply(params, spec: AttnSpec, x: torch.Tensor,
                positions: torch.Tensor, causal: bool = True,
-               return_kv: bool = False):
-    """Full-sequence self-attention (prefill).  ``return_kv`` also returns
-    the rotated (k, v) so prefill fills the decode cache.  The streaming
-    (``chunk``) variant of the JAX function is not ported in this slice."""
+               chunk: Optional[int] = None, return_kv: bool = False):
+    """Full-sequence self-attention (train / prefill).  ``chunk`` streams
+    the keys in chunks of that many through an online softmax
+    (``_streaming_sdpa``), so no score tensor of the full key length is
+    held; ``return_kv`` also returns the rotated (k, v) so prefill fills
+    the decode cache."""
     if spec.is_cross:
         raise NotImplementedError(
             "cross-attention (xattn) is not ported yet: ROADMAP Queue 1 "
@@ -181,14 +185,94 @@ def attn_apply(params, spec: AttnSpec, x: torch.Tensor,
     q, k, v = _qkv(params, spec, x)
     q = apply_rope(q, positions, spec.rope_theta)
     k = apply_rope(k, positions, spec.rope_theta)
-    ke = _expand_kv(k, spec.n_heads)
-    ve = _expand_kv(v, spec.n_heads)
-    bias = _mask_bias(positions, positions, causal, spec.window)
-    if bias.ndim == 3:          # per-row positions: (b, q, k) -> (b, 1, q, k)
-        bias = bias[:, None]
-    o = _sdpa(q, ke, ve, bias, spec.softcap).reshape(b, l, spec.q_dim)
-    out = matmul(o, params["wo"])
+    if chunk is None or k.shape[1] <= chunk:
+        ke = _expand_kv(k, spec.n_heads)
+        ve = _expand_kv(v, spec.n_heads)
+        bias = _mask_bias(positions, positions, causal, spec.window)
+        if bias.ndim == 3:      # per-row positions: (b, q, k) -> (b, 1, q, k)
+            bias = bias[:, None]
+        o = _sdpa(q, ke, ve, bias, spec.softcap)
+    else:
+        o = _streaming_sdpa(q, k, v, positions, positions, causal,
+                            spec.window, spec.softcap, chunk)
+    out = matmul(o.reshape(b, l, spec.q_dim), params["wo"])
     return (out, (k, v)) if return_kv else out
+
+
+PAD_POS = 10 ** 9     # key position of a padded slot: after every query
+
+
+def _stream_step(m, s, o, logits, vc, dtype):
+    """One key chunk of the online softmax: the running max ``m``,
+    denominator ``s`` and output ``o`` (fp32, (b, g, rep, q[, d])) are
+    rescaled by ``alpha = exp(m - m_new)`` and the chunk's probabilities
+    (``logits`` (b, g, rep, q, chunk), fp32) and values ``vc`` (b, chunk,
+    g, d) added."""
+    m_new = torch.maximum(m, torch.amax(logits, dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(logits - m_new[..., None])
+    s_new = s * alpha + torch.sum(p, dim=-1)
+    o_new = o * alpha[..., None] + torch.einsum(
+        "bgrqk,bkgd->bgrqd", p.to(dtype), vc).to(torch.float32)
+    return m_new, s_new, o_new
+
+
+def _stream_chunk(m, s, o, q4, kc, vc, q_pos, kpc, causal, window, softcap,
+                  scale):
+    """The scores of one key chunk and its online-softmax step."""
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", q4, kc).to(torch.float32)
+    logits = logits * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    bias = _mask_bias(q_pos, kpc, causal, window)
+    # padded slots carry sentinel positions: masked even when non-causal
+    bias = torch.where(kpc[..., None, :] >= PAD_POS, NEG_INF, bias)
+    # (q, k) -> (1, 1, 1, q, k); per-row (b, q, k) -> (b, 1, 1, q, k)
+    bias = bias[:, None, None] if bias.ndim == 3 else bias[None, None, None]
+    return _stream_step(m, s, o, logits + bias, vc, q4.dtype)
+
+
+def _streaming_sdpa(q, k, v, q_pos, k_pos, causal, window, softcap,
+                    chunk: int):
+    """Online softmax over key chunks of ``chunk`` (the flash-attention
+    dataflow in torch ops), after the JAX function of the same name.
+
+    GQA-native: k and v keep their ``g`` heads.  The key length is padded
+    to a whole number of chunks, the padded slots at the sentinel future
+    position ``PAD_POS``.  The running max, denominator and output are
+    fp32; the output is cast to q's dtype at the end.  With gradients on,
+    each chunk is recomputed in backward (``torch.utils.checkpoint``), so
+    backward too holds one (b, g, rep, q, chunk) score tile at a time."""
+    b, ql, h, d = q.shape
+    g = k.shape[2]
+    rep = h // g
+    kl = k.shape[1]
+    n_chunks = -(-kl // chunk)
+    pad = n_chunks * chunk - kl
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=PAD_POS)
+    q4 = q.reshape(b, ql, g, rep, d)
+    scale = 1.0 / np.sqrt(d)
+    m = torch.full((b, g, rep, ql), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    s = torch.zeros((b, g, rep, ql), dtype=torch.float32, device=q.device)
+    o = torch.zeros((b, g, rep, ql, d), dtype=torch.float32, device=q.device)
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
+    for i in range(n_chunks):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        args = (m, s, o, q4, k[:, sl], v[:, sl], q_pos, k_pos[..., sl],
+                causal, window, softcap, scale)
+        if remat:
+            m, s, o = torch.utils.checkpoint.checkpoint(
+                _stream_chunk, *args, use_reentrant=False)
+        else:
+            m, s, o = _stream_chunk(*args)
+    o = o / torch.clamp_min(s, 1e-30)[..., None]
+    # (b, g, rep, q, d) -> (b, q, h, d)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, ql, h, d).to(q.dtype)
 
 
 # ---- quantized KV cache: per-vector absmax codes, int8 or int4 (two

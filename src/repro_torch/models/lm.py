@@ -10,7 +10,9 @@ views of the stacked leaves (``layer_params``).
 
 Entry points: ``lm_init`` (random weights from a seed, on a device),
 ``lm_forward`` / ``lm_loss`` (the training forward, with activation
-recomputation per layer when ``cfg.remat``), ``lm_prefill`` (forward that
+recomputation per layer when ``cfg.remat``; ``attn_chunk`` streams the
+attention over key chunks, ``logit_chunk`` runs the head and CE chunk by
+chunk), ``lm_prefill`` (forward that
 fills the decode cache), ``lm_prefill_chunk`` (one chunk of a prompt
 against a partial cache) and ``lm_decode`` (one token against a ring
 cache, or against the paged pool through block tables); ``cache_insert``
@@ -269,11 +271,14 @@ def _apply_ffn(p, cfg: LMConfig, x: torch.Tensor, o: torch.Tensor,
 # ==========================================================================
 
 def _apply_block(p, cfg: LMConfig, kind: str, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor,
+                 attn_chunk: Optional[int] = None) -> torch.Tensor:
     """One attention block and its MLP, full sequence, with the normed
-    inputs of both fake-quantized under ``cfg.act_fmt``."""
+    inputs of both fake-quantized under ``cfg.act_fmt``; ``attn_chunk``
+    streams the attention over key chunks."""
     h = _act_q(cfg, rms_norm(x, p["pre_norm_scale"]))
-    o = attn_apply(p["attn"], cfg.attn_spec(kind), h, positions)
+    o = attn_apply(p["attn"], cfg.attn_spec(kind), h, positions,
+                   chunk=attn_chunk)
     return _apply_ffn(p, cfg, x, o, quantize_acts=True)
 
 
@@ -284,16 +289,13 @@ def _trunk(params, cfg: LMConfig, tokens: torch.Tensor,
     (``torch.utils.checkpoint``), which keeps one layer's activations
     alive instead of all of them."""
     check_ported(cfg)
-    if attn_chunk:
-        raise NotImplementedError(
-            "streaming attention (attn_chunk) is not ported yet: ROADMAP "
-            "Queue 1 item 5 (_streaming_sdpa)")
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
 
     def unit_body(x, unit_p):
         for i, kind in enumerate(cfg.pattern):
-            x = _apply_block(unit_p[f"b{i}_{kind}"], cfg, kind, x, positions)
+            x = _apply_block(unit_p[f"b{i}_{kind}"], cfg, kind, x, positions,
+                             attn_chunk)
         return x
 
     for unit_p in unbind_stage(params["stage"]):
@@ -311,24 +313,51 @@ def lm_forward(params, cfg: LMConfig, tokens: torch.Tensor,
     return _head(params, cfg, _trunk(params, cfg, tokens, attn_chunk))
 
 
+def _head_ce(params, cfg: LMConfig, x: torch.Tensor, labels: torch.Tensor):
+    """The head and CE terms of hidden states x: (mean CE, (b,) per
+    example mean CE)."""
+    from ..train.loop import _ce_terms
+    terms = _ce_terms(_head(params, cfg, x), labels)
+    return torch.mean(terms), torch.mean(terms, dim=tuple(
+        range(1, terms.ndim)))
+
+
 def lm_loss(params, cfg: LMConfig, tokens: torch.Tensor,
             labels: torch.Tensor, attn_chunk: Optional[int] = None,
             logit_chunk: Optional[int] = None, per_example: bool = False):
-    """Mean next-token CE.  ``per_example=True`` also returns the (b,)
-    per-example mean CE (the raw material of the skip gate) as
-    ``(ce, ce_ex)``, computed from the same elementwise terms as ``ce``.
-    The chunked head (``logit_chunk``) is not in this slice."""
-    from ..train.loop import _ce_terms
-
-    if logit_chunk is not None and logit_chunk < tokens.shape[1]:
-        raise NotImplementedError(
-            "the chunked head (logit_chunk) is not ported yet: ROADMAP "
-            "Queue 1 item 5 (lm_loss logit_chunk)")
-    terms = _ce_terms(lm_forward(params, cfg, tokens, attn_chunk), labels)
-    if not per_example:
-        return torch.mean(terms)
-    return torch.mean(terms), torch.mean(terms, dim=tuple(
-        range(1, terms.ndim)))
+    """Mean next-token CE.  With ``logit_chunk`` < l the head and CE run
+    chunk by chunk over the sequence, each chunk recomputed in backward
+    (``torch.utils.checkpoint``, JAX's rematerialized scan), so one (b,
+    logit_chunk, vocab) slice of logits lives at a time; the loss is the
+    mean of the chunks' means (l must be a multiple of ``logit_chunk``).
+    ``per_example=True`` also returns the (b,) per-example mean CE (the
+    raw material of the skip gate) as ``(ce, ce_ex)``, from the same
+    elementwise terms as ``ce``."""
+    x = _trunk(params, cfg, tokens, attn_chunk)
+    l = tokens.shape[1]
+    if logit_chunk is None or logit_chunk >= l:
+        ce, ce_ex = _head_ce(params, cfg, x, labels)
+    else:
+        if l % logit_chunk:
+            raise ValueError(f"logit_chunk {logit_chunk} must divide the "
+                             f"sequence length {l}")
+        n_chunks = l // logit_chunk
+        ce = torch.zeros((), dtype=torch.float32, device=x.device)
+        ce_ex = torch.zeros((tokens.shape[0],), dtype=torch.float32,
+                            device=x.device)
+        for i in range(n_chunks):
+            sl = slice(i * logit_chunk, (i + 1) * logit_chunk)
+            if torch.is_grad_enabled():
+                c, c_ex = torch.utils.checkpoint.checkpoint(
+                    _head_ce, params, cfg, x[:, sl], labels[:, sl],
+                    use_reentrant=False)
+            else:
+                c, c_ex = _head_ce(params, cfg, x[:, sl], labels[:, sl])
+            ce, ce_ex = ce + c, ce_ex + c_ex
+        n = torch.full((), float(n_chunks), dtype=torch.float32,
+                       device=x.device)
+        ce, ce_ex = ce / n, ce_ex / n
+    return (ce, ce_ex) if per_example else ce
 
 
 # ==========================================================================
@@ -457,10 +486,11 @@ def _stack_caches(per_layer):
 # ==========================================================================
 
 def lm_prefill(params, cfg: LMConfig, tokens: torch.Tensor,
+               attn_chunk: Optional[int] = None,
                cache_len: Optional[int] = None, kv_quant=False,
                prompt_lens: Optional[torch.Tensor] = None):
     """Forward + cache fill in one pass.  Returns (last logits (b, 1, V)
-    fp32, cache).
+    fp32, cache).  ``attn_chunk`` streams the attention over key chunks.
 
     ``prompt_lens`` (b,): real prompt length per row of a left-padded
     ragged batch; rows get per-row positions ``col - pad``, pad keys are
@@ -487,7 +517,8 @@ def lm_prefill(params, cfg: LMConfig, tokens: torch.Tensor,
             p = unit_p[name]
             h = rms_norm(x, p["pre_norm_scale"])
             o, (k, v) = attn_apply(p["attn"], cfg.attn_spec(kind), h,
-                                   positions, return_kv=True)
+                                   positions, chunk=attn_chunk,
+                                   return_kv=True)
             per_layer[name].append(_kv_to_cache(k, v, kind, cfg, cache_len,
                                                 kv_quant, pads=pads))
             x = _apply_ffn(p, cfg, x, o)

@@ -15,8 +15,9 @@ loss at ``forward_params`` (the QAT/RAT straight-through casts) and runs
 the chain; it never syncs with the host (the skip flag, the losses and
 the norms come back as device tensors in the metrics), except that RAT
 reads the step counter to seed its draw.  ``run_loop`` adds the loop's
-own checkpoints, crash-exact auto-resume and spike rollback.  The
-chunked head and streaming attention are not in the port yet.
+own checkpoints, crash-exact auto-resume and spike rollback.
+``TrainConfig.attn_chunk`` streams the attention over key chunks and
+``logit_chunk`` runs the head and CE chunk by chunk (``models/lm.py``).
 """
 
 from __future__ import annotations
@@ -53,8 +54,8 @@ class TrainConfig:
     ef_compress: bool = False    # error-feedback int8 gradient compression
     ef_block: int = 256
     seed: int = 0            # RAT's per-step draws come from (seed, step)
-    attn_chunk: int = 0      # 0 = full-score attention (streaming: not ported)
-    logit_chunk: int = 0     # 0 = full logits (chunked head: not ported)
+    attn_chunk: int = 0      # 0 = full-score attention, else streaming
+    logit_chunk: int = 0     # 0 = full logits, else the chunked head
     # None = follow quant.penalty_placement; "loss"/"decoupled" overrides
     penalty_placement: Optional[str] = None
 
