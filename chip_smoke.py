@@ -8,10 +8,12 @@ shapes its path gives it (and times kernel, plain version, a one-call
 PyTorch yardstick where there is one and the least time the card could
 take; ``wqt_matmul``, ``wq_matmul``, ``decode_attn`` and
 ``decode_attn_paged`` rows also name the instance that ran and its
-splits, and check that two launches agree bit for bit; ``quant`` and
-``opt_step`` are also held on adversarial leaves for their in-kernel
-per-matrix absmax; the two W4A8 entries, ``wqt_matmul_a8`` from int8
-codes and ``wqt_matmul_a8_x`` with the row quantizer inside, bitwise,
+splits, and check that two launches agree bit for bit; ``quant``,
+``opt_step`` and ``lotion_reg`` are also held on adversarial leaves for
+their in-kernel per-matrix absmax, and ``lotion_reg`` is counted by
+``torch.profiler`` as one device kernel per call; the two W4A8 entries,
+``wqt_matmul_a8`` from int8 codes and ``wqt_matmul_a8_x`` with the row
+quantizer inside, bitwise,
 also on adversarial rows: zero, NaN, inf, ties, the absmax in the last K
 split), drives the K-major
 ``wq_matmul`` (which no serving path reaches) through one layer's
@@ -1000,12 +1002,12 @@ def check_quant_adversarial(dev, casts=(False, True)):
     return _adversarial_summary("quant", rows, failed)
 
 
-def _adversarial_summary(kernel, rows, failed):
-    """One summary line of a kernel's adversarial rows; returned with the
-    rows under "rows", or raised with them."""
+def _adversarial_summary(kernel, rows, failed, **extra):
+    """One summary line of a kernel's adversarial rows (and ``extra``
+    fields); returned with the rows under "rows", or raised with them."""
     row = dict(phase="check_adversarial", kernel=kernel, n_rows=len(rows),
                failed=failed, bitwise=not failed,
-               max_abs_err=max(r["max_abs_err"] for r in rows))
+               max_abs_err=max(r["max_abs_err"] for r in rows), **extra)
     emit(row)
     row["rows"] = rows
     if failed:
@@ -1037,29 +1039,46 @@ def check_quant(timer, dev):
     return rows
 
 
-def check_reg_one(timer, gen, dev, shape, fmt, bs, lam=1e3):
-    """``lam`` as the loss-placement phase folds it into the gradient."""
+def check_reg_one(timer, gen, dev, shape, fmt, bs, lam=1e3,
+                  adversarial=None):
+    """``lam`` as the loss-placement phase folds it into the gradient.
+    With ``adversarial`` (per-matrix scales) w gets that planted case (at
+    the plan's chunk or cluster-block boundary) and the row is checked,
+    not timed.  ``bound_ms`` is the 12-byte roofline (w and f read once,
+    the gradient written once), ``floor_ms`` the 16-byte floor of a
+    per-matrix kernel that reads w twice (blockwise: the roofline)."""
     from repro_torch.kernels.lotion_reg import (lotion_penalty_fused_vg,
                                                  reg_ref)
+    from repro_torch.kernels.lotion_reg import ops as reg_ops
     w = torch.randn(shape, generator=gen, device=dev) * 0.02
     f = torch.rand(shape, generator=gen, device=dev) * 1e-6
+    plan = reg_ops.launch_plan(w, fmt, bs)
+    if adversarial:
+        _plant(w, adversarial, plan)
     pen, grad = lotion_penalty_fused_vg(w, f, fmt, bs, lam)
     pen_ref, grad_ref = reg_ref(w, f, fmt, bs, lam)
     torch.cuda.synchronize()
     err, same, _ = _bitwise([("grad", grad, grad_ref)])
-    pen_rel = float((pen - pen_ref).abs() / pen_ref.abs().clamp_min(1e-30))
+    pen_rel = _pen_rel(pen, pen_ref)
     n = w.numel()
     row = dict(phase="check", kernel="lotion_reg", shape=_fmt_shape(shape),
-               fmt=fmt, block_size=bs, lam=lam, bitwise=same, max_abs_err=err,
-               penalty=float(pen), penalty_rel_err=pen_rel)
-    if not (same and pen_rel <= PENALTY_RTOL):
+               fmt=fmt, block_size=bs, lam=lam, regime=plan.regime,
+               blocks=plan.blocks, adversarial=adversarial, bitwise=same,
+               max_abs_err=err, penalty=float(pen), penalty_rel_err=pen_rel)
+    ok = same and pen_rel <= PENALTY_RTOL
+    if not ok or adversarial:
         emit(row)
-        raise AssertionError(f"lotion_reg disagrees: {row}")
+    if not ok:
+        raise AssertionError("lotion_reg disagrees", row)
+    if adversarial:
+        return row
     del pen, grad, pen_ref, grad_ref
     b_ms, b_by = _elem_bound("lotion_reg", n, n * 4 * 3)
     row.update(ms=timer(lambda: lotion_penalty_fused_vg(w, f, fmt, bs, lam)),
                plain_ms=timer(lambda: reg_ref(w, f, fmt, bs, lam), iters=3),
-               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               floor_ms=n * 4 * (4 if bs == -1 else 3) / HBM_BYTES_PER_S
+               * 1e3)
     emit(row)
     return row
 
@@ -1072,6 +1091,76 @@ def check_lotion_reg(timer, dev):
              for shape in OTHER_FMT_SHAPES for fmt in ("int8", "fp4")
              for bs in (-1, 128)]
     return rows
+
+
+# lotion_reg's adversarial leaves: the quant/opt_step ones, the testbeds'
+# (one-cluster and grid regimes) and a stacked leaf of the cluster regime
+# (its blocks walk 3 matrices in turn)
+REG_ADVERSARIAL_SHAPES = ADVERSARIAL_SHAPES + [
+    (12000,), (16, 12000), (64, 12000), (256, 12000), (1, 16), (1, 64),
+    (1, 256), (3, 40, 500)]
+
+
+def check_reg_adversarial(dev, fmts=("int4", "fp4")):
+    """The adversarial per-matrix rows of ``lotion_reg`` (gradient bitwise,
+    penalty within 1e-6 or NaN on both); raises AssertionError(message,
+    summary) after all of them if any disagrees."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows, failed = [], []
+    for shape in REG_ADVERSARIAL_SHAPES:
+        for fmt in fmts:
+            for kind in ADVERSARIAL:
+                try:
+                    rows.append(check_reg_one(None, gen, dev, shape, fmt, -1,
+                                              adversarial=kind))
+                except AssertionError as e:
+                    rows.append(e.args[1])
+                    failed.append(f"{fmt} {_fmt_shape(shape)} {kind}")
+    torch.cuda.empty_cache()
+    return _adversarial_summary(
+        "lotion_reg", rows, failed,
+        max_penalty_rel_err=max(r["penalty_rel_err"] for r in rows))
+
+
+# device kernels per lotion_reg call, counted by torch.profiler at one
+# Granite leaf (grid regime) and one testbed leaf (cluster regime)
+REG_COUNT_SHAPES = [(40, 2048, 8192), (12000,)]
+
+
+def reg_kernels_per_call(dev, calls=4):
+    """Every device activity (kernels, memsets, copies) that ``calls``
+    calls of ``lotion_penalty_fused_vg`` record under ``torch.profiler``,
+    per call: exactly one kernel, no memset."""
+    from torch.profiler import ProfilerActivity, profile
+    from scripts.profile_serve_torch import _device_by_name
+    from repro_torch.kernels.lotion_reg import lotion_penalty_fused_vg
+    from repro_torch.kernels.lotion_reg import ops as reg_ops
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for shape in REG_COUNT_SHAPES:
+        w = torch.randn(shape, generator=gen, device=dev) * 0.02
+        f = torch.rand(shape, generator=gen, device=dev)
+        lotion_penalty_fused_vg(w, f, "int4", -1, 1e3)   # warm, plan cached
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                lotion_penalty_fused_vg(w, f, "int4", -1, 1e3)
+            torch.cuda.synchronize()
+        by_name = {k: c for k, (_, c) in _device_by_name(prof).items()}
+        rows.append(dict(
+            shape=_fmt_shape(shape),
+            regime=reg_ops.launch_plan(w, "int4", -1).regime,
+            device_activities=by_name,
+            per_call=sum(by_name.values()) / calls))
+        del w, f
+    row = dict(phase="lotion_reg_kernels_per_call", calls=calls, rows=rows,
+               one_kernel=all(r["per_call"] == 1.0 for r in rows))
+    emit(row)
+    if not row["one_kernel"]:
+        raise AssertionError("lotion_reg is not one device kernel per call",
+                             row)
+    return row
 
 
 OPT_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
@@ -3036,6 +3125,8 @@ def main() -> int:
               "layer": lambda: layer_rows(timer, dev),
               "quant": lambda: check_quant(timer, dev),
               "lotion_reg": lambda: check_lotion_reg(timer, dev),
+              "lotion_reg_adversarial": lambda: check_reg_adversarial(dev),
+              "lotion_reg_kernels": lambda: reg_kernels_per_call(dev),
               "opt_step": lambda: check_opt_step(timer, dev),
               "synth_kernels": lambda: check_synth_kernels(timer, dev),
               "serve": lambda: serve_full_width(dev),
@@ -3249,6 +3340,20 @@ def kernels_line(out):
         synth_twolayer_launches=out["synth_twolayer"]["launches"][
             "lotion_reg"],
         synth=_synth_summary(out["synth_kernels"], "lotion_reg"),
+        design="one launch per call, nothing zeroed: per-matrix scales on "
+        "a persistent cooperative grid (absmax run slots, fold, gradient, "
+        "partials summed by block 0 between grid barriers) or, for leaves "
+        "of at most ops.CLUSTER_NUMEL elements, one thread block cluster "
+        "(maxima and partials through distributed shared memory); "
+        "blockwise a warp per quant block with the sum in the same launch",
+        regimes={r["shape"]: r["regime"] for r in reg + out["synth_kernels"]
+                 if r["kernel"] == "lotion_reg" and r["block_size"] == -1},
+        device_kernels_per_call={
+            r["shape"]: r["per_call"]
+            for r in out["lotion_reg_kernels"]["rows"]},
+        adversarial_rows=out["lotion_reg_adversarial"]["n_rows"],
+        adversarial_bitwise=out["lotion_reg_adversarial"]["bitwise"],
+        floor_ms=_leaf_sum(reg, "floor_ms", reg4, True),
         **stats(reg, reg4, eligible_only=True)))
     step_dev = next(r["opt_step_device_ms"] for r in train["steps"]
                     if r.get("profiled"))
@@ -3281,7 +3386,8 @@ def _synth_summary(rows, kernel):
             continue
         key = r["shape"] + (f" {r['cast']}" if kernel == "quant" else "")
         out[key] = dict(ms=r["ms"], plain_ms=r["plain_ms"],
-                        bound_ms=r["bound_ms"], bitwise=r["bitwise"])
+                        bound_ms=r["bound_ms"], bitwise=r["bitwise"],
+                        **({"regime": r["regime"]} if "regime" in r else {}))
     return out
 
 

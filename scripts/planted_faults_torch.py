@@ -31,6 +31,17 @@ last element or on a chunk boundary, an all-zero matrix, a NaN):
 * ``absmax_short`` — the launch plan's absmax phase walks one chunk fewer
   per matrix than the cast or step phase.
 
+The one-launch ``lotion_reg`` (phase ``reg_adversarial``:
+``chip_smoke.py``'s adversarial ``lotion_reg`` rows on Granite and testbed
+leaves in both per-matrix regimes, the largest |w| at a matrix's first or
+last element or on a chunk or cluster-block boundary, an all-zero matrix,
+a NaN):
+
+* ``reg_absmax_short``      — the plan's absmax walk takes one chunk (grid
+  regime) or one cluster block fewer per matrix than the gradient walk;
+* ``reg_sum_drops_partial`` — the penalty's sum leaves out the last
+  block's partial.
+
 The paper's baselines (phases ``check_ste``: the straight-through
 estimators on a stacked leaf, and ``train_baselines_card_vs_cpu``: QAT
 and RAT on 2 full-width layers, card against CPU from the same uniforms,
@@ -220,6 +231,13 @@ def _scan_short(orig):
     return plan
 
 
+def _drop_partial(orig):
+    def plan(*args, **kw):
+        p = orig(*args, **kw)
+        return p._replace(sum_blocks=p.sum_blocks - 1)
+    return plan
+
+
 def _drop_first_split(orig):
     def plan(*args, **kw):
         p = orig(*args, **kw)
@@ -267,6 +285,7 @@ def main(argv=None) -> int:
     import repro_torch.train.loop as loop
     from repro_torch.kernels.quant import ops as quant_ops
     from repro_torch.kernels.decode_attn import ops as attn_ops
+    from repro_torch.kernels.lotion_reg import ops as reg_ops
     from repro_torch.kernels.wq_matmul import ops as wq_ops
     import repro_torch.models.layers as layers
     import repro_torch.optim.fused as fused
@@ -307,6 +326,12 @@ def main(argv=None) -> int:
             sound,
             ("absmax_short", lambda: _patched(quant_ops, "plan",
                                               _scan_short))]),
+        ([("reg_adversarial", cs.check_reg_adversarial)], [
+            sound,
+            ("reg_absmax_short", lambda: _patched(reg_ops, "plan",
+                                                  _scan_short)),
+            ("reg_sum_drops_partial", lambda: _patched(reg_ops, "plan",
+                                                       _drop_partial))]),
         ([("a8_adversarial", cs.check_a8_adversarial)], [
             sound,
             ("acts_absmax_short", lambda: _patched(wq_ops, "a8_plan",
@@ -338,7 +363,8 @@ def main(argv=None) -> int:
             "rat_micro_rtol",
             "max_abs_logit_err", "tol", "partings", "tokens_identical",
             "token_agreement", "attn_launches_equal", "failed",
-            "max_abs_err", "checks", "differing_leaves", "error", "gate",
+            "max_abs_err", "max_penalty_rel_err", "checks",
+            "differing_leaves", "error", "gate",
             "loss_max_rel_diff", "grad_norm_max_rel_diff",
             "first_moment_max_rel_l2", "update_max_rel_l2",
             "grad_norm_rtol", "first_moment_rtol", "update_rtol")

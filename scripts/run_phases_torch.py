@@ -1,0 +1,63 @@
+"""Run some phases of a tree's ``chip_smoke.py`` on the card, to compare
+two trees (a parent archive and the working tree) in one call.
+
+    python3 scripts/run_phases_torch.py [--root DIR] PHASE [PHASE ...]
+
+Each PHASE names a module-level function of ``DIR/chip_smoke.py`` (DIR
+defaults to this repository): a ``check_*`` function that takes ``(timer,
+dev)`` gets ``chip_smoke.Timer``, any other ``(dev)``.  The tree's own
+``src/`` is imported and its kernels built first.  Each phase prints its
+own JSON lines; this script adds one ``{"phase": "timing", ...}`` line per
+phase with the tree's root, and exits 1 if a phase raises.  Needs CUDA.
+"""
+
+import argparse
+import importlib
+import inspect
+import json
+import os
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=here)
+    ap.add_argument("phases", nargs="+")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path[:0] = [os.path.join(root, "src"), root]
+    import torch
+    if not torch.cuda.is_available():
+        print("run_phases_torch: needs a CUDA device", file=sys.stderr)
+        return 1
+    cs = importlib.import_module("chip_smoke")
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.lib()
+    print(json.dumps(dict(phase="build", root=root,
+                          seconds=time.perf_counter() - t0)), flush=True)
+    dev = torch.device("cuda")
+    timer = cs.Timer(dev)
+    failed = False
+    for name in args.phases:
+        fn = getattr(cs, name)
+        t0 = time.perf_counter()
+        try:
+            if "timer" in inspect.signature(fn).parameters:
+                fn(timer, dev)
+            else:
+                fn(dev)
+        except AssertionError as e:
+            failed = True
+            print(json.dumps(dict(phase="failed", of=name, root=root,
+                                  error=str(e.args[0]))), flush=True)
+        print(json.dumps(dict(phase="timing", of=name, root=root,
+                              seconds=time.perf_counter() - t0)), flush=True)
+        torch.cuda.empty_cache()
+    return int(failed)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

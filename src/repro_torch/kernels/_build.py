@@ -41,8 +41,9 @@ SIGNATURES = {
     "quant_launch": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _F, _I,
                      _I, _P],
     "quant_blocks_per_sm": [_I, _I, _I, _I],
-    "lotion_reg_launch": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _F, _F,
-                          _I, _I, _P],
+    "lotion_reg_launch": [_P] * 5 + [_L] * 5 + [_I] * 3 + [_F] * 2
+                         + [_I] * 2 + [_P],
+    "lotion_reg_blocks_per_sm": [_I, _I],
     "opt_step_launch": [_P] * 9 + [_L] * 5 + [_I] * 6 + [_F] * 11
                        + [_I, _P],
     "opt_step_blocks_per_sm": [_I] * 5,
@@ -149,23 +150,6 @@ def co_resident(device: torch.device, entry: str, *args: int) -> int:
         torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     return _blocks_per_sm(index, entry, tuple(args)) * sms
-
-
-# Grid of the one-pass lotion_reg kernel:
-# 4 elements per thread per pass, up to 8 blocks of 256 threads on each of
-# the H100's 132 SMs, then a grid-stride loop.  For per-matrix scales the
-# grid is 2-D, y over the matrices (at most 65535) and x over each
-# matrix's elements.  A function of the shape alone, so the penalty
-# partials are summed in the same order on every run.
-MAX_GRID = 132 * 8
-
-
-def grid_for(n: int, n_mats: int = 1) -> Tuple[int, int]:
-    """(grid_x, grid_y) for n elements in n_mats matrices of n // n_mats."""
-    gy = max(1, min(n_mats, 65535))
-    per_mat = n // max(n_mats, 1)
-    gx = max(1, min((per_mat + 1023) // 1024, MAX_GRID // gy))
-    return gx, gy
 
 
 def check_cuda_inputs(name: str, *tensors: torch.Tensor,

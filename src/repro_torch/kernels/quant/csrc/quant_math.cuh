@@ -1,9 +1,9 @@
 // Elementwise quantization math shared by the quant, lotion_reg and
 // opt_step kernels: the block scale, the representable brackets (lo, hi)
-// for INT-n grids and the FP4 e2m1 codebook, a deterministic block sum, and
-// the pieces of the persistent per-matrix kernels (the chunk walk of
-// kernels/quant/ops.py::plan, the in-kernel absmax phase and the 16-byte
-// streaming helpers).
+// for INT-n grids and the FP4 e2m1 codebook, deterministic block sums and
+// maxima, and the pieces of the persistent per-matrix kernels (the chunk
+// walk of kernels/quant/ops.py::plan, the in-kernel absmax phase and the
+// 16-byte streaming helpers).
 //
 // Every operation rounds once, as the plain PyTorch versions (and the JAX
 // reference) do: products, sums and quotients use the _rn intrinsics, which
@@ -93,19 +93,6 @@ __device__ __forceinline__ double block_sum(double v) {
   }
   return v;
 }
-
-// One block adds the per-block partial sums in a fixed order and writes
-// out[0] = 0.5 * sum (the penalty's 1/2), rounded to fp32 once.  Static:
-// every source that includes this header gets its own copy.
-static __global__ void __launch_bounds__(kThreads)
-half_sum_kernel(const double* __restrict__ partials, int n,
-                float* __restrict__ out) {
-  double v = 0.0;
-  for (int i = threadIdx.x; i < n; i += kThreads) v += partials[i];
-  v = block_sum(v);
-  if (threadIdx.x == 0) out[0] = 0.5f * static_cast<float>(v);
-}
-
 
 // --------------------------------------------------------------------------
 // Persistent per-matrix kernels: the chunk walk, the absmax phase and the
@@ -262,9 +249,9 @@ __device__ __forceinline__ unsigned range_absmax(const T* __restrict__ w,
   return m;
 }
 
-// Folds the block's largest bits into *dst (one atomicMax).  Every thread
-// of the block calls it.
-__device__ __forceinline__ void block_absmax_to(unsigned m, unsigned* dst) {
+// Largest of one unsigned per thread over the block, valid on thread 0.
+// Every thread of the block calls it.
+__device__ __forceinline__ unsigned block_max(unsigned m) {
   __shared__ unsigned part[kThreads / 32];
   m = __reduce_max_sync(0xffffffffu, m);
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = m;
@@ -272,9 +259,23 @@ __device__ __forceinline__ void block_absmax_to(unsigned m, unsigned* dst) {
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int k = 1; k < kThreads / 32; ++k) m = max(m, part[k]);
-    if (m) atomicMax(dst, m);
   }
   __syncthreads();   // part is written again by the next call
+  return m;
+}
+
+// Folds the block's largest bits into *dst (one atomicMax).  Every thread
+// of the block calls it.
+__device__ __forceinline__ void block_absmax_to(unsigned m, unsigned* dst) {
+  m = block_max(m);
+  if (threadIdx.x == 0 && m) atomicMax(dst, m);
+}
+
+// Writes the block's largest bits to *dst (a plain store, zero included).
+// Every thread of the block calls it.
+__device__ __forceinline__ void block_max_to(unsigned m, unsigned* dst) {
+  m = block_max(m);
+  if (threadIdx.x == 0) *dst = m;
 }
 
 // Phase 1: each matrix's largest |w| bits into amax[m] (zeroed by the
