@@ -50,8 +50,8 @@ checked:
   leaf, bitwise against the plain version); crash-exact auto-resume on
   2 layers (bitwise) and a tampered payload refused by its crc32; the
   skip gate (a NaN step leaves the state bitwise unchanged) and the
-  training chaos harness on 2 layers with one and two simulated hosts;
-  the 40-layer state saved in the JAX checkpoint layout and loaded back
+  training chaos harness on 1 layer with one and two simulated hosts;
+  the 8-layer state saved in the JAX checkpoint layout and loaded back
   in place (the next step bitwise), with save and load rates;
 * the paper's synthetic testbeds at its d = 12000: ``quant`` and
   ``lotion_reg`` checked bitwise and timed at the testbeds' shapes
@@ -63,7 +63,19 @@ checked:
 * long-context training: 2 full-width layers at batch 1 x 8192 with
   streaming attention and the chunked head (chunks of 1024) against the
   unchunked step from the same weights and batches, from two weight
-  seeds, with both peaks of device memory.
+  seeds, with both peaks of device memory;
+* the rest of the model zoo, from random weights: the serving kernels at
+  the new configs' shapes (``wqt_matmul`` and ``wqt_matmul_a8_x`` at 15
+  new (N, K), ``decode_attn`` and ``decode_attn_paged`` at head_dim 128
+  and 256, ``quant`` on a 2.2e9-element Moonlight expert leaf) and the
+  3-D QTensor matmul at the experts' shapes; Moonlight-16B-A3B (GShard
+  MoE, 12 of its 48 layers) served static and through the scheduler
+  (W4A8, paged int8 KV), dead decode rows that take no expert capacity,
+  and DBRX-132B at 2 layers; Moonlight at 2 layers on the card against
+  the CPU, routing included; CodeQwen1.5-7B and Gemma3-12B at full
+  depth (Gemma3's local rings wrapped), each with a card-against-CPU
+  cut; MusicGen-medium's 4-codebook decode at full depth against its
+  full forward, and a 2-layer cut against the CPU.
 
 Each phase prints one JSON line; a failed check raises and the script
 exits non-zero.  The last three lines are the ``kernels`` summary, the
@@ -150,6 +162,12 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def peak_for(dtype: torch.dtype) -> float:
+    """The card's peak rate for operations on ``dtype`` inputs: fp32 runs
+    outside the tensor cores (the kernels' ``fma`` instances)."""
+    return FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+
+
 # --------------------------------------------------------------------------
 # phase 3a: wqt_matmul against its plain version
 # --------------------------------------------------------------------------
@@ -195,7 +213,7 @@ def check_wqt_one(timer, gen, dev, qt, w_lib, *, m, n, k, bits, block_k,
         raise AssertionError(f"wqt_matmul disagrees: {row}")
     nbytes = x.numel() * x.element_size() + qt.nbytes \
         + m * n * x.element_size()
-    b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
+    b_ms, b_by = bound(nbytes, 2.0 * m * n * k, peak_for(dtype))
     w_x = w_lib.to(dtype)
     row.update(
         ms=timer(lambda: wqt_matmul(x, qt.codes, qt.scales, block_k, bits)),
@@ -289,7 +307,7 @@ def check_attn_one(timer, gen, dev, *, b, L, g, rep, hd, bits, window,
     nbytes = (2 * q.numel() * q.element_size() + 2 * n_valid * g * (hd_c + 4)
               + b * 4)
     flops = 4.0 * n_valid * g * rep * hd
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, peak_for(dtype))
     library_ms = None
     if softcap is None:
         # yardstick: SDPA on the dequantized bf16 cache, GQA expanded
@@ -395,7 +413,8 @@ def check_paged_one(timer, gen, dev, *, b, bs, bps, g, rep, hd, bits, window,
     hd_c = hd // 2 if bits == 4 else hd
     nbytes = (2 * q.numel() * q.element_size() + 2 * n_valid * g * (hd_c + 4)
               + b * 4 + bt.numel() * 4)
-    b_ms, b_by = bound(nbytes, 4.0 * n_valid * g * rep * hd)
+    b_ms, b_by = bound(nbytes, 4.0 * n_valid * g * rep * hd,
+                       peak_for(dtype))
     library_ms = None
     if softcap is None:
         # yardstick: SDPA on the gathered, dequantized bf16 view
@@ -1381,64 +1400,22 @@ def serve_full_width(dev):
 # phase 5: the card against the CPU, 2 layers at full width
 # --------------------------------------------------------------------------
 
+# bf16 activations on both sides, rounded at different places (the kernels
+# accumulate in fp32 and round once; the CPU rounds bf16 matmul outputs its
+# own way): 5% of the largest logit
+SERVE_BF16_RTOL = 0.05
+
+
 def card_vs_cpu(dev):
-    from repro_torch.configs import get_config
-    from repro_torch.core.policy import tree_map_with_path
-    from repro_torch.models.lm import lm_decode, lm_init, lm_prefill
-    from repro_torch.serve import Engine, ServeConfig
-
-    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=2)
-    scfg = ServeConfig(weights="rtn:int4", kv_quant="int8", max_new_tokens=8)
-    params = lm_init(cfg, seed=1, device=dev)
-    cpu_params = tree_map_with_path(lambda p, x: x.cpu(), params)
-    eng_gpu = Engine(cfg, params, scfg, device=dev)
-    eng_cpu = Engine(cfg, cpu_params, scfg, device="cpu")
-    rng = np.random.default_rng(1)
-    prompts = _prompts(rng, 4, 16, 32, cfg.vocab)
-    max_len = max(map(len, prompts))
-    toks = np.zeros((len(prompts), max_len), np.int64)
-    for i, p in enumerate(prompts):
-        toks[i, max_len - len(p):] = p
-    lens = [len(p) for p in prompts]
-
-    def step_logits(eng, device, next_tok=None):
-        """Prefill logits, then the first decode step's (through
-        decode_attn on the card, its plain version on the CPU), fed
-        ``next_tok`` or the greedy first tokens."""
-        logits, cache = lm_prefill(
-            eng.params, cfg, torch.as_tensor(toks, device=device),
-            cache_len=64, kv_quant="int8",
-            prompt_lens=torch.tensor(lens, device=device))
-        tok = next_tok if next_tok is not None else logits[:, 0].argmax(-1)
-        dec, _ = lm_decode(eng.params, cfg, cache,
-                           tok.to(device)[:, None].long(),
-                           torch.tensor(lens, device=device))
-        return logits.float().cpu(), dec.float().cpu(), tok.cpu()
-
-    with torch.inference_mode():
-        pc, dc, next_tok = step_logits(eng_cpu, "cpu")
-        pg, dg, _ = step_logits(eng_gpu, dev, next_tok)
-    errs = dict(prefill=float((pg - pc).abs().max()),
-                decode=float((dg - dc).abs().max()))
-    scale = max(float(pc.abs().max()), float(dc.abs().max()))
-    err = max(errs.values())
-    # bf16 activations on both sides, rounded at different places (the
-    # kernels accumulate in fp32 and round once; the CPU rounds bf16
-    # matmul outputs its own way): 5% of the largest logit
-    tol = 0.05 * scale
-    out_gpu, out_cpu = eng_gpu.generate(prompts), eng_cpu.generate(prompts)
-    agree = float(np.mean([a == c for og, oc in zip(out_gpu, out_cpu)
-                           for a, c in zip(og, oc)]))
-    first_agree = float(np.mean([og[0] == oc[0]
-                                 for og, oc in zip(out_gpu, out_cpu)]))
-    row = dict(phase="card_vs_cpu", model=cfg.name, n_layers=cfg.n_layers,
-               dtype=str(cfg.dtype), max_abs_logit_err=errs, tol=tol,
-               max_abs_logit=scale, greedy_token_agreement=agree,
-               first_token_agreement=first_agree)
-    emit(row)
-    if not err <= tol:
-        raise AssertionError("card and CPU logits disagree", row)
-    return row
+    """Granite-3-2B at 2 full-width layers in bf16 as served, card against
+    CPU (``_cut_vs_cpu``): the prefill's and the first decode step's
+    logits within ``SERVE_BF16_RTOL`` of the largest."""
+    cfg = granite_cfg(2)
+    prompts = _prompts(np.random.default_rng(1), 4, 16, 32, cfg.vocab)
+    return _cut_vs_cpu(dev, cfg, seed=1, prompts=prompts, steps=1,
+                       why="the CPU side's time",
+                       rtol=(SERVE_BF16_RTOL, SERVE_BF16_RTOL),
+                       phase="card_vs_cpu")
 
 
 # --------------------------------------------------------------------------
@@ -2408,11 +2385,18 @@ def _counting(train_step):
 
 
 _QUIET = dict(log_every=0, log=lambda *a, **k: None)
+# why the checkpoint phases run below the depth they first ran at: uncut,
+# their disk I/O (about 100 s more for the 40-layer checkpoint, 85 s more
+# for 2 chaos layers) would take the whole script to about 1,100 s of its
+# 1,200 s limit on a card at 700 W, where it should stay near half of it
+CUT_FOR_TIME = "cut for the script's time limit"
 
 
-def ckpt_full_width(dev):
-    """The 40-layer LOTION state (fp32 params, mu and nu, the step and
-    optimizer scalars) saved after step 1 into the JAX package's layout
+def ckpt_full_width(dev, n_layers=8):
+    """The LOTION state of 8 full-width layers (fp32 params, mu and nu, the
+    step and optimizer scalars; the depth is cut from 40 to keep the
+    script inside its time limit: the 40-layer state took 138 s of disk
+    I/O) saved after step 1 into the JAX package's layout
     (``keep=1``), step 2 taken, the saved step loaded back into the
     state's own tensors (``load(into=state)``) and step 2 taken again:
     the loss and every leaf bitwise equal to the first step 2.  Reports
@@ -2422,7 +2406,7 @@ def ckpt_full_width(dev):
     from repro_torch.checkpoint import io as ckpt_io
     from repro_torch.kernels import launch_counts, reset_launch_counts
     torch.cuda.empty_cache()
-    cfg, train_step, _, state = granite_trainer(dev)
+    cfg, train_step, _, state = granite_trainer(dev, n_layers=n_layers)
     pipe, _ = _pipeline(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
     try:
         b1, b2 = next(pipe), next(pipe)
@@ -2465,7 +2449,8 @@ def ckpt_full_width(dev):
               "loss_bitwise": loss_a == loss_b, "state_bitwise": not differ,
               "counts": counts == want, "removed": not os.path.exists(d)}
     row = dict(phase="ckpt_full_width", model=cfg.name,
-               n_layers=cfg.n_layers, dtype=str(cfg.dtype),
+               n_layers=cfg.n_layers, full_n_layers=40,
+               depth_reason=CUT_FOR_TIME, dtype=str(cfg.dtype),
                batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                n_state_leaves=len(_state_leaves(state)),
                state_bytes=nbytes, files=files, save_s=save_s,
@@ -2600,10 +2585,11 @@ CHAOS_LR = 3e-4
 CHAOS_AUDIT_EVERY = 2
 
 
-def train_chaos(dev, n_layers=2, n_steps=18):
-    """The training chaos harness (``train/faults.py``) on 2 full-width
-    layers (bf16, batch 4 x 1024, LOTION decoupled, the poison seam in
-    the loss).  First the skip gate alone: after a clean step, a
+def train_chaos(dev, n_layers=1, n_steps=18):
+    """The training chaos harness (``train/faults.py``) on 1 full-width
+    layer (bf16, batch 4 x 1024, LOTION decoupled, the poison seam in
+    the loss; cut from 2 to keep the script inside its time limit: the
+    phase is mostly checkpoint I/O: 314-344 s at 2 layers, 231 s at 1).  First the skip gate alone: after a clean step, a
     NaN-poisoned batch goes through loss, backward, clip and
     ``opt_step`` (launched, with its ok operand 0) and leaves every leaf
     of the state bitwise unchanged.  Then ``run_chaos`` on one host
@@ -2723,7 +2709,8 @@ def train_chaos(dev, n_layers=2, n_steps=18):
     checks["replay_bitwise"] = (not replay["differing_leaves"]
                                 and not replay["violations"]
                                 and replay["segments"] == 1)
-    row = dict(phase="train_chaos", n_layers=n_layers, dtype="bfloat16",
+    row = dict(phase="train_chaos", n_layers=n_layers, full_n_layers=2,
+               depth_reason=CUT_FOR_TIME, dtype="bfloat16",
                batch=TRAIN_BATCH, seq=TRAIN_SEQ, n_steps=n_steps,
                skip_gate=gate, runs=runs, fault_free_replay=replay,
                checks=checks)
@@ -3093,6 +3080,776 @@ def _get(tree, path):
 
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# phase 7: the rest of the model zoo: CodeQwen1.5-7B, Gemma3-12B,
+# MusicGen-medium's codebooks and the GShard MoE of DBRX-132B and
+# Moonlight-16B-A3B, served from random weights
+# --------------------------------------------------------------------------
+
+# the QTensor matmuls (N, K) of the new configs that no Granite row has
+ZOO_WQT = {(4096, 4096): "codeqwen", (13440, 4096): "codeqwen",
+           (4096, 13440): "codeqwen", (4096, 3840): "gemma3",
+           (2048, 3840): "gemma3", (3840, 4096): "gemma3",
+           (15360, 3840): "gemma3", (3840, 15360): "gemma3",
+           (1536, 1536): "musicgen", (6144, 1536): "musicgen",
+           (1536, 6144): "musicgen", (2816, 2048): "moonlight",
+           (2048, 2816): "moonlight", (6144, 6144): "dbrx",
+           (1024, 6144): "dbrx"}
+# decode at batch 8, a prefill-sized M
+ZOO_WQT_MS = (8, 256)
+# Gemma3 serves fp32 activations (``emb_scale``'s fp32 scalar promotes the
+# residual stream, as in JAX), so its matmuls take the fp32 ``fma``
+# instance: decode at batch 8 and serve_archs' 8 x 1,536-token prefill
+ZOO_WQT_FP32_MS = (8, 8 * 1536)
+# Moonlight's scheduler prefills one slot at a time: prompts of 72-128
+# tokens through its shared experts under int8 activations
+ZOO_A8_PREFILL_MS = (72, 128)
+# decode attention of the new configs: (model, L, g, rep, hd, window,
+# query dtype); Gemma3's fp32 queries are what its serving path runs, the
+# bf16 ones the hd-256 instance beside them
+F32, BF16 = torch.float32, torch.bfloat16
+ZOO_ATTN = [("codeqwen", 2048, 32, 1, 128, None, BF16),
+            ("gemma3 local", 1024, 8, 2, 256, 1024, F32),
+            ("gemma3 global", 2048, 8, 2, 256, None, F32),
+            ("gemma3 local", 1024, 8, 2, 256, 1024, BF16),
+            ("gemma3 global", 2048, 8, 2, 256, None, BF16),
+            ("musicgen", 256, 24, 1, 64, None, BF16),
+            ("moonlight", 256, 16, 1, 128, None, BF16),
+            ("dbrx", 256, 8, 6, 128, None, BF16)]
+ZOO_PAGED = [("moonlight", 16, 16, 16, 1, 128, BF16),
+             ("gemma3", 16, 16, 8, 2, 256, F32),
+             ("gemma3", 16, 16, 8, 2, 256, BF16)]
+# one Moonlight expert leaf at the serve_moe depth: 12 x 64 x 2048 x 1408
+# = 2.2e9 elements, past 2^31
+MOE_LAYERS = 12
+MOE_LEAF = (MOE_LAYERS, 64, 2048, 1408)
+# the 3-D QTensor matmul at the decode shapes of the MoE configs' experts:
+# (model, E, M = capacity at 8 tokens, N, K)
+QT3D = [("moonlight", 64, 6, 1408, 2048), ("moonlight", 64, 6, 2048, 1408),
+        ("dbrx", 16, 4, 10752, 6144), ("dbrx", 16, 4, 6144, 10752)]
+# card against CPU in fp32 (TF32 off): the prefill's logits differ by
+# summation order only; a decode step also reads the int8 KV cache, whose
+# codes the two sides round from K and V that differ in their last bits,
+# so a value on a rounding boundary moves by one code (1/127 of its
+# vector's absmax).  Measured on an H100, worst decode step over the
+# largest logit: CodeQwen (2 layers) 4.6e-4, Moonlight (2) 2.4e-4,
+# MusicGen (2) 7.7e-5, Gemma3 (6) 3.3e-5; the limit is about twice the
+# worst.  Attention that leaves out each row's newest slot on the card
+# (scripts/planted_faults_torch.py, ``attn_drops_newest``) fails it.
+ZOO_CPU_RTOL = 1e-4
+ZOO_KV_RTOL = 1e-3
+# a router near tie: the k-th and (k+1)-th probabilities closer than this
+# fraction of the k-th (fp32 logits of the two sides differ in the last
+# bits, about 1e-6 of their size)
+ROUTER_TIE_RTOL = 1e-4
+
+
+def zoo_cfg(arch, n_layers=None, dtype=None):
+    """A config of the port at full width, its depth cut to ``n_layers``
+    and its activations in ``dtype`` where given."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    kw = {k: v for k, v in (("n_layers", n_layers), ("dtype", dtype)) if v}
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def check_zoo_kernels(timer, dev):
+    """The serving kernels at the new configs' shapes: ``wqt_matmul`` at
+    every new (N, K) in bf16, and at Gemma3's in fp32 at its decode and
+    prefill M; ``wqt_matmul_a8_x`` at every new (N, K), and at Moonlight's
+    shared-expert ones at its per-slot prefill M; ``decode_attn`` at hd
+    128 (rep 1, 6) and 256 (rep 2, ``fma``: the ``mma`` instance takes hd
+    up to 128; fp32 queries as Gemma3 serves them, and bf16) with Gemma3's
+    1024-slot local ring wrapped; ``decode_attn_paged`` at hd 128 and 256;
+    and ``quant`` on one Moonlight expert leaf of more than 2^31
+    elements."""
+    from repro_torch.core.qtensor import quantize_qtensor
+    from repro_torch.kernels.wq_matmul import dequant_t_ref
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows = []
+    for (n, k), model in ZOO_WQT.items():
+        w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+        for bits in (4, 8):
+            qt = quantize_qtensor(w, f"int{bits}", -1)
+            w_lib = dequant_t_ref(qt.codes, qt.scales, -1, bits == 4)
+            cases = [(m, BF16) for m in (ZOO_WQT_MS if bits == 4
+                                         else ZOO_WQT_MS[:1])]
+            if model == "gemma3" and bits == 4:
+                cases += [(m, F32) for m in ZOO_WQT_FP32_MS]
+            for m, dtype in cases:
+                rows.append(dict(check_wqt_one(
+                    timer, gen, dev, qt, w_lib, m=m, n=n, k=k, bits=bits,
+                    block_k=-1, dtype=dtype), model=model))
+            del qt, w_lib
+        a8_ms = (8,) + (ZOO_A8_PREFILL_MS if model == "moonlight" else ())
+        for m in a8_ms:
+            rows.append(dict(check_a8_x_one(timer, gen, dev, m=m, n=n, k=k,
+                                            bits=4, block_k=-1),
+                             model=model))
+        del w
+        torch.cuda.empty_cache()
+    for model, L, g, rep, hd, window, dtype in ZOO_ATTN:
+        pos = torch.tensor([0, 5, L // 3, L - 1, L, L + 7, 2 * L + 3,
+                            5 * L - 2], dtype=torch.int32, device=dev)
+        rows.append(dict(check_attn_one(
+            timer, gen, dev, b=8, L=L, g=g, rep=rep, hd=hd, bits=8,
+            window=window, softcap=None, pos=pos, dtype=dtype), model=model))
+    for model, bs, bps, g, rep, hd, dtype in ZOO_PAGED:
+        L = bs * bps
+        pos = torch.tensor([0, 5, L // 3, L - 1, L, L + 7, 2 * L + 3,
+                            5 * L - 2], dtype=torch.int32, device=dev)
+        rows.append(dict(check_paged_one(
+            timer, gen, dev, b=8, bs=bs, bps=bps, g=g, rep=rep, hd=hd,
+            bits=8, window=None, softcap=None, pos=pos, dtype=dtype),
+            model=model))
+    torch.cuda.empty_cache()
+    rows.append(dict(check_quant_one(timer, gen, dev, MOE_LEAF, "int4", -1,
+                                     False), model="moonlight"))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_moe_qt3d(timer, dev):
+    """The 3-D QTensor matmul (x (E, M, K) against an (E, N, K) expert
+    stack, one kernel launch per expert) against its plain version at the
+    MoE configs' expert shapes, int4 and int8, per-matrix and block-128
+    scales, bf16 activations (``wqt_matmul``, within 2^-7 of the largest
+    output) and int8 activations (``wqt_matmul_a8_x``, bitwise)."""
+    from repro_torch.core.qtensor import (matmul, qtensor_act_fmt,
+                                          quantize_qtensor)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.wq_matmul import (dequant_t_ref,
+                                               wqt_matmul_a8_x_ref,
+                                               wqt_matmul_ref)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rows = []
+    for model, e, m, n, k in QT3D:
+        w = torch.randn((e, n, k), generator=gen, device=dev) / math.sqrt(k)
+        x = torch.randn((e, m, k), generator=gen, device=dev).to(
+            torch.bfloat16)
+        for bits in (4, 8):
+            for bk in (-1, 128):
+                qt = quantize_qtensor(w, f"int{bits}", bk)
+                w_lib = dequant_t_ref(qt.codes, qt.scales, bk,
+                                      bits == 4).to(torch.bfloat16)
+                for act in (None, "int8"):
+                    kernel = "wqt_matmul_a8" if act else "wqt_matmul"
+
+                    def run():
+                        with qtensor_act_fmt(act):
+                            return matmul(x, qt)
+
+                    def plain():
+                        ref = wqt_matmul_a8_x_ref if act else wqt_matmul_ref
+                        return ref(x, qt.codes, qt.scales, bk, bits == 4)
+
+                    reset_launch_counts()
+                    got = run()
+                    launches = launch_counts()
+                    want = plain()
+                    torch.cuda.synchronize()
+                    err = float((got.float() - want.float()).abs().max())
+                    tol = 0.0 if act else rel_tol(torch.bfloat16) * float(
+                        want.float().abs().max())
+                    row = dict(phase="check", kernel="qt3d", model=model,
+                               E=e, M=m, N=n, K=k, bits=bits, block_k=bk,
+                               act_fmt=act, dtype="bfloat16",
+                               launches=launches[kernel],
+                               max_abs_err=err, tol=tol,
+                               bitwise=_same_bits(got, want))
+                    ok = (err <= tol and torch.isfinite(got).all()
+                          and launches[kernel] == e
+                          and sum(launches.values()) == e
+                          and (row["bitwise"] or not act))
+                    if not ok:
+                        emit(row)
+                        raise AssertionError(f"3-D QTensor matmul: {row}")
+                    nbytes = x.numel() * 2 + qt.nbytes + e * m * n * 2
+                    b_ms, b_by = bound(nbytes, 2.0 * e * m * n * k,
+                                       INT8_OPS if act else BF16_FLOPS)
+                    row.update(ms=timer(run), plain_ms=timer(plain, iters=3),
+                               library_ms=None if act else timer(
+                                   lambda: torch.bmm(x, w_lib.transpose(
+                                       1, 2))),
+                               bound_ms=b_ms, bound_by=b_by)
+                    emit(row)
+                    rows.append(row)
+                del qt, w_lib
+        del w, x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _n_qt_matmuls(cfg):
+    """QTensor matmuls per layer of a forward under the default serving
+    policy: q, k, v, o and the MLP's (shared experts' for MoE; the routed
+    experts are dense casts and the router is no matmul leaf)."""
+    mlp = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+    if cfg.ffn == "moe":
+        mlp = mlp if cfg.n_shared_experts else 0
+    return 4 + mlp
+
+
+def _dense_cast_leaves(cfg):
+    """Eligible leaves that the packer cannot make QTensors and casts
+    through ``quant`` instead: per block kind of an MoE config, the router
+    and the 4-D expert stacks."""
+    if cfg.ffn != "moe":
+        return 0
+    return len(cfg.pattern) * (4 if cfg.mlp_kind in ("swiglu", "geglu")
+                               else 3)
+
+
+def _step_bytes(cfg, params):
+    """Weight bytes of one decode step: each stored matrix read once (the
+    function's bound), and as the port moves them: a dense fp32 matrix
+    (dense-cast experts, a router, an fp32 head) is read, cast to bf16,
+    written and read again on every call.  An untied embedding is only
+    gathered; vectors (norm scales) are left out."""
+    from repro_torch.core.policy import tree_map_with_path
+    from repro_torch.core.qtensor import QTensor
+    total = [0, 0]
+
+    def leaf(path, x):
+        if isinstance(x, QTensor):
+            total[0] += x.nbytes
+            total[1] += x.nbytes
+        elif x.ndim >= 2 and (path[-1] != "embed" or cfg.tie_embeddings):
+            n = x.numel() * x.element_size()
+            total[0] += n
+            total[1] += n + (4 * x.numel() if cfg.dtype == torch.bfloat16
+                             and x.element_size() == 4 else 0)
+    tree_map_with_path(leaf, params)
+    return tuple(total)
+
+
+def _serve_static(dev, cfg, *, seed, prompts, mnt, why):
+    """Static ``Engine`` serving of ``cfg`` from random weights of
+    ``seed``: int4 QTensor weights (MoE expert stacks and routers as the
+    dense RTN cast through ``quant``), int8 KV, greedy.  Launches are
+    counted over the weight preparation and over the generation; returns
+    (row, engine)."""
+    from repro_torch.core import param_nbytes
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serve import Engine, ServeConfig
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm_init(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s, fp32_bytes = time.perf_counter() - t0, param_nbytes(params)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, ServeConfig(weights="rtn:int4", kv_quant="int8",
+                                          max_new_tokens=mnt), device=dev)
+    torch.cuda.synchronize()
+    prepare_s, prep_counts = time.perf_counter() - t0, launch_counts()
+    del params
+    prepare_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    eng.generate(prompts[:2], max_new_tokens=2)               # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts)
+    torch.cuda.synchronize()
+    gen_s, counts = time.perf_counter() - t0, launch_counts()
+    gen_peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    eng.generate(prompts, max_new_tokens=1)                   # prefill only
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+
+    want = dict.fromkeys(counts, 0)
+    want.update(wqt_matmul=_n_qt_matmuls(cfg) * cfg.n_layers * mnt,
+                decode_attn=cfg.n_layers * (mnt - 1))
+    want_prep = dict.fromkeys(counts, 0)
+    want_prep.update(quant=_dense_cast_leaves(cfg))
+    stored, moved = _step_bytes(cfg, eng.params)
+    checks = {"launches": counts == want, "prepare_launches":
+              prep_counts == want_prep,
+              "budgets": [len(o) for o in outs] == [mnt] * len(prompts),
+              "vocab": all(0 <= t < cfg.vocab for o in outs for t in o)}
+    row = dict(model=cfg.name, n_layers=cfg.n_layers,
+               full_n_layers=zoo_cfg(cfg.name).n_layers, depth_reason=why,
+               d_model=cfg.d_model, dtype=str(cfg.dtype), weights="rtn:int4",
+               kv_quant="int8", batch=len(prompts),
+               prompt_lens=sorted({len(p) for p in prompts}),
+               max_new_tokens=mnt, fp32_gb=fp32_bytes / 1e9,
+               served_gb=param_nbytes(eng.params) / 1e9, init_s=init_s,
+               prepare_s=prepare_s, prepare_launches=prep_counts,
+               expected_prepare_launches=want_prep,
+               prepare_peak_gib=prepare_peak / 2 ** 30,
+               generate_s=gen_s, prefill_ms=prefill_s * 1e3,
+               decode_ms_per_step=(gen_s - prefill_s) * 1e3 / (mnt - 1),
+               tok_per_s=len(prompts) * mnt / gen_s,
+               decode_step_weight_gb=stored / 1e9,
+               decode_step_bound_ms=stored / HBM_BYTES_PER_S * 1e3,
+               decode_step_moved_gb=moved / 1e9,
+               decode_step_moved_bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+               launches=counts, expected_launches=want,
+               generate_peak_gib=gen_peak / 2 ** 30,
+               first_tokens=[o[:8] for o in outs[:2]], checks=checks)
+    return row, eng
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """Every ``moe_route`` call's top-k experts, capacity verdicts, queue
+    positions and each token's router margin (the k-th probability less
+    the (k+1)-th), in call order."""
+    from repro_torch.models import layers
+    orig, calls = layers.moe_route, []
+
+    def route(router, spec, xt, *args, **kw):
+        r = orig(router, spec, xt, *args, **kw)
+        top = torch.topk(r["probs"], spec.top_k + 1, dim=-1).values
+        calls.append(dict(topi=r["topi"].cpu(), keep=r["keep"].cpu(),
+                          pos=r["pos"].cpu(),
+                          pk=top[..., -2].cpu(),
+                          margin=(top[..., -2] - top[..., -1]).cpu()))
+        return r
+
+    layers.moe_route = route
+    try:
+        yield calls
+    finally:
+        layers.moe_route = orig
+
+
+def _compare_routes(card, cpu):
+    """The first routing call where the card and the CPU part, and whether
+    near ties of the router's top-k explain it: every token whose top-k
+    differs has a CPU margin within ``ROUTER_TIE_RTOL`` of its k-th
+    probability, and in every group that parts the first token that
+    differs is one whose top-k differs (capacity verdicts and queue
+    positions follow from the top-k of the tokens before them).  None
+    when they never part."""
+    if len(card) != len(cpu):
+        return dict(call=None, near_tie=False, reason="call counts differ")
+    for i, (a, c) in enumerate(zip(card, cpu)):
+        topi_diff = (a["topi"] != c["topi"]).any(-1)           # (g, t)
+        differ = topi_diff | ((a["keep"] != c["keep"])
+                              | (a["pos"] != c["pos"])).any(-1)
+        if not differ.any():
+            continue
+        near = c["margin"] <= ROUTER_TIE_RTOL * c["pk"]
+        first = differ.int().argmax(-1)                        # (g,)
+        led = all(bool(topi_diff[g, first[g]])
+                  for g in range(differ.shape[0]) if differ[g].any())
+        explained = led and bool(near[topi_diff].all())
+        return dict(call=i, near_tie=explained, groups_led_by_topk=led,
+                    tokens_differ=int(differ.sum()),
+                    tokens_topi_differ=int(topi_diff.sum()),
+                    tokens_topi_differ_near_tie=int((topi_diff & near).sum()),
+                    max_margin_over_pk=float(
+                        (c["margin"] / c["pk"])[topi_diff].max())
+                    if topi_diff.any() else None)
+    return None
+
+
+def _cut_vs_cpu(dev, cfg, *, seed, prompts, steps, why,
+                rtol=(ZOO_CPU_RTOL, ZOO_KV_RTOL), phase=None):
+    """``cfg`` (TF32 off) from the same random weights on the card and on
+    the CPU, int4 QTensor weights and int8 KV as served: prefill of the
+    left-padded prompts (per-row ``prompt_lens`` where the Engine masks
+    pads: attention-only dense-FFN configs) and ``steps`` greedy decode
+    steps, both sides fed the CPU's tokens.  The prefill's logits within
+    ``rtol[0]`` of the CPU's largest, each decode step's within
+    ``rtol[1]``; where the greedy tokens part, the CPU's top two logits
+    are closer than twice that.  For MoE configs the routing (top-k,
+    capacity verdicts, queue positions) is equal, or parts first at near
+    ties shown for every token whose top-k differs; the steps from the
+    one that parts are then not held, every step before it is.  Returns
+    the row (emitted, with ``phase``, where given); raises
+    AssertionError(message, row) on a failure."""
+    from repro_torch.core.policy import tree_map_with_path
+    from repro_torch.models.lm import lm_decode, lm_init, lm_prefill
+    from repro_torch.serve import ServeConfig
+    from repro_torch.serve.engine import (attn_only, bucket_cache_len,
+                                          prepare_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    params = lm_init(cfg, seed=seed, device=dev)
+    cpu_params = tree_map_with_path(lambda p, x: x.cpu(), params)
+    scfg = ServeConfig(weights="rtn:int4", kv_quant="int8")
+    card_p = prepare_params(params, scfg, dev)
+    del params
+    cpu_p = prepare_params(cpu_params, scfg, "cpu")
+    del cpu_params
+    b, width = len(prompts), max(len(p) for p in prompts)
+    books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    toks = np.zeros((b, width) + books, np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, width - len(p):] = p
+    lens = [len(p) for p in prompts]
+    masked = attn_only(cfg)
+    cache_len = bucket_cache_len(width + steps)
+
+    def run(p, device, feed=None):
+        out, fed = [], []
+        with torch.inference_mode():
+            lg, cache = lm_prefill(
+                p, cfg, torch.as_tensor(toks, device=device),
+                cache_len=cache_len, kv_quant="int8",
+                prompt_lens=torch.tensor(lens, device=device)
+                if masked else None)
+            pos = torch.tensor(lens if masked else [width] * b,
+                               device=device) - 1
+            for s in range(steps + 1):
+                out.append(lg.float().cpu())
+                if s == steps:
+                    break
+                tok = feed[s] if feed is not None else \
+                    lg[:, 0].argmax(-1).cpu()
+                fed.append(tok)
+                pos = pos + 1
+                lg, cache = lm_decode(p, cfg, cache,
+                                      tok.to(device)[:, None].long(), pos)
+        return out, fed
+
+    with _recorded_routes() as cpu_routes:
+        cpu_out, fed = run(cpu_p, torch.device("cpu"))
+    with _recorded_routes() as card_routes:
+        card_out, _ = run(card_p, dev, feed=fed)
+    scale = max(float(c.abs().max()) for c in cpu_out)
+    tols = [rtol[min(s, 1)] * scale for s in range(len(cpu_out))]
+    errs = [float((g - c).abs().max()) for g, c in zip(card_out, cpu_out)]
+    partings = []
+    for s, (g, c) in enumerate(zip(card_out, cpu_out)):
+        gt, ct = g[:, 0].argmax(-1), c[:, 0].argmax(-1)
+        if not torch.equal(gt, ct):
+            top2 = torch.topk(c[:, 0], 2, dim=-1).values
+            gap = (top2[..., 0] - top2[..., 1])[gt != ct]
+            partings.append(dict(step=s, cpu_top2_gap=float(gap.max()),
+                                 tol=tols[s]))
+    routes = _compare_routes(card_routes, cpu_routes) if card_routes \
+        or cpu_routes else None
+    drops = (sum(int((~c["keep"]).sum()) for c in cpu_routes)
+             if cpu_routes else None)
+    # routing that parts at shown near ties stops the holding at the step
+    # of the call that parts (every step makes the same number of routing
+    # calls); parting anywhere else fails
+    held = len(errs)
+    if routes is not None and routes["near_tie"]:
+        held = routes["call"] // (len(cpu_routes) // len(errs))
+    ok = ((routes is None or routes["near_tie"])
+          and all(e <= t for e, t in zip(errs[:held], tols))
+          and all(p["cpu_top2_gap"] <= 2 * p["tol"] for p in partings
+                  if p["step"] < held))
+    if cfg.ffn == "moe":
+        ok = ok and drops > 0
+    row = dict(model=cfg.name, n_layers=cfg.n_layers, depth_reason=why,
+               dtype=str(cfg.dtype).replace("torch.", ""), weights="rtn:int4",
+               kv_quant="int8", batch=b, prompt_lens=lens, steps=steps,
+               max_abs_logit=scale, tol=tols, max_abs_logit_err=max(errs),
+               per_step_err=errs, held_steps=held, partings=partings,
+               greedy_tokens_identical=not partings,
+               routing=None if not cpu_routes else dict(
+                   calls=len(cpu_routes), parted=routes,
+                   cpu_dropped_choices=drops), ok=bool(ok))
+    if phase:
+        row = dict(phase=phase, **row)
+        emit(row)
+    if not ok:
+        raise AssertionError(f"{cfg.name}: card and CPU disagree", row)
+    return row
+
+
+def serve_moe(dev):
+    """Moonlight-16B-A3B as the repo configures it (48 layers; 64 experts
+    top-6, d_ff 1408, 2 shared experts, vocab 163,840) at full width, cut
+    to 12 layers: its fp32 tree is 2.21 GB of experts a layer and the
+    dense cast writes a second copy of them, 57 GB at 12 layers (76 GB at
+    16).  Run 1: the static Engine (int4 QTensors for attention and the
+    shared experts, the dense RTN cast of the routers and expert stacks
+    through ``quant``, int8 KV), batch 8, 32 new tokens.  Run 2: the
+    continuous-batching Scheduler on the same prepared tree, paged int8
+    KV, per-slot prefill (MoE refuses chunking), int8 activations
+    (``wqt_matmul_a8``), 16 requests.  Then dead decode rows: the live
+    row's logits are the same whether the masked rows hold zeros or
+    copies of the live row (unmasked, the copies would take every slot of
+    its experts first).  Last, DBRX-132B at 2 full-width layers (16
+    experts top-4, d_ff 10,752: 12.7 GB of fp32 experts a layer), static
+    serving only."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.lm import (cache_insert, init_cache, lm_decode,
+                                       lm_prefill)
+    from repro_torch.serve import (COMPLETED, Scheduler, SchedulerConfig,
+                                   ServeConfig, check_drained)
+    from repro_torch.serve.replay import replay_continuous
+    cfg = zoo_cfg("moonshot-v1-16b-a3b", MOE_LAYERS)
+    prompts = _prompts(np.random.default_rng(7), 8, 64, 128, cfg.vocab)
+    static, eng = _serve_static(
+        dev, cfg, seed=0, prompts=prompts, mnt=32,
+        why="fp32 tree 2.21 GB of experts a layer plus their dense cast: "
+            "57 GB at 12 layers, 76 GB at 16")
+    checks = {f"static_{k}": v for k, v in static.pop("checks").items()}
+
+    sch = Scheduler(cfg, eng.params,
+                    ServeConfig(weights="fp32", kv_quant="int8",
+                                act_fmt="int8", max_new_tokens=32),
+                    SchedulerConfig(n_slots=8, steps_per_tick=4,
+                                    cache_len=256, paged=True, block_size=16),
+                    device=dev)
+    sch.generate(_prompts(np.random.default_rng(5), 2, 20, 40, cfg.vocab),
+                 max_new_tokens=5)                           # warm-up
+    wl = sched_workload(cfg.vocab)
+    before = dict(ticks=sch.n_ticks, prefills=sch.n_prefills,
+                  rid=sch._next_rid)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    rec = replay_continuous(sch, wl)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    ticks = sch.n_ticks - before["ticks"]
+    prefills = sch.n_prefills - before["prefills"]
+    k = sch.sched.steps_per_tick
+    want = dict.fromkeys(counts, 0)
+    want.update(wqt_matmul_a8=_n_qt_matmuls(cfg) * cfg.n_layers
+                * (ticks * k + prefills),
+                decode_attn_paged=cfg.n_layers * ticks * k)
+    rids = range(before["rid"], before["rid"] + len(wl))
+    outs = [sch.requests[r].out for r in rids]
+    total = sum(len(o) for o in outs)
+    lat = np.asarray([rec["latency"][i] for i in sorted(rec["latency"])])
+    checks.update({
+        "sched_completed": all(sch.requests[r].state == COMPLETED
+                               for r in rids),
+        "sched_budgets": [len(o) for o in outs]
+        == [w.max_new_tokens for w in wl],
+        "sched_vocab": all(0 <= t < cfg.vocab for o in outs for t in o),
+        "sched_drained": check_drained(sch) == [],
+        "sched_launches": counts == want})
+    sched = dict(requests=len(wl), kv_quant="int8", act_fmt="int8",
+                 paged=True, makespan_s=rec["makespan"], tokens=total,
+                 tok_per_s=total / rec["makespan"],
+                 latency_p50_s=float(np.percentile(lat, 50)),
+                 latency_p95_s=float(np.percentile(lat, 95)),
+                 ticks=ticks, decode_steps=ticks * k, prefills=prefills,
+                 launches=counts,
+                 expected_launches=want,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 first_tokens=[o[:8] for o in outs[:2]])
+    del sch
+
+    # dead rows: the live row in the last of 8 slots, masked rows holding
+    # zeros or copies of the live row
+    seq = prompts[0][:40]
+    n, cl = 8, 64
+    with torch.inference_mode():
+        _, row = lm_prefill(eng.params, cfg, torch.tensor([seq], device=dev),
+                            cache_len=cl, kv_quant="int8")
+        mask = torch.tensor([False] * (n - 1) + [True], device=dev)
+        live = {}
+        for fill in ("zeros", "copies"):
+            pool = init_cache(cfg, n, cl, dtype=cfg.dtype, kv_quant="int8",
+                              device=dev)
+            for s in (range(n) if fill == "copies" else [n - 1]):
+                cache_insert(pool, row, s)
+            tok = torch.full((n, 1), seq[-1] if fill == "copies" else 0,
+                             device=dev)
+            tok[-1, 0] = seq[-1]
+            pos = torch.full((n,), len(seq) if fill == "copies" else 0,
+                             device=dev)
+            pos[-1] = len(seq)
+            logits, _ = lm_decode(eng.params, cfg, pool, tok, pos,
+                                  token_mask=mask)
+            live[fill] = logits[-1].float()
+    # masked rows meet the live row only through sums of exact zeros, so
+    # its logits are held bitwise, as the CPU twin holds them
+    dead = dict(max_abs_diff=float((live["zeros"] - live["copies"]).abs()
+                                   .max()),
+                bitwise=bool(torch.equal(live["zeros"], live["copies"])))
+    checks["dead_rows_invariant"] = dead["bitwise"]
+    del eng, row, pool
+    torch.cuda.empty_cache()
+
+    dcfg = zoo_cfg("dbrx-132b", 2)
+    dprompts = _prompts(np.random.default_rng(8), 8, 64, 128, dcfg.vocab)
+    dbrx, deng = _serve_static(
+        dev, dcfg, seed=0, prompts=dprompts, mnt=32,
+        why="12.7 GB of fp32 experts a layer plus their dense cast")
+    checks.update({f"dbrx_{k}": v for k, v in dbrx.pop("checks").items()})
+    del deng
+    torch.cuda.empty_cache()
+    out = dict(phase="serve_moe", static=static, sched=sched,
+               dead_rows=dead, dbrx=dbrx, checks=checks)
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(f"serve_moe failed its checks: {checks}", out)
+    return out
+
+
+def serve_moe_card_vs_cpu(dev, n_layers=2):
+    """Moonlight at 2 full-width layers, fp32 activations: the same
+    left-padded prompts (4 of 48-64 tokens, so that the prefill's groups
+    drop choices past their capacity) on the card and on the CPU, prefill
+    and 4 greedy decode steps (``_cut_vs_cpu``)."""
+    cfg = zoo_cfg("moonshot-v1-16b-a3b", n_layers, "float32")
+    prompts = _prompts(np.random.default_rng(9), 4, 48, 64, cfg.vocab)
+    row = _cut_vs_cpu(dev, cfg, seed=5, prompts=prompts, steps=4,
+                      why="the CPU side: 2.21 GB of fp32 experts a layer, "
+                          "read on every step",
+                      phase="serve_moe_card_vs_cpu")
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve_archs(dev):
+    """CodeQwen1.5-7B (32 layers, MHA at head_dim 128, untied 92,416-row
+    head; 7.2B parameters, 29 GB fp32) and Gemma3-12B (48 layers, 5 local
+    layers of window 1024 per global one, QK-norm, two RoPE thetas, head_dim
+    256, tied 262,144-row embedding; 11.8B parameters, 47 GB fp32) at full
+    width and depth through the static Engine: int4 weights, int8 KV,
+    batch 8, 32 new tokens; Gemma3 with 1,536-token prompts, so that its
+    local rings wrap."""
+    out = dict(phase="serve_archs")
+    checks = {}
+    for arch, lo, hi in (("codeqwen1.5-7b", 64, 128),
+                         ("gemma3-12b", 1536, 1536)):
+        cfg = zoo_cfg(arch)
+        prompts = _prompts(np.random.default_rng(10), 8, lo, hi, cfg.vocab)
+        row, eng = _serve_static(dev, cfg, seed=0, prompts=prompts, mnt=32,
+                                 why="full depth")
+        del eng
+        checks.update({f"{arch}_{k}": v for k, v in row.pop("checks")
+                       .items()})
+        out[arch] = row
+        torch.cuda.empty_cache()
+    out["checks"] = checks
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(f"serve_archs failed its checks: {checks}", out)
+    return out
+
+
+def serve_archs_card_vs_cpu(dev):
+    """CodeQwen1.5-7B at 2 full-width layers and Gemma3-12B at 6 (its unit
+    of 5 local and 1 global layer, two prompts past the window) on the
+    card against the CPU (``_cut_vs_cpu``, fp32)."""
+    out = dict(phase="serve_archs_card_vs_cpu")
+    checks = {}
+    cuts = (("codeqwen1.5-7b", 2, (16, 32)), ("gemma3-12b", 6, (1030, 1100)))
+    for arch, n_layers, (lo, hi) in cuts:
+        cfg = zoo_cfg(arch, n_layers, "float32")
+        prompts = _prompts(np.random.default_rng(11), 2, lo, hi, cfg.vocab)
+        try:
+            cut = _cut_vs_cpu(dev, cfg, seed=1, prompts=prompts, steps=3,
+                              why="the CPU side's time")
+        except AssertionError as e:
+            cut = e.args[1]
+        checks[arch] = cut["ok"]
+        out[arch] = cut
+    out["checks"] = checks
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(
+            f"serve_archs_card_vs_cpu failed its checks: {checks}", out)
+    return out
+
+
+# MusicGen: prefill and decode against the full forward on the same card,
+# bf16 across 48 layers: test_archs.py's prefill->decode tolerance (2e-2 of
+# the largest logit) with a dense cache; 5e-2 with the int8 cache, whose
+# codes add their rounding (the card_vs_cpu tolerance of bf16 serving)
+MUSICGEN_DENSE_RTOL = 2e-2
+MUSICGEN_INT8_RTOL = 5e-2
+
+
+def musicgen_decode(dev, b=4, l=64, steps=16):
+    """MusicGen-medium at full width and depth (48 layers, 1.5B
+    parameters, 4 codebooks summed at the embedding, one head per
+    codebook): int4 QTensor attention and MLP, ``lm_prefill`` of (b, l, 4)
+    frames then 16 ``lm_decode`` steps of (b, 1, 4) frames, each step's
+    (b, 1, 4, 2048) logits against ``lm_forward``'s at that position on the
+    same card, with a dense bf16 cache and with the int8 cache
+    (``decode_attn``); then 2 layers on the card against the CPU."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.lm import (lm_decode, lm_forward, lm_init,
+                                       lm_prefill)
+    from repro_torch.serve import ServeConfig
+    from repro_torch.serve.engine import prepare_params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = zoo_cfg("musicgen-medium")
+    C = cfg.n_codebooks
+    params = prepare_params(lm_init(cfg, seed=0, device=dev),
+                            ServeConfig(weights="rtn:int4"), dev)
+    toks = torch.as_tensor(np.random.default_rng(12).integers(
+        0, cfg.vocab, (b, l + steps, C)), device=dev)
+    with torch.inference_mode():
+        full = lm_forward(params, cfg, toks)[:, l - 1:].float()
+    checks, runs = {}, {}
+    for kv, rtol in ((False, MUSICGEN_DENSE_RTOL),
+                     ("int8", MUSICGEN_INT8_RTOL)):
+        with torch.inference_mode():                          # warm-up
+            lm_prefill(params, cfg, toks[:, :8], cache_len=16, kv_quant=kv)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            lg, cache = lm_prefill(params, cfg, toks[:, :l],
+                                   cache_len=l + steps, kv_quant=kv)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            got = [lg.float()]
+            t0 = time.perf_counter()
+            for s in range(steps):
+                lg, cache = lm_decode(params, cfg, cache,
+                                      toks[:, l + s:l + s + 1],
+                                      torch.full((b,), l + s, device=dev))
+                got.append(lg.float())
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+        counts = launch_counts()
+        got = torch.cat(got, dim=1)                      # (b, 1 + steps, C, V)
+        want = dict.fromkeys(counts, 0)
+        want.update(wqt_matmul=_n_qt_matmuls(cfg) * cfg.n_layers
+                    * (1 + steps),
+                    decode_attn=cfg.n_layers * steps if kv else 0)
+        scale = float(full.abs().max())
+        err = float((got - full).abs().max())
+        name = "int8_kv" if kv else "dense_kv"
+        runs[name] = dict(
+            kv_quant=kv, shape=list(got.shape), max_abs_logit=scale,
+            max_abs_err=err, tol=rtol * scale,
+            argmax_agreement=float((got.argmax(-1) == full.argmax(-1))
+                                   .float().mean()),
+            prefill_ms=prefill_s * 1e3, decode_ms_per_step=decode_s * 1e3
+            / steps, launches=counts, expected_launches=want)
+        checks[f"{name}_logits"] = err <= rtol * scale and bool(
+            torch.isfinite(got).all())
+        checks[f"{name}_launches"] = counts == want
+        checks[f"{name}_shape"] = tuple(got.shape) == (b, 1 + steps, C,
+                                                       cfg.vocab)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, full, cache
+    torch.cuda.empty_cache()
+    cut_cfg = zoo_cfg("musicgen-medium", 2, "float32")
+    frames = np.random.default_rng(13).integers(0, cfg.vocab, (2, 24, C))
+    try:
+        cut = _cut_vs_cpu(dev, cut_cfg, seed=2, prompts=list(frames),
+                          steps=3, why="the CPU side's time")
+    except AssertionError as e:
+        cut = e.args[1]
+    checks["card_vs_cpu"] = cut["ok"]
+    row = dict(phase="musicgen_decode", model=cfg.name,
+               n_layers=cfg.n_layers, depth_reason="full depth",
+               d_model=cfg.d_model, n_codebooks=C, dtype=str(cfg.dtype),
+               weights="rtn:int4", batch=b, prompt_len=l, steps=steps,
+               runs=runs, peak_gib=peak, card_vs_cpu=cut, checks=checks)
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"musicgen_decode failed its checks: {checks}",
+                             row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3150,14 +3907,21 @@ def main() -> int:
               "ckpt_full_width": lambda: ckpt_full_width(dev),
               "synth_quadratic": lambda: synth_quadratic(dev),
               "synth_twolayer": lambda: synth_twolayer(dev),
-              "train_long": lambda: train_long(dev)}
+              "train_long": lambda: train_long(dev),
+              "zoo_kernels": lambda: check_zoo_kernels(timer, dev),
+              "moe_qt3d": lambda: check_moe_qt3d(timer, dev),
+              "serve_moe": lambda: serve_moe(dev),
+              "serve_moe_card_vs_cpu": lambda: serve_moe_card_vs_cpu(dev),
+              "serve_archs": lambda: serve_archs(dev),
+              "serve_archs_card_vs_cpu": lambda: serve_archs_card_vs_cpu(dev),
+              "musicgen_decode": lambda: musicgen_decode(dev)}
     out = {}
     for name, run in phases.items():
         t0 = time.perf_counter()
         out[name] = run()
         emit(dict(phase="timing", of=name, seconds=time.perf_counter() - t0))
         if name in ("a8", "wq", "layer", "quant", "lotion_reg",
-                    "opt_step", "synth_kernels"):
+                    "opt_step", "synth_kernels", "zoo_kernels", "moe_qt3d"):
             # the timer's flush buffer stays; the checks' inputs go
             torch.cuda.empty_cache()
 
@@ -3374,7 +4138,74 @@ def kernels_line(out):
         "the int4 per-tensor penalty), fp32",
         train_step_device_ms=step_dev,
         **stats(opt, opt4, opt_lib)))
+    zoo = zoo_kernel_fields(out)
+    for line in lines:
+        line.update(zoo.get(line["name"], {}))
     return lines
+
+
+def zoo_kernel_fields(out):
+    """The zoo phases' numbers for the kernels line: each serving kernel's
+    launches on the new paths, the hd-256 decode (``fma``) and the MoE
+    expert leaf's cast beside their bounds, and the 3-D QTensor matmul
+    (int4 per matrix, one launch per expert) at the experts' shapes."""
+    zk, moe = out["zoo_kernels"], out["serve_moe"]
+    static = {"moonlight_12_layers": moe["static"], "dbrx_2_layers":
+              moe["dbrx"], "codeqwen": out["serve_archs"]["codeqwen1.5-7b"],
+              "gemma3": out["serve_archs"]["gemma3-12b"]}
+    runs = out["musicgen_decode"]["runs"]
+
+    def launches(kernel):
+        d = {k: v["launches"][kernel] for k, v in static.items()}
+        d["musicgen"] = sum(r["launches"][kernel] for r in runs.values())
+        return d
+
+    def timed(r, prefix):
+        return {f"{prefix}_{k}": r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}
+
+    def qt3d(act):
+        return {f"{r['model']} ({r['E']}, {r['M']}, {r['K']}) x ({r['E']}, "
+                f"{r['N']}, {r['K']})": dict(ms=r["ms"], bound_ms=r["bound_ms"],
+                                             library_ms=r["library_ms"],
+                                             launches=r["launches"])
+                for r in out["moe_qt3d"] if r["act_fmt"] == act
+                and r["bits"] == 4 and r["block_k"] == -1}
+
+    def hd256_row(kernel, dtype):
+        return next(r for r in zk if r["kernel"] == kernel and r["hd"] == 256
+                    and r["dtype"] == dtype and r["model"] != "gemma3 local")
+
+    # Gemma3 serves fp32 queries; the bf16 instance is off its path
+    hd256, hd256_bf16 = (hd256_row("decode_attn", d)
+                         for d in ("float32", "bfloat16"))
+    paged256 = hd256_row("decode_attn_paged", "float32")
+    leaf = next(r for r in zk if r["kernel"] == "quant")
+    gemma_fp32 = {f"({r['M']}, {r['K']}) x ({r['N']}, {r['K']})": dict(
+        variant=r["variant"], **{k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        for r in zk if r["kernel"] == "wqt_matmul"
+        and r["dtype"] == "float32"}
+    return {
+        "wqt_matmul": dict(zoo_launches=launches("wqt_matmul"),
+                           gemma3_fp32=gemma_fp32,
+                           qt3d_path="moe_qt3d (check rows: no model path "
+                           "holds 3-D QTensor experts)", qt3d=qt3d(None)),
+        "decode_attn": dict(zoo_launches=launches("decode_attn"),
+                            hd256_shape="gemma3 global: b=8 L=2048 g=8 "
+                            "rep=2 hd=256 int8, fp32 queries",
+                            hd256_variant=hd256["variant"],
+                            **timed(hd256, "hd256"),
+                            hd256_bf16_ms=hd256_bf16["ms"]),
+        "wqt_matmul_a8": dict(moe_sched_launches=moe["sched"]["launches"][
+            "wqt_matmul_a8"], qt3d=qt3d("int8")),
+        "decode_attn_paged": dict(
+            moe_sched_launches=moe["sched"]["launches"]["decode_attn_paged"],
+            hd256_variant=paged256["variant"], **timed(paged256, "hd256")),
+        "quant": dict(moe_prepare_launches={
+            k: v["prepare_launches"]["quant"] for k, v in static.items()},
+            moe_leaf_shape=leaf["shape"], **timed(leaf, "moe_leaf")),
+    }
 
 
 def _synth_summary(rows, kernel):

@@ -97,6 +97,24 @@ step):
   chunk without rescaling the running denominator and output by
   ``alpha = exp(m - m_new)``.
 
+The rest of the model zoo (phases ``serve_moe``: Moonlight at 12
+full-width layers served static and through the W4A8 scheduler, then a
+decode step whose masked rows hold zeros or copies of the live row;
+``serve_moe_card_vs_cpu`` and ``serve_archs_card_vs_cpu``: Moonlight at 2
+layers, CodeQwen at 2 and Gemma3 at 6, card against CPU in fp32, the
+MoE routing recorded; ``musicgen_decode``: MusicGen at full depth
+against its own forward, then 2 layers against the CPU):
+
+* ``moe_ignores_token_mask``    — the MoE dispatch on the card drops
+  ``token_mask``, so dead decode rows take expert capacity;
+* ``moe_capacity_off_by_one``   — the per-group capacity on the card is
+  one less than ceil(g * k / E * cf);
+* ``attn_drops_newest``         — ``decode_attn`` on the card reads each
+  row's ring as of one position earlier, so the slot just written is
+  left out (the control of the decode steps' card-against-CPU limit);
+* ``codebook_embed_drops_last`` — the codebook embedding on the card sums
+  every codebook's rows but the last.
+
     python3 scripts/planted_faults_torch.py [--only PHASE[,PHASE...]]
 
 ``--only`` runs just the groups that hold one of the named phases.  Prints one JSON line per run of a phase with its numbers against their
@@ -271,6 +289,45 @@ def _no_alpha(orig):
     return step
 
 
+def _one_position_earlier(orig):
+    def attn(q, kc, ks, vc, vs, pos, **kw):
+        return orig(q, kc, ks, vc, vs, pos - 1 if q.is_cuda else pos, **kw)
+    return attn
+
+
+def _no_token_mask(orig):
+    def moe(params, spec, x, token_mask=None):
+        return orig(params, spec, x,
+                    token_mask=None if x.is_cuda else token_mask)
+    return moe
+
+
+def _capacity_off_by_one(orig):
+    def route(router, spec, xt, *args, **kw):
+        r = orig(router, spec, xt, *args, **kw)
+        if not xt.is_cuda:
+            return r
+        oh, cap = r["onehot"], r["cap"] - 1
+        g, t, k, e = oh.shape
+        raw = ((torch.cumsum(oh.reshape(g, t * k, e), 1, dtype=torch.int32)
+                .reshape(oh.shape) - oh) * oh).sum(-1)
+        keep = raw < cap
+        return dict(r, keep=keep, cap=cap,
+                    pos=torch.where(keep, raw, 0).to(torch.int32))
+    return route
+
+
+def _drop_last_codebook(orig):
+    def embed(params, cfg, tokens):
+        if tokens.is_cuda and cfg.n_codebooks > 1:
+            import dataclasses
+            cfg = dataclasses.replace(cfg, n_codebooks=cfg.n_codebooks - 1)
+            params = dict(params, embed=params["embed"][:-1])
+            tokens = tokens[..., :-1]
+        return orig(params, cfg, tokens)
+    return embed
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="",
@@ -288,6 +345,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.lotion_reg import ops as reg_ops
     from repro_torch.kernels.wq_matmul import ops as wq_ops
     import repro_torch.models.layers as layers
+    import repro_torch.models.lm as lm
     import repro_torch.optim.fused as fused
     import repro_torch.serve.scheduler as scheduler
     import repro_torch.train.synthetic as syn
@@ -357,6 +415,21 @@ def main(argv=None) -> int:
             sound,
             ("softmax_drops_alpha", lambda: _patched(layers, "_stream_step",
                                                      _no_alpha))]),
+        ([("serve_moe", cs.serve_moe)], [
+            sound,
+            ("moe_ignores_token_mask", lambda: _patched(lm, "moe_apply",
+                                                        _no_token_mask))]),
+        ([("serve_moe_card_vs_cpu", cs.serve_moe_card_vs_cpu),
+          ("serve_archs_card_vs_cpu", cs.serve_archs_card_vs_cpu)], [
+            sound,
+            ("moe_capacity_off_by_one", lambda: _patched(
+                layers, "moe_route", _capacity_off_by_one)),
+            ("attn_drops_newest", lambda: _patched(
+                layers, "decode_attn", _one_position_earlier))]),
+        ([("musicgen_decode", cs.musicgen_decode)], [
+            sound,
+            ("codebook_embed_drops_last", lambda: _patched(
+                lm, "_embed", _drop_last_codebook))]),
     ]
     keys = ("max_rel_diff", "rtol", "penalty_max_rel_diff", "penalty_rtol",
             "late_max_rel_diff", "late_rtol", "rat_micro_rel_diff",
@@ -367,7 +440,9 @@ def main(argv=None) -> int:
             "differing_leaves", "error", "gate",
             "loss_max_rel_diff", "grad_norm_max_rel_diff",
             "first_moment_max_rel_l2", "update_max_rel_l2",
-            "grad_norm_rtol", "first_moment_rtol", "update_rtol")
+            "grad_norm_rtol", "first_moment_rtol", "update_rtol",
+            "routing", "dead_rows", "card_vs_cpu", "per_step_err",
+            "held_steps", "codeqwen1.5-7b", "gemma3-12b")
     if only:
         groups = [g for g in groups if only & {name for name, _ in g[0]}]
         if not groups:

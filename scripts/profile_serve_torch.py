@@ -1,8 +1,10 @@
 """Where a serving step's time goes on one GPU, for full-width
-Granite-3-2B.
+Granite-3-2B or another config of the port.
 
     python3 scripts/profile_serve_torch.py [--workload engine|sched]
                                            [--steps 8] [--out DIR]
+                                           [--arch ARCH [--layers N]
+                                            [--prompt-len L]]
 
 ``--workload engine`` (the default) profiles the static ``Engine`` (int4
 weights, int8 KV, batch 8), ``chip_smoke.granite_engine``'s workload: two
@@ -11,7 +13,11 @@ weights, int8 KV, batch 8), ``chip_smoke.granite_engine``'s workload: two
 that also decodes ``steps - 1`` tokens; their difference, divided by the
 decode steps, gives each decode step's wall time, device time per kernel
 name and launch count, the decode attention kernels' device time, and
-the device's busy share of the step.
+the device's busy share of the step; and the prefill's device time per
+kernel name.  ``--arch`` serves that config instead (random weights from
+seed 0, int4 QTensors with MoE experts as the dense cast, int8 KV, 8
+prompts of 64-128 tokens or of ``--prompt-len``), its depth cut to
+``--layers``.
 
 ``--workload sched`` profiles the continuous-batching ``Scheduler`` (W4A8,
 paged int8 KV pool, chunked prefill with the prefix trie),
@@ -134,12 +140,32 @@ def profile_sched(args) -> int:
     return 0
 
 
+def zoo_engine(dev, arch, n_layers, prompt_len, mnt):
+    """``arch`` at full width (depth ``n_layers`` where given) served by
+    the static Engine as ``chip_smoke.py``'s zoo phases serve it."""
+    from chip_smoke import _prompts, zoo_cfg
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = zoo_cfg(arch, n_layers)
+    params = lm_init(cfg, seed=0, device=dev)
+    eng = Engine(cfg, params, ServeConfig(weights="rtn:int4", kv_quant="int8",
+                                          max_new_tokens=mnt), device=dev)
+    del params
+    torch.cuda.empty_cache()
+    lo, hi = (prompt_len, prompt_len) if prompt_len else (64, 128)
+    return cfg, eng, _prompts(np.random.default_rng(0), 8, lo, hi, cfg.vocab)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=("engine", "sched"),
                     default="engine")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--arch", default=None,
+                    help="profile this config's Engine instead of Granite")
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--prompt-len", type=int, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serve_torch: needs a CUDA device", file=sys.stderr)
@@ -150,7 +176,12 @@ def main() -> int:
 
     from chip_smoke import granite_engine
 
-    cfg, eng, prompts = granite_engine(torch.device("cuda"), args.steps)
+    if args.arch:
+        cfg, eng, prompts = zoo_engine(torch.device("cuda"), args.arch,
+                                       args.layers, args.prompt_len,
+                                       args.steps)
+    else:
+        cfg, eng, prompts = granite_engine(torch.device("cuda"), args.steps)
     eng.generate(prompts, max_new_tokens=2)                    # warm-up
 
     def wall(mnt):
@@ -181,14 +212,16 @@ def main() -> int:
     prefill_dev = sum(ms for ms, _ in pre.values())
     top = sorted(step.items(), key=lambda kv: -kv[1][0])[:12]
     print(json.dumps(dict(
-        phase="profile", model=cfg.name, batch=len(prompts),
+        phase="profile", model=cfg.name, n_layers=cfg.n_layers,
+        batch=len(prompts), prompt_lens=sorted({len(p) for p in prompts}),
         decode_steps=n_dec, prefill_ms=t_prefill, prefill_device_ms=prefill_dev,
         decode_ms_per_step=step_ms, decode_device_ms_per_step=step_dev,
         decode_device_busy_share=step_dev / step_ms,
         decode_launches_per_step=sum(c for _, c in step.values()),
         decode_attn_device_ms=_attn_ms(step),
         decode_top=[dict(name=k[:80], device_ms=ms, calls=c)
-                    for k, (ms, c) in top])), flush=True)
+                    for k, (ms, c) in top],
+        prefill_top=_top(pre, 1))), flush=True)
     return 0
 
 

@@ -16,8 +16,8 @@ A stacked ``(r, N, K)`` QTensor (one matrix per layer) gives its per-layer
 for CPU tensors.  Under ``qtensor_act_fmt("int8")`` (W4A8 / W8A8 serving)
 it serves through ``wqt_matmul_a8_x`` instead, which row-quantizes its
 activations to int8 codes and fp32 row scales, contracts and casts back in
-one ``wqt_matmul_a8`` launch.  3-D (MoE) storage is not in these slices of
-the port.
+one ``wqt_matmul_a8`` launch.  3-D storage (an unstacked MoE expert tree,
+(E, N, K)) makes one such call per expert.
 """
 
 from __future__ import annotations
@@ -177,23 +177,41 @@ def from_matmul_weight(w: torch.Tensor, fmt, block_k: int = -1) -> QTensor:
 
 
 def matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """``x (..., K) @ dequant(qt)^T -> (..., N)`` for 2-D storage: one
+    """``x (..., K) @ dequant(qt)^T -> (..., N)``.  2-D storage: one
     ``wqt_matmul`` call over the flattened leading dims of x, or under
     ``act_fmt="int8"`` one ``wqt_matmul_a8_x`` call (the row quantization
-    of x, the integer matmul and the cast to x's dtype)."""
+    of x, the integer matmul and the cast to x's dtype).  3-D storage (an
+    expert stack (E, N, K)) takes x (E, M, K) and makes that call once per
+    expert, as JAX's ``lax.map`` does, with per-matrix scales broadcast
+    over E when the stack has one -> (E, M, N) in x's dtype."""
+    if qt.codes.ndim == 3:
+        return _matmul_experts(x, qt)
     if qt.codes.ndim != 2:
-        raise NotImplementedError(
-            f"{qt.codes.ndim}-D QTensor matmul (MoE expert stacks) is not "
-            f"ported yet: ROADMAP Queue 1 item 7 (layers.py::moe_apply)")
+        raise ValueError(f"unsupported QTensor rank {qt.codes.ndim}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    return _matmul_2d(x2, qt.codes, qt.scales, qt).reshape(
+        lead + (qt.out_dim,))
+
+
+def _matmul_2d(x2, codes, scales, qt: QTensor) -> torch.Tensor:
     if act_fmt_enabled() == "int8":
-        out = wqt_matmul_a8_x(x2, qt.codes, qt.scales, block_k=qt.block_k,
-                              bits=qt.bits)
-    else:
-        out = wqt_matmul(x2, qt.codes, qt.scales, block_k=qt.block_k,
-                         bits=qt.bits)
-    return out.reshape(lead + (qt.out_dim,))
+        return wqt_matmul_a8_x(x2, codes, scales, block_k=qt.block_k,
+                               bits=qt.bits)
+    return wqt_matmul(x2, codes, scales, block_k=qt.block_k, bits=qt.bits)
+
+
+def _matmul_experts(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    e = qt.codes.shape[0]
+    if x.ndim != 3 or x.shape[0] != e:
+        raise ValueError(f"batched QTensor (E={e}) needs x of shape "
+                         f"(E, M, K), got {tuple(x.shape)}")
+    scales = qt.scales
+    if qt.block_k == -1 and scales.shape[0] != e:
+        scales = torch.broadcast_to(scales, (e,) + tuple(scales.shape[-2:]))
+    outs = [_matmul_2d(x[i].contiguous(), qt.codes[i],
+                       scales[i].contiguous(), qt) for i in range(e)]
+    return torch.stack(outs)
 
 
 # --------------------------------------------------------------------------
@@ -229,8 +247,8 @@ def quantize_params(params, fmt, policy: Optional[QuantPolicy] = None,
                     uniforms: Optional[Dict[str, torch.Tensor]] = None,
                     generator: Optional[torch.Generator] = None):
     """Convert eligible weight leaves to QTensor storage; eligible leaves
-    that cannot become a QTensor get the dense RTN or RR cast, the rest
-    stay.
+    that cannot become a QTensor (routers, 4-D expert stacks) get the
+    dense RTN or RR cast through the ``quant`` kernel, the rest stay.
 
     ``mode="rr"`` casts a convertible leaf by unbiased randomized rounding
     IN THE STORED ORIENTATION, in fp32, through the ``quant`` kernel, and
@@ -240,8 +258,7 @@ def quantize_params(params, fmt, policy: Optional[QuantPolicy] = None,
     cast sees (stored for convertible leaves, as given otherwise): from
     ``uniforms`` (``{path_str: tensor}``) or drawn from ``generator`` leaf
     by leaf in tree order."""
-    from ..kernels.quant import quant_rr
-    from . import quantize as qz
+    from ..kernels.quant import quant_rr, quant_rtn
     from .modes import leaf_uniforms
     if mode == "rr":
         if uniforms is None and generator is None:
@@ -264,7 +281,7 @@ def quantize_params(params, fmt, policy: Optional[QuantPolicy] = None,
             return quantize_qtensor(stored, fmt, block_size)
         if mode == "rr":
             return rr(path, x)
-        return qz.cast_rtn(x, fmt, block_size)
+        return quant_rtn(x, fmt.name, block_size)
 
     return policy.map_eligible(leaf, params)
 

@@ -12,7 +12,13 @@ after every tick (``--chaos``).
         --smoke --device cpu --scheduler --paged --prefill-chunk 16 \\
         --prefix-cache --kv-quant int8 --weights rtn:int4 --act-fmt int8
 
-The flags are those of ``repro.launch.serve``, plus ``--device`` (default
+Every config of ``repro_torch.configs.ARCHS`` is served: MoE configs
+(``dbrx-132b``, ``moonshot-v1-16b-a3b``) keep their 4-D expert stacks as
+the dense cast and refuse ``--prefill-chunk``; ``musicgen-medium``
+decodes (b, 1, 4) codebook frames on the static path only.
+
+The flags are those of ``repro.launch.serve``, plus ``--layers`` (cut the
+depth) and ``--device`` (default
 ``cuda``; ``cpu`` runs the kernels' plain versions).  ``--mesh`` is
 refused (the distributed launch is ROADMAP Queue 1 item 8), and there is
 no ``--use-kernel``: the port always runs its kernels on the card.
@@ -21,6 +27,7 @@ no ``--use-kernel``: the port always runs its kernels on the card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -127,7 +134,8 @@ def _chaos(cfg, params, args, dev, kv_quant):
 def _static(cfg, params, args, dev, kv_quant, stored_bytes, dense_bytes):
     """Batched prefill, then ``new_tokens`` greedy decode steps."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    toks = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+    books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    toks = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len) + books,
                          generator=gen, device=dev)
     cache_len = args.prompt_len + args.new_tokens
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -160,6 +168,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to N layers (a multiple of the "
+                         "config's unit), e.g. for MoE configs whose fp32 "
+                         "weights do not fit the card")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--mesh", default=None,
@@ -209,6 +221,12 @@ def main(argv=None):
             "yet: ROADMAP Queue 1 item 8")
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if cfg.n_codebooks > 1 and (args.scheduler or args.chaos):
+        ap.error(f"{cfg.name} decodes {cfg.n_codebooks}-codebook frames: "
+                 f"the static path only (the request queue holds token "
+                 f"lists)")
     params = lm_init(cfg, seed=0, device=dev)
     dense_bytes = param_nbytes(params)
     if args.weights != "fp32":

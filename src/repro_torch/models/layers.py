@@ -1,6 +1,6 @@
 """Transformer layers of the port (``repro.models.layers``): norms, RoPE,
 GQA attention (full sequence and one-token decode, sliding window, logit
-softcap, QK-norm), the quantized KV cache and the MLP.
+softcap, QK-norm), the quantized KV cache, the MLP and the GShard MoE.
 
 Layers are functional, as in the JAX package: ``*_init`` returns a dict of
 tensors, ``*_apply`` takes (params, inputs).  The compute dtype is the
@@ -11,7 +11,9 @@ card) and quantized-cache decode through the ``decode_attn`` kernel, or
 ``decode_attn_paged`` over the paged KV pool (``attn_decode_paged``).
 Chunked prefill (``attn_chunk_apply``) and streaming attention over key
 chunks (``attn_apply(chunk=)``, ``_streaming_sdpa``) are plain torch, as
-in JAX.
+in JAX; so are the MoE's routing, its one-hot dispatch and combine, and
+its dense expert einsums (JAX's are outside any Pallas kernel too);
+QTensor experts go through the 3-D QTensor matmul.
 """
 
 from __future__ import annotations
@@ -180,7 +182,7 @@ def attn_apply(params, spec: AttnSpec, x: torch.Tensor,
     if spec.is_cross:
         raise NotImplementedError(
             "cross-attention (xattn) is not ported yet: ROADMAP Queue 1 "
-            "item 7")
+            "item 7(e)")
     b, l, _ = x.shape
     q, k, v = _qkv(params, spec, x)
     q = apply_rope(q, positions, spec.rope_theta)
@@ -335,7 +337,7 @@ def attn_decode(params, spec: AttnSpec, x: torch.Tensor, pos: torch.Tensor,
     if spec.is_cross:
         raise NotImplementedError(
             "cross-attention (xattn) decode is not ported yet: ROADMAP "
-            "Queue 1 item 7")
+            "Queue 1 item 7(e)")
     b = x.shape[0]
     g = spec.n_kv_heads
     rep = spec.n_heads // g
@@ -487,7 +489,7 @@ def attn_chunk_apply(params, spec: AttnSpec, x: torch.Tensor,
     if spec.is_cross:
         raise NotImplementedError(
             "cross-attention (xattn) is not ported yet: ROADMAP Queue 1 "
-            "item 7")
+            "item 7(e)")
     b, cw, _ = x.shape
     g = spec.n_kv_heads
     rep = spec.n_heads // g
@@ -606,3 +608,137 @@ def mlp_apply(params, spec: MLPSpec, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(up, approximate="tanh")
     return matmul(h, params["w_down"])
+
+
+# --------------------------------------------------------------------------
+# MoE (GShard capacity dispatch, dense one-hot einsums)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    d_model: int
+    d_ff: int              # per-expert hidden
+    n_experts: int
+    top_k: int
+    kind: str = "swiglu"
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    group_size: int = 2048  # dispatch group: keeps the one-hot O(G*E*C)
+
+
+def moe_init(gen: torch.Generator, spec: MoESpec, device, lead=()):
+    """Router (..., d, E) and expert stacks (..., E, d, f) / (..., E, f,
+    d), at JAX's init scales; ``lead`` prepends the layer repeats."""
+    lead = tuple(lead)
+    e, d, f = spec.n_experts, spec.d_model, spec.d_ff
+    p = {"router": dense_init(gen, lead + (d, e), device, scale=0.02),
+         "w_up": dense_init(gen, lead + (e, d, f), device),
+         "w_down": dense_init(gen, lead + (e, f, d), device)}
+    if spec.kind in ("swiglu", "geglu"):
+        p["w_gate"] = dense_init(gen, lead + (e, d, f), device)
+    return p
+
+
+def _moe_expert_matmul(xin: torch.Tensor, w) -> torch.Tensor:
+    """Per-expert matmul ``xin (g, e, c, d) @ w (e, d, f) -> (g, e, c, f)``:
+    one einsum for dense experts (cast to the compute dtype, as JAX does),
+    the 3-D QTensor matmul over the experts' (g*c, d) slabs for QTensor
+    experts (stored (e, f, d))."""
+    if isinstance(w, QTensor):
+        g, e, c, d = xin.shape
+        xe = xin.permute(1, 0, 2, 3).reshape(e, g * c, d)
+        out = _qt_matmul(xe, w).to(xin.dtype)
+        return out.reshape(e, g, c, -1).permute(1, 0, 2, 3)
+    return torch.einsum("gecd,edf->gecf", xin, w.to(xin.dtype))
+
+
+def moe_route(router: torch.Tensor, spec: MoESpec, xt: torch.Tensor,
+              b: int, l: int, token_mask: Optional[torch.Tensor] = None):
+    """Routing of grouped tokens xt (g, t, d): fp32 router probabilities
+    (g, t, E), the top-k experts ``topi`` (g, t, k) with their normalized
+    weights ``topv``, each choice's queue position ``pos`` and whether it
+    fits the group's capacity ``keep``, the one-hot choices ``onehot``
+    (g, t, k, E) int32 (zero for rows that ``token_mask`` (b,) drops) and
+    the capacity.  Ties of the top-k go to the lower expert index, as
+    ``jax.lax.top_k`` takes them (a stable descending sort)."""
+    n_g, g_sz = xt.shape[0], xt.shape[1]
+    e, k = spec.n_experts, spec.top_k
+    logits = (xt @ router.to(xt.dtype)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                        # (g, t, e)
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = srt.values[..., :k], srt.indices[..., :k]       # (g, t, k)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+
+    cap = int(np.ceil(g_sz * spec.top_k / e * spec.capacity_factor))
+    cap = max(cap, spec.top_k)
+
+    onehot = F.one_hot(topi, e).to(torch.int32)                  # (g, t, k, e)
+    if token_mask is not None:
+        tm = torch.broadcast_to(token_mask[:, None], (b, l)).reshape(n_g,
+                                                                     g_sz)
+        onehot = onehot * tm[..., None, None].to(onehot.dtype)
+    # position of each (token, choice) in its expert's queue, token-major
+    # over the group: an exact int32 cumsum
+    pos_in_e = torch.cumsum(onehot.reshape(n_g, g_sz * k, e), dim=1,
+                            dtype=torch.int32).reshape(n_g, g_sz, k, e) \
+        - onehot
+    pos = torch.sum(pos_in_e * onehot, dim=-1, dtype=torch.int32)  # (g, t, k)
+    keep = pos < cap
+    pos = torch.where(keep, pos, 0).to(torch.int32)
+    return dict(probs=probs, topv=topv, topi=topi, onehot=onehot, pos=pos,
+                keep=keep, cap=cap)
+
+
+def moe_groups(spec: MoESpec, b: int, l: int) -> int:
+    """Tokens per dispatch group: ``group_size`` when it divides the b*l
+    tokens, else one group per sequence (or one group of all of them)."""
+    t = b * l
+    g_sz = min(spec.group_size, t)
+    if t % g_sz != 0:
+        g_sz = l if t % l == 0 else t
+    return g_sz
+
+
+def moe_apply(params, spec: MoESpec, x: torch.Tensor,
+              token_mask: Optional[torch.Tensor] = None):
+    """Capacity-based top-k dispatch (GShard) of x (b, l, d) -> (b, l, d)
+    in groups of ``moe_groups`` tokens, capacity enforced per group, with
+    dense one-hot dispatch and combine einsums in the compute dtype (0/1
+    one-hots are exact in bf16).  ``token_mask`` (b,) drops rows from the
+    dispatch entirely: they take no expert capacity and get zero output.
+    Returns (out, aux) with the GShard load-balance terms."""
+    b, l, d = x.shape
+    e = spec.n_experts
+    g_sz = moe_groups(spec, b, l)
+    n_g = (b * l) // g_sz
+
+    xt = x.reshape(n_g, g_sz, d)
+    r = moe_route(params["router"], spec, xt, b, l, token_mask)
+    probs, topv, topi = r["probs"], r["topv"], r["topi"]
+
+    kept = (r["onehot"] * r["keep"][..., None]).to(x.dtype)      # (g, t, k, e)
+    cap_onehot = F.one_hot(r["pos"].long(), r["cap"]).to(x.dtype)  # (g,t,k,c)
+    dispatch = torch.einsum("gtke,gtkc->gtec", kept, cap_onehot)
+    combine = torch.einsum("gtke,gtkc,gtk->gtec", kept, cap_onehot,
+                           topv.to(x.dtype))
+
+    xin = torch.einsum("gtec,gtd->gecd", dispatch, xt)
+    up = _moe_expert_matmul(xin, params["w_up"])
+    if spec.kind in ("swiglu", "geglu"):
+        gate = _moe_expert_matmul(xin, params["w_gate"])
+        act = (F.silu(gate) if spec.kind == "swiglu"
+               else F.gelu(gate, approximate="tanh"))
+        h = act * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    eout = _moe_expert_matmul(h, params["w_down"])
+    out = torch.einsum("gtec,gecd->gtd", combine, eout)
+
+    # GShard aux loss: mean fraction of tokens per expert * mean router prob
+    me = torch.mean(F.one_hot(topi[..., 0], e).to(torch.float32),
+                    dim=(0, 1))
+    ce_ = torch.mean(probs, dim=(0, 1))
+    aux = {"load_balance_loss": e * torch.sum(me * ce_),
+           "router_entropy": -torch.mean(torch.sum(
+               probs * torch.log(probs + 1e-9), -1))}
+    return out.reshape(b, l, d), aux

@@ -1,6 +1,9 @@
 """Language model of the port (``repro.models.lm``), attention-family
 patterns only: ``attn`` (global) and ``local`` (sliding window) blocks,
-each followed by a dense MLP.
+each followed by a dense MLP or a GShard MoE (``ffn="moe"``: top-k
+experts under a per-group capacity, plus ``n_shared_experts`` always-on
+experts as one wider MLP); ``n_codebooks > 1`` sums one embedding per
+codebook and gives each its head (MusicGen's token frames (b, l, C)).
 
 A model is a unit ``pattern`` of block kinds tiled ``n_repeats`` times.
 Parameters keep the JAX tree's layout: unit leaves are stacked along a
@@ -21,9 +24,9 @@ slot rows or pool blocks, ``quantize_cache`` converts a dense cache to
 codes.  The caches are updated in place.  ``LMConfig.act_fmt``
 fake-quantizes the two normed inputs of every block (RTN, one scale per
 batch row, straight-through in backward) in the full-sequence forward
-only, as JAX does: prefill, chunked prefill and decode ignore it.  MoE,
-SSM (mamba/rwkv), cross-attention, multi-codebook heads and the shared
-zamba block are not in these slices of the port and raise
+only, as JAX does: prefill, chunked prefill and decode ignore it.  SSM
+blocks (mamba/rwkv), cross-attention, the shared zamba block and image
+tokens are not in these slices of the port and raise
 ``NotImplementedError``.
 """
 
@@ -40,9 +43,10 @@ from .. import resolve_device
 from ..core.qtensor import QTensor
 from ..core.policy import tree_leaves, tree_map_with_path
 from . import layers
-from .layers import (AttnSpec, MLPSpec, attn_apply, attn_chunk_apply,
-                     attn_decode, attn_decode_paged, attn_init, dense_init,
-                     matmul, mlp_apply, mlp_init, rms_norm)
+from .layers import (AttnSpec, MLPSpec, MoESpec, attn_apply,
+                     attn_chunk_apply, attn_decode, attn_decode_paged,
+                     attn_init, dense_init, matmul, mlp_apply, mlp_init,
+                     moe_apply, moe_init, rms_norm)
 
 ATTN_KINDS = ("attn", "local", "xattn")
 PORTED_KINDS = ("attn", "local")
@@ -131,6 +135,17 @@ class LMConfig:
     def mlp_spec(self) -> MLPSpec:
         return MLPSpec(d_model=self.d_model, d_ff=self.d_ff, kind=self.mlp_kind)
 
+    def moe_spec(self) -> MoESpec:
+        return MoESpec(d_model=self.d_model, d_ff=self.d_ff,
+                       n_experts=self.n_experts, top_k=self.top_k,
+                       kind=self.mlp_kind,
+                       capacity_factor=self.capacity_factor)
+
+    def shared_mlp_spec(self) -> MLPSpec:
+        """The shared experts, one MLP ``n_shared_experts`` times wider."""
+        return MLPSpec(self.d_model, self.d_ff * self.n_shared_experts,
+                       self.mlp_kind)
+
 
 def check_ported(cfg: LMConfig) -> None:
     """Raise NotImplementedError for features outside this slice."""
@@ -138,16 +153,15 @@ def check_ported(cfg: LMConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {bad} are not ported yet: ROADMAP "
-            f"Queue 1 item 7 (mamba/rwkv in models/ssm.py, xattn)")
-    unported = {"ffn": cfg.ffn != "dense",
-                "n_codebooks": cfg.n_codebooks > 1,
-                "shared_attn_every": bool(cfg.shared_attn_every),
-                "n_image_tokens": bool(cfg.n_image_tokens)}
-    for field, bad in unported.items():
+            f"Queue 1 item 7(d) (mamba/rwkv in models/ssm.py) and 7(e) "
+            f"(xattn)")
+    unported = {"shared_attn_every": ("7(d)", bool(cfg.shared_attn_every)),
+                "n_image_tokens": ("7(e)", bool(cfg.n_image_tokens))}
+    for field, (item, bad) in unported.items():
         if bad:
             raise NotImplementedError(
                 f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported "
-                f"yet: ROADMAP Queue 1 item 7")
+                f"yet: ROADMAP Queue 1 item {item}")
 
 
 # ==========================================================================
@@ -163,8 +177,14 @@ def _block_init(gen, cfg: LMConfig, kind: str, device, r: int):
     p: Dict[str, Any] = {"pre_norm_scale": ones(),
                          "attn": attn_init(gen, cfg.attn_spec(kind), device,
                                            lead),
-                         "ffn_norm_scale": ones(),
-                         "mlp": mlp_init(gen, cfg.mlp_spec(), device, lead)}
+                         "ffn_norm_scale": ones()}
+    if cfg.ffn == "moe":
+        p["moe"] = moe_init(gen, cfg.moe_spec(), device, lead)
+        if cfg.n_shared_experts:
+            p["shared_mlp"] = mlp_init(gen, cfg.shared_mlp_spec(), device,
+                                       lead)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.mlp_spec(), device, lead)
     if cfg.use_post_norm:
         p["post_norm_scale"] = ones()
         p["ffn_post_norm_scale"] = ones()
@@ -179,15 +199,17 @@ def lm_init(cfg: LMConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     check_ported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
+    books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
     params: Dict[str, Any] = {
-        "embed": torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+        "embed": torch.randn(books + (cfg.vocab, cfg.d_model), generator=gen,
                              device=device) * 0.02}
     r = cfg.n_repeats
     params["stage"] = {f"b{i}_{kind}": _block_init(gen, cfg, kind, device, r)
                        for i, kind in enumerate(cfg.pattern)}
     params["final_norm_scale"] = torch.ones((cfg.d_model,), device=device)
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), device)
+        params["lm_head"] = dense_init(gen, books + (cfg.d_model, cfg.vocab),
+                                       device)
     return params
 
 
@@ -215,8 +237,16 @@ def unbind_stage(stage) -> List[Dict[str, Any]]:
 
 
 def _embed(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings (b, l, d) in the compute dtype; with codebooks,
+    tokens (b, l, C) and the sum of the C tables' rows, in codebook order
+    (the tables stay dense: the packer converts 2-D embeds only)."""
     emb = params["embed"]
-    x = emb.take(tokens) if isinstance(emb, QTensor) else emb[tokens]
+    if cfg.n_codebooks > 1:
+        x = emb[0][tokens[..., 0]]
+        for c in range(1, cfg.n_codebooks):
+            x = x + emb[c][tokens[..., c]]
+    else:
+        x = emb.take(tokens) if isinstance(emb, QTensor) else emb[tokens]
     x = x.to(cfg.dtype)
     if cfg.emb_scale:
         # JAX multiplies by a NumPy float32 scalar, which promotes bf16 to
@@ -227,9 +257,18 @@ def _embed(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _head(params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    """Logits (b, l, vocab) fp32, or (b, l, C, vocab) with codebooks."""
     x = rms_norm(x, params["final_norm_scale"])
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    if isinstance(w, QTensor):
+    if cfg.n_codebooks > 1:
+        if isinstance(w, QTensor):
+            # JAX's head is an einsum on the dense (C, ...) stack too
+            raise ValueError(f"{cfg.name}: the {cfg.n_codebooks}-codebook "
+                             f"head is served dense; quantize it with "
+                             f"include_embeddings=False")
+        eq = "bld,cvd->blcv" if cfg.tie_embeddings else "bld,cdv->blcv"
+        logits = torch.einsum(eq, x, w.to(x.dtype))
+    elif isinstance(w, QTensor):
         logits = matmul(x, w)           # out-major (vocab, d) either way
     else:
         logits = x @ (w.T if cfg.tie_embeddings else w).to(x.dtype)
@@ -250,17 +289,26 @@ def _act_q(cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def _apply_ffn(p, cfg: LMConfig, x: torch.Tensor, o: torch.Tensor,
-               quantize_acts: bool = False):
-    """Residual add of the attention output ``o``, then the MLP sub-block
-    (its normed input fake-quantized under ``cfg.act_fmt`` when
-    ``quantize_acts``: the full-sequence forward only)."""
+               quantize_acts: bool = False,
+               token_mask: Optional[torch.Tensor] = None):
+    """Residual add of the attention output ``o``, then the MLP or MoE
+    sub-block (its normed input fake-quantized under ``cfg.act_fmt`` when
+    ``quantize_acts``: the full-sequence forward only, before the router
+    too).  ``token_mask`` (b,) reaches the MoE dispatch: decode under
+    continuous batching drops dead rows from it."""
     if cfg.use_post_norm:
         o = rms_norm(o, p["post_norm_scale"])
     x = x + o
     h = rms_norm(x, p["ffn_norm_scale"])
     if quantize_acts:
         h = _act_q(cfg, h)
-    h = mlp_apply(p["mlp"], cfg.mlp_spec(), h)
+    if cfg.ffn == "moe":
+        hm, _ = moe_apply(p["moe"], cfg.moe_spec(), h, token_mask=token_mask)
+        if cfg.n_shared_experts:
+            hm = hm + mlp_apply(p["shared_mlp"], cfg.shared_mlp_spec(), h)
+        h = hm
+    else:
+        h = mlp_apply(p["mlp"], cfg.mlp_spec(), h)
     if cfg.use_post_norm:
         h = rms_norm(h, p["ffn_post_norm_scale"])
     return x + h
@@ -309,7 +357,7 @@ def _trunk(params, cfg: LMConfig, tokens: torch.Tensor,
 
 def lm_forward(params, cfg: LMConfig, tokens: torch.Tensor,
                attn_chunk: Optional[int] = None) -> torch.Tensor:
-    """Training forward: logits (b, l, vocab) in fp32."""
+    """Training forward: logits (b, l, [C,] vocab) in fp32."""
     return _head(params, cfg, _trunk(params, cfg, tokens, attn_chunk))
 
 
@@ -629,9 +677,10 @@ def lm_decode(params, cfg: LMConfig, cache, tokens: torch.Tensor,
     int32, ``cache`` is the paged pool (leaves (r, n_blocks, block_size,
     kvh, ...), shared by every row) and attention reads and writes go
     through the tables.  ``token_mask`` (b,) marks the live rows under
-    continuous batching; only MoE routing reads it in JAX, and MoE is not
-    in these slices, so it changes nothing here.  Returns (logits (b, 1,
-    V) fp32, cache) with ``cache`` the same object that was passed in."""
+    continuous batching; only the MoE dispatch reads it (dead rows take
+    no expert capacity).  With codebooks tokens are (b, 1, C).  Returns
+    (logits (b, 1, [C,] V) fp32, cache) with ``cache`` the same object
+    that was passed in."""
     check_ported(cfg)
     if block_tables is not None:
         first = next(iter(cache["unit"].values()))["k"]
@@ -657,5 +706,5 @@ def lm_decode(params, cfg: LMConfig, cache, tokens: torch.Tensor,
             else:
                 o, _, _ = attn_decode(p["attn"], cfg.attn_spec(kind), h, pos,
                                       ck, cv)
-            x = _apply_ffn(p, cfg, x, o)
+            x = _apply_ffn(p, cfg, x, o, token_mask=token_mask)
     return _head(params, cfg, x), cache

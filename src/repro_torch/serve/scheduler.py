@@ -200,7 +200,10 @@ class Scheduler:
             if not self._mask_pads or "xattn" in cfg.pattern:
                 raise ValueError(
                     f"chunked prefill requires a self-attention-only "
-                    f"dense-FFN pattern; {cfg.name} has "
+                    f"dense-FFN pattern (recurrent blocks do not thread "
+                    f"state across chunks; capacity-based MoE routing is "
+                    f"chunk-dependent; xattn has no encoder context on "
+                    f"the serving path); {cfg.name} has "
                     f"pattern={cfg.pattern}, ffn={cfg.ffn}")
         n, cl = sched.n_slots, sched.cache_len
         dt = cfg.dtype

@@ -267,6 +267,11 @@ def make_train_step(cfg: LMConfig, tcfg: TrainConfig, optimizer,
 
     def train_step(state, batch):
         params = state["params"]
+        if cfg.ffn == "moe" and tree_leaves(params)[0].device.type == "cuda":
+            raise NotImplementedError(
+                f"{cfg.name}: MoE training on the card (opt_step and "
+                f"lotion_reg over the 4-D expert stacks) is not ported yet: "
+                f"ROADMAP Queue 1 item 10")
         # pre-update Fisher (AdamW's nu), read through the chain
         fisher = tx.fisher(state["opt"])
         if fisher is None:

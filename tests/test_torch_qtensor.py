@@ -178,6 +178,13 @@ def test_quantize_params_rr_matches_jax(bits, block_k):
 
 
 def test_unsupported_storage_raises():
+    """3-D (expert-stack) storage is served now (held to JAX in
+    test_torch_moe.py); x that is not (E, M, K) and storage above 3-D
+    are refused, as JAX refuses them."""
     qt = tqt.quantize_qtensor(torch.zeros(2, 4, 8), "int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqt.matmul(torch.zeros(2, 3, 8), qt)
+    assert tqt.matmul(torch.zeros(2, 3, 8), qt).shape == (2, 3, 4)
+    with pytest.raises(ValueError, match="E, M, K"):
+        tqt.matmul(torch.zeros(3, 8), qt)
+    qt4 = tqt.quantize_qtensor(torch.zeros(2, 2, 4, 8), "int8")
+    with pytest.raises(ValueError, match="unsupported QTensor rank"):
+        tqt.matmul(torch.zeros(2, 2, 3, 8), qt4)

@@ -368,8 +368,9 @@ def test_run_loop_counts_and_skip_budget():
 
 def test_features_outside_the_slice_raise():
     """Streaming attention and the chunked head are ported now (held to
-    JAX in test_torch_streaming.py); the MoE FFN and SSM blocks still
-    raise, naming their ROADMAP item."""
+    JAX in test_torch_streaming.py), and so is the MoE FFN (trained on
+    the CPU in test_torch_archs.py); SSM blocks, the shared zamba block
+    and image tokens still raise, naming their ROADMAP item."""
     params = _tparams()
     toks = torch.zeros(1, 8, dtype=torch.long)
     with torch.no_grad():
@@ -377,7 +378,8 @@ def test_features_outside_the_slice_raise():
         chunked = tlm.lm_loss(params, TCFG, toks, toks, attn_chunk=4,
                               logit_chunk=4)
     assert _rel(chunked, full) <= RTOL
-    for bad in (dict(ffn="moe"), dict(pattern=("mamba",))):
+    for bad in (dict(shared_attn_every=2), dict(n_image_tokens=4),
+                dict(pattern=("mamba",))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlm.lm_forward(params, dataclasses.replace(TCFG, **bad), toks)
 
