@@ -3290,14 +3290,40 @@ def _n_qt_matmuls(cfg):
     return 4 + mlp
 
 
+def _qt_per_forward(cfg, include_embeddings=False):
+    """QTensor matmuls of one forward under the default serving policy:
+    ``_n_qt_matmuls`` per attention layer, none for a mamba or rwkv block
+    (the packer keeps their projections dense), the shared block's
+    (Zamba2: q, k, v, o and its MLP) once per unit, and the head where
+    the embeddings are quantized."""
+    attn = sum(kind in ("attn", "local") for kind in cfg.pattern)
+    units = attn + (1 if cfg.shared_attn_every else 0)
+    return _n_qt_matmuls(cfg) * units * cfg.n_repeats + int(
+        include_embeddings)
+
+
+def _attn_per_step(cfg):
+    """``decode_attn`` launches of one decode step: one per attention
+    layer and one per unit's shared block."""
+    attn = sum(kind in ("attn", "local") for kind in cfg.pattern)
+    return (attn + (1 if cfg.shared_attn_every else 0)) * cfg.n_repeats
+
+
+# eligible leaves per block kind that the packer keeps dense: Mamba2's
+# in_proj, out_proj, conv_w and conv_b (a (repeats, conv_dim) matrix once
+# stacked); RWKV6's five time-mix and three channel-mix projections
+SSM_DENSE_LEAVES = {"mamba": 4, "rwkv": 8}
+
+
 def _dense_cast_leaves(cfg):
     """Eligible leaves that the packer cannot make QTensors and casts
     through ``quant`` instead: per block kind of an MoE config, the router
-    and the 4-D expert stacks."""
+    and the 4-D expert stacks; the SSM blocks' projections."""
+    n = sum(SSM_DENSE_LEAVES.get(kind, 0) for kind in cfg.pattern)
     if cfg.ffn != "moe":
-        return 0
-    return len(cfg.pattern) * (4 if cfg.mlp_kind in ("swiglu", "geglu")
-                               else 3)
+        return n
+    return n + len(cfg.pattern) * (4 if cfg.mlp_kind in ("swiglu", "geglu")
+                                   else 3)
 
 
 def _step_bytes(cfg, params):
@@ -3323,12 +3349,14 @@ def _step_bytes(cfg, params):
     return tuple(total)
 
 
-def _serve_static(dev, cfg, *, seed, prompts, mnt, why):
+def _serve_static(dev, cfg, *, seed, prompts, mnt, why,
+                  include_embeddings=False):
     """Static ``Engine`` serving of ``cfg`` from random weights of
-    ``seed``: int4 QTensor weights (MoE expert stacks and routers as the
-    dense RTN cast through ``quant``), int8 KV, greedy.  Launches are
-    counted over the weight preparation and over the generation; returns
-    (row, engine)."""
+    ``seed``: int4 QTensor weights (MoE expert stacks and routers, and
+    the SSM blocks' projections, as the dense RTN cast through ``quant``;
+    the embedding and head too with ``include_embeddings``), int8 KV,
+    greedy.  Launches are counted over the weight preparation and over
+    the generation; returns (row, engine)."""
     from repro_torch.core import param_nbytes
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.lm import lm_init
@@ -3341,8 +3369,9 @@ def _serve_static(dev, cfg, *, seed, prompts, mnt, why):
     init_s, fp32_bytes = time.perf_counter() - t0, param_nbytes(params)
     reset_launch_counts()
     t0 = time.perf_counter()
-    eng = Engine(cfg, params, ServeConfig(weights="rtn:int4", kv_quant="int8",
-                                          max_new_tokens=mnt), device=dev)
+    eng = Engine(cfg, params, ServeConfig(
+        weights="rtn:int4", kv_quant="int8", max_new_tokens=mnt,
+        include_embeddings=include_embeddings), device=dev)
     torch.cuda.synchronize()
     prepare_s, prep_counts = time.perf_counter() - t0, launch_counts()
     del params
@@ -3363,8 +3392,8 @@ def _serve_static(dev, cfg, *, seed, prompts, mnt, why):
     prefill_s = time.perf_counter() - t0
 
     want = dict.fromkeys(counts, 0)
-    want.update(wqt_matmul=_n_qt_matmuls(cfg) * cfg.n_layers * mnt,
-                decode_attn=cfg.n_layers * (mnt - 1))
+    want.update(wqt_matmul=_qt_per_forward(cfg, include_embeddings) * mnt,
+                decode_attn=_attn_per_step(cfg) * (mnt - 1))
     want_prep = dict.fromkeys(counts, 0)
     want_prep.update(quant=_dense_cast_leaves(cfg))
     stored, moved = _step_bytes(cfg, eng.params)
@@ -3375,6 +3404,7 @@ def _serve_static(dev, cfg, *, seed, prompts, mnt, why):
     row = dict(model=cfg.name, n_layers=cfg.n_layers,
                full_n_layers=zoo_cfg(cfg.name).n_layers, depth_reason=why,
                d_model=cfg.d_model, dtype=str(cfg.dtype), weights="rtn:int4",
+               include_embeddings=include_embeddings,
                kv_quant="int8", batch=len(prompts),
                prompt_lens=sorted({len(p) for p in prompts}),
                max_new_tokens=mnt, fp32_gb=fp32_bytes / 1e9,
@@ -3451,7 +3481,8 @@ def _compare_routes(card, cpu):
 
 
 def _cut_vs_cpu(dev, cfg, *, seed, prompts, steps, why,
-                rtol=(ZOO_CPU_RTOL, ZOO_KV_RTOL), phase=None):
+                rtol=(ZOO_CPU_RTOL, ZOO_KV_RTOL), phase=None,
+                state_rtol=None):
     """``cfg`` (TF32 off) from the same random weights on the card and on
     the CPU, int4 QTensor weights and int8 KV as served: prefill of the
     left-padded prompts (per-row ``prompt_lens`` where the Engine masks
@@ -3462,9 +3493,12 @@ def _cut_vs_cpu(dev, cfg, *, seed, prompts, steps, why,
     are closer than twice that.  For MoE configs the routing (top-k,
     capacity verdicts, queue positions) is equal, or parts first at near
     ties shown for every token whose top-k differs; the steps from the
-    one that parts are then not held, every step before it is.  Returns
-    the row (emitted, with ``phase``, where given); raises
-    AssertionError(message, row) on a failure."""
+    one that parts are then not held, every step before it is.  With
+    ``state_rtol`` the recurrent states after the prefill (each ``ssm``
+    and ``wkv`` leaf) are held within that fraction of the CPU's largest
+    value of the leaf.  Returns the row (emitted, with ``phase``, where
+    given); raises AssertionError(message, row) on a failure."""
+    from repro_torch import bridge
     from repro_torch.core.policy import tree_map_with_path
     from repro_torch.models.lm import lm_decode, lm_init, lm_prefill
     from repro_torch.serve import ServeConfig
@@ -3497,6 +3531,10 @@ def _cut_vs_cpu(dev, cfg, *, seed, prompts, steps, why,
                 cache_len=cache_len, kv_quant="int8",
                 prompt_lens=torch.tensor(lens, device=device)
                 if masked else None)
+            # copies: decode updates the cache in place
+            states.append({k: v.float().cpu().clone() for k, v in
+                           bridge.flatten(cache).items()
+                           if k.rsplit("/", 1)[-1] in ("ssm", "wkv")})
             pos = torch.tensor(lens if masked else [width] * b,
                                device=device) - 1
             for s in range(steps + 1):
@@ -3511,6 +3549,7 @@ def _cut_vs_cpu(dev, cfg, *, seed, prompts, steps, why,
                                       tok.to(device)[:, None].long(), pos)
         return out, fed
 
+    states = []
     with _recorded_routes() as cpu_routes:
         cpu_out, fed = run(cpu_p, torch.device("cpu"))
     with _recorded_routes() as card_routes:
@@ -3542,6 +3581,11 @@ def _cut_vs_cpu(dev, cfg, *, seed, prompts, steps, why,
                   if p["step"] < held))
     if cfg.ffn == "moe":
         ok = ok and drops > 0
+    state_err = {k: float((states[1][k] - c).abs().max()
+                          / c.abs().max().clamp_min(1e-30))
+                 for k, c in states[0].items()}
+    if state_rtol is not None:
+        ok = ok and bool(state_err) and max(state_err.values()) <= state_rtol
     row = dict(model=cfg.name, n_layers=cfg.n_layers, depth_reason=why,
                dtype=str(cfg.dtype).replace("torch.", ""), weights="rtn:int4",
                kv_quant="int8", batch=b, prompt_lens=lens, steps=steps,
@@ -3550,13 +3594,76 @@ def _cut_vs_cpu(dev, cfg, *, seed, prompts, steps, why,
                greedy_tokens_identical=not partings,
                routing=None if not cpu_routes else dict(
                    calls=len(cpu_routes), parted=routes,
-                   cpu_dropped_choices=drops), ok=bool(ok))
+                   cpu_dropped_choices=drops),
+               **({} if state_rtol is None else dict(
+                   state_rtol=state_rtol, state_rel_err=state_err)),
+               ok=bool(ok))
     if phase:
         row = dict(phase=phase, **row)
         emit(row)
     if not ok:
         raise AssertionError(f"{cfg.name}: card and CPU disagree", row)
     return row
+
+
+def _sched_run(dev, cfg, params, *, paged=False, include_embeddings=False):
+    """The continuous-batching Scheduler on a prepared tree: int8 KV (a
+    ring, or the paged pool in blocks of 16), per-slot prefill, int8
+    activations (``wqt_matmul_a8``), 8 slots, the 16 requests of
+    ``sched_workload``; launches derived from the schedule.  Returns
+    (row, checks)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import (COMPLETED, Scheduler, SchedulerConfig,
+                                   ServeConfig, check_drained)
+    from repro_torch.serve.replay import replay_continuous
+    sched = dict(n_slots=8, steps_per_tick=4, cache_len=256, paged=paged,
+                 block_size=16)
+    sch = Scheduler(cfg, params, ServeConfig(weights="fp32", kv_quant="int8",
+                                             act_fmt="int8",
+                                             max_new_tokens=32),
+                    SchedulerConfig(**sched), device=dev)
+    sch.generate(_prompts(np.random.default_rng(5), 2, 20, 40, cfg.vocab),
+                 max_new_tokens=5)                           # warm-up
+    wl = sched_workload(cfg.vocab)
+    before = dict(ticks=sch.n_ticks, prefills=sch.n_prefills,
+                  rid=sch._next_rid)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    rec = replay_continuous(sch, wl)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    ticks = sch.n_ticks - before["ticks"]
+    prefills = sch.n_prefills - before["prefills"]
+    k = sch.sched.steps_per_tick
+    want = dict.fromkeys(counts, 0)
+    want.update({"wqt_matmul_a8": _qt_per_forward(cfg, include_embeddings)
+                 * (ticks * k + prefills),
+                 "decode_attn_paged" if paged else "decode_attn":
+                 _attn_per_step(cfg) * ticks * k})
+    rids = range(before["rid"], before["rid"] + len(wl))
+    outs = [sch.requests[r].out for r in rids]
+    total = sum(len(o) for o in outs)
+    lat = np.asarray([rec["latency"][i] for i in sorted(rec["latency"])])
+    checks = {
+        "completed": all(sch.requests[r].state == COMPLETED for r in rids),
+        "budgets": [len(o) for o in outs] == [w.max_new_tokens for w in wl],
+        "vocab": all(0 <= t < cfg.vocab for o in outs for t in o),
+        "drained": check_drained(sch) == [],
+        "launches": counts == want}
+    row = dict(requests=len(wl), include_embeddings=include_embeddings,
+               kv_quant="int8", act_fmt="int8", sched=sched,
+               prompt_lens=[len(w.prompt) for w in wl],
+               makespan_s=rec["makespan"], tokens=total,
+               tok_per_s=total / rec["makespan"],
+               latency_p50_s=float(np.percentile(lat, 50)),
+               latency_p95_s=float(np.percentile(lat, 95)),
+               ticks=ticks, decode_steps=ticks * k, prefills=prefills,
+               launches=counts, expected_launches=want,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               request_tokens=outs)
+    del sch
+    return row, checks
 
 
 def serve_moe(dev):
@@ -3575,12 +3682,8 @@ def serve_moe(dev):
     its experts first).  Last, DBRX-132B at 2 full-width layers (16
     experts top-4, d_ff 10,752: 12.7 GB of fp32 experts a layer), static
     serving only."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.lm import (cache_insert, init_cache, lm_decode,
                                        lm_prefill)
-    from repro_torch.serve import (COMPLETED, Scheduler, SchedulerConfig,
-                                   ServeConfig, check_drained)
-    from repro_torch.serve.replay import replay_continuous
     cfg = zoo_cfg("moonshot-v1-16b-a3b", MOE_LAYERS)
     prompts = _prompts(np.random.default_rng(7), 8, 64, 128, cfg.vocab)
     static, eng = _serve_static(
@@ -3589,53 +3692,8 @@ def serve_moe(dev):
             "57 GB at 12 layers, 76 GB at 16")
     checks = {f"static_{k}": v for k, v in static.pop("checks").items()}
 
-    sch = Scheduler(cfg, eng.params,
-                    ServeConfig(weights="fp32", kv_quant="int8",
-                                act_fmt="int8", max_new_tokens=32),
-                    SchedulerConfig(n_slots=8, steps_per_tick=4,
-                                    cache_len=256, paged=True, block_size=16),
-                    device=dev)
-    sch.generate(_prompts(np.random.default_rng(5), 2, 20, 40, cfg.vocab),
-                 max_new_tokens=5)                           # warm-up
-    wl = sched_workload(cfg.vocab)
-    before = dict(ticks=sch.n_ticks, prefills=sch.n_prefills,
-                  rid=sch._next_rid)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    rec = replay_continuous(sch, wl)
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    ticks = sch.n_ticks - before["ticks"]
-    prefills = sch.n_prefills - before["prefills"]
-    k = sch.sched.steps_per_tick
-    want = dict.fromkeys(counts, 0)
-    want.update(wqt_matmul_a8=_n_qt_matmuls(cfg) * cfg.n_layers
-                * (ticks * k + prefills),
-                decode_attn_paged=cfg.n_layers * ticks * k)
-    rids = range(before["rid"], before["rid"] + len(wl))
-    outs = [sch.requests[r].out for r in rids]
-    total = sum(len(o) for o in outs)
-    lat = np.asarray([rec["latency"][i] for i in sorted(rec["latency"])])
-    checks.update({
-        "sched_completed": all(sch.requests[r].state == COMPLETED
-                               for r in rids),
-        "sched_budgets": [len(o) for o in outs]
-        == [w.max_new_tokens for w in wl],
-        "sched_vocab": all(0 <= t < cfg.vocab for o in outs for t in o),
-        "sched_drained": check_drained(sch) == [],
-        "sched_launches": counts == want})
-    sched = dict(requests=len(wl), kv_quant="int8", act_fmt="int8",
-                 paged=True, makespan_s=rec["makespan"], tokens=total,
-                 tok_per_s=total / rec["makespan"],
-                 latency_p50_s=float(np.percentile(lat, 50)),
-                 latency_p95_s=float(np.percentile(lat, 95)),
-                 ticks=ticks, decode_steps=ticks * k, prefills=prefills,
-                 launches=counts,
-                 expected_launches=want,
-                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                 first_tokens=[o[:8] for o in outs[:2]])
-    del sch
+    sched, sc = _sched_run(dev, cfg, eng.params, paged=True)
+    checks.update({f"sched_{k}": v for k, v in sc.items()})
 
     # dead rows: the live row in the last of 8 slots, masked rows holding
     # zeros or copies of the live row
@@ -3850,6 +3908,321 @@ def musicgen_decode(dev, b=4, l=64, steps=16):
     return row
 
 
+# --------------------------------------------------------------------------
+# phase 8: the SSM blocks: Zamba2-2.7B (Mamba2 SSD and its shared
+# attention block) and RWKV6-1.6B, served from random weights
+# --------------------------------------------------------------------------
+
+# the QTensor matmuls (N, K) of the SSM configs: Zamba2's shared block (q,
+# k, v, o; the gelu MLP's up and down) and, under include_embeddings, the
+# heads.  M: decode at batch 8 and the static prefill of 8 x 128 tokens
+# through the shared block; under int8 activations the scheduler's
+# per-slot prefill (72-128 tokens); a head reads one row per prompt
+SSM_WQT = {(2560, 2560): "zamba2 shared wq wk wv wo",
+           (10240, 2560): "zamba2 shared w_up",
+           (2560, 10240): "zamba2 shared w_down",
+           (32000, 2560): "zamba2 tied head",
+           (65536, 2048): "rwkv6 head"}
+SSM_HEADS = ((32000, 2560), (65536, 2048))
+SSM_WQT_MS = (8, 1024)
+SSM_A8_MS = (8, 72, 128)
+# Zamba2's shared rings: head_dim 80, 32 kv-heads, rep 1 (the fma
+# instance: 80 is no mma head_dim, and an int4 row of 40 bytes no 16-byte
+# multiple)
+SSM_ATTN = dict(b=8, g=32, rep=1, hd=80)
+SSM_ATTN_LS = (256, 2048)
+# every leaf the packer casts densely, at its full-depth stacked shape
+SSM_QUANT = [("zamba2 in_proj", (9, 2560, 10448)),
+             ("zamba2 out_proj", (9, 5120, 2560)),
+             ("zamba2 conv_w", (9, 4, 5248)),
+             ("zamba2 conv_b", (9, 5248)),
+             ("rwkv6 w_r w_k w_v w_g w_o w_r_cm", (24, 2048, 2048)),
+             ("rwkv6 w_k_cm", (24, 2048, 7168)),
+             ("rwkv6 w_v_cm", (24, 7168, 2048))]
+# card against CPU (fp32, TF32 off): the recurrent states after the
+# prefill, relative to each leaf's largest value.  Set from the first
+# card reading, about three times its worst (measured on an H100: 9.4e-6,
+# Zamba2's sixth SSM state; RWKV6's 7.7e-7)
+SSM_STATE_RTOL = 3e-5
+# chunked against the exact sequential scan on the card (fp32), which sum
+# in other orders over 1024 tokens; prefill + one decode step against the
+# full forward, as tests/test_torch_archs.py holds them
+SSM_EXACT_RTOL = 1e-4
+SSM_CONSISTENCY_RTOL = 1e-4
+SSM_CUTS = (("zamba2-2.7b", 6), ("rwkv6-1.6b", 2))
+
+
+def check_ssm_kernels(timer, dev):
+    """The serving kernels at the SSM configs' shapes: ``wqt_matmul`` at
+    the shared block's three (N, K) (decode and prefill M) and at the two
+    heads, int4 (and int8 at decode); ``wqt_matmul_a8_x`` there at decode
+    and the scheduler's prefill M (a head at M 1 and 8); the ``fma``
+    ``decode_attn`` at Zamba2's head_dim 80, int8 and int4, rings of 256
+    and 2048, unwrapped and wrapped; ``quant`` bitwise on every leaf the
+    packer casts densely."""
+    from repro_torch.core.qtensor import quantize_qtensor
+    from repro_torch.kernels.wq_matmul import dequant_t_ref
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows = []
+    for (n, k), model in SSM_WQT.items():
+        head = (n, k) in SSM_HEADS
+        w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+        for bits in (4, 8):
+            qt = quantize_qtensor(w, f"int{bits}", -1)
+            w_lib = dequant_t_ref(qt.codes, qt.scales, -1, bits == 4)
+            for m in (SSM_WQT_MS[:1] if head or bits == 8 else SSM_WQT_MS):
+                rows.append(dict(check_wqt_one(
+                    timer, gen, dev, qt, w_lib, m=m, n=n, k=k, bits=bits,
+                    block_k=-1, dtype=BF16), model=model))
+            del qt, w_lib
+        for m in ((1, 8) if head else SSM_A8_MS):
+            rows.append(dict(check_a8_x_one(timer, gen, dev, m=m, n=n, k=k,
+                                            bits=4, block_k=-1),
+                             model=model))
+        del w
+        torch.cuda.empty_cache()
+    for L in SSM_ATTN_LS:
+        rings = {"unwrapped": [0, 5, L // 3, L // 2, L - 9, L - 3, L - 2,
+                               L - 1],
+                 "wrapped": [0, 5, L // 3, L - 1, L, L + 7, 2 * L + 3,
+                             5 * L - 2]}
+        for bits in (8, 4):
+            for ring, pos in rings.items():
+                rows.append(dict(check_attn_one(
+                    timer, gen, dev, L=L, bits=bits, window=None,
+                    softcap=None, dtype=BF16, pos=torch.tensor(
+                        pos, dtype=torch.int32, device=dev), **SSM_ATTN),
+                    model="zamba2 shared", ring=ring))
+    for model, shape in SSM_QUANT:
+        rows.append(dict(check_quant_one(timer, gen, dev, shape, "int4", -1,
+                                         False), model=model))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _decode_step_profile(params, cfg, prompts, dev):
+    """One decode step of the static workload (left-padded prompts, int8
+    KV) under ``torch.profiler``, after the prefill and one unprofiled
+    step: the device kernels it launches, their device ms and the
+    heaviest by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from scripts.profile_serve_torch import _device_by_name
+    from repro_torch.models.lm import lm_decode, lm_prefill
+    from repro_torch.serve.engine import bucket_cache_len
+    b, width = len(prompts), max(len(p) for p in prompts)
+    toks = np.zeros((b, width), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, width - len(p):] = p
+    pos = torch.full((b,), width - 1, device=dev)
+    with torch.inference_mode():
+        lg, cache = lm_prefill(params, cfg, torch.as_tensor(toks, device=dev),
+                               cache_len=bucket_cache_len(width + 3),
+                               kv_quant="int8")
+        for step in range(2):
+            pos = pos + 1
+            tok = lg[:, 0].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            if step == 0:
+                lg, cache = lm_decode(params, cfg, cache, tok, pos)
+                continue
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                lm_decode(params, cfg, cache, tok, pos)
+                torch.cuda.synchronize()
+    by_name = _device_by_name(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return dict(device_kernels=sum(c for _, c in by_name.values()),
+                device_ms=sum(ms for ms, _ in by_name.values()),
+                top=[dict(kernel=k[:90], ms=ms, launches=c)
+                     for k, (ms, c) in top])
+
+
+def _serve_ssm(dev, arch, *, rng_seed, include_embeddings):
+    """``arch`` at full width and depth: the static Engine (int4, int8 KV
+    where there is KV, batch 8, 64-128-token prompts, 32 new tokens) with
+    one decode step profiled, then the ring Scheduler on the same
+    prepared tree, which must refuse paged KV and chunked prefill.
+    Returns (row, checks, engine)."""
+    from repro_torch.serve import Scheduler, SchedulerConfig, ServeConfig
+    cfg = zoo_cfg(arch)
+    prompts = _prompts(np.random.default_rng(rng_seed), 8, 64, 128,
+                       cfg.vocab)
+    static, eng = _serve_static(dev, cfg, seed=0, prompts=prompts, mnt=32,
+                                why="full depth",
+                                include_embeddings=include_embeddings)
+    checks = {f"static_{k}": v for k, v in static.pop("checks").items()}
+    static["launches_per_decode_step"] = dict(
+        wqt_matmul=_qt_per_forward(cfg, include_embeddings),
+        decode_attn=_attn_per_step(cfg))
+    prof = _decode_step_profile(eng.params, cfg, prompts, dev)
+    prof["busy_share"] = prof["device_ms"] / static["decode_ms_per_step"]
+    static["decode_step_profile"] = prof
+    sched, sc = _sched_run(dev, cfg, eng.params,
+                           include_embeddings=include_embeddings)
+    checks.update({f"sched_{k}": v for k, v in sc.items()})
+    # recurrent state has no position-keyed ring and is not threaded
+    # across prefill chunks: the Scheduler refuses both, as JAX's
+    sched["refused"] = {}
+    for name, kw in (("paged", dict(paged=True, block_size=16)),
+                     ("prefill_chunk", dict(prefill_chunk=16))):
+        try:
+            Scheduler(cfg, eng.params, ServeConfig(),
+                      SchedulerConfig(cache_len=256, **kw), device=dev)
+            sched["refused"][name] = None
+        except ValueError as e:
+            sched["refused"][name] = str(e)
+        checks[f"sched_refuses_{name}"] = sched["refused"][name] is not None
+    return dict(static=static, sched=sched), checks, eng
+
+
+def serve_zamba2(dev):
+    """Zamba2-2.7B as the repo configures it (54 Mamba2 layers in 9 scan
+    groups of 6, each followed by the one shared attention + gelu MLP
+    block; head_dim 80, 32 kv-heads; tied 32,000-row embedding) at full
+    width and depth: int4 QTensors for the shared block, the dense RTN
+    cast through ``quant`` for every Mamba2 projection, int8 KV for the 9
+    shared rings; static Engine, then the W4A8 Scheduler."""
+    torch.cuda.empty_cache()
+    row, checks, eng = _serve_ssm(dev, "zamba2-2.7b", rng_seed=14,
+                                  include_embeddings=False)
+    del eng
+    torch.cuda.empty_cache()
+    out = dict(phase="serve_zamba2", **row, checks=checks)
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(f"serve_zamba2 failed its checks: {checks}", out)
+    return out
+
+
+def serve_rwkv6(dev):
+    """RWKV6-1.6B as the repo configures it (24 layers, d_model 2048, 32
+    heads of 64, untied 65,536-row head) at full width and depth, its
+    embedding and head quantized too (``include_embeddings``: the head
+    through ``wqt_matmul``, under int8 activations ``wqt_matmul_a8``),
+    every time-mix and channel-mix projection as the dense cast; static
+    Engine, then the W4A8 Scheduler.  Its cache holds the recurrent
+    states only."""
+    from repro_torch import bridge
+    from repro_torch.models.lm import init_cache
+    torch.cuda.empty_cache()
+    row, checks, eng = _serve_ssm(dev, "rwkv6-1.6b", rng_seed=15,
+                                  include_embeddings=True)
+    cfg = eng.cfg
+    leaves = sorted(bridge.flatten(init_cache(cfg, 8, 256, kv_quant="int8",
+                                              device=dev)))
+    checks["cache_states_only"] = leaves == [
+        f"unit/b0_rwkv/{k}" for k in ("shift_cm", "shift_tm", "wkv")]
+    del eng
+    torch.cuda.empty_cache()
+    out = dict(phase="serve_rwkv6", **row, cache_leaves=leaves,
+               checks=checks)
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(f"serve_rwkv6 failed its checks: {checks}", out)
+    return out
+
+
+def ssm_card_vs_cpu(dev):
+    """Zamba2 cut to one scan group (6 Mamba2 layers and the shared
+    block) and RWKV6 to 2 layers, both at full width in fp32 from the
+    same weights on the card and on the CPU (``_cut_vs_cpu``: int4
+    weights, int8 KV, two left-padded prompts of 80-100 tokens, more
+    than one chunk of either scan, and 4 greedy decode steps), the
+    recurrent states after the prefill held within ``SSM_STATE_RTOL``."""
+    out = dict(phase="ssm_card_vs_cpu")
+    checks = {}
+    for arch, n_layers in SSM_CUTS:
+        cfg = zoo_cfg(arch, n_layers, "float32")
+        prompts = _prompts(np.random.default_rng(16), 2, 80, 100, cfg.vocab)
+        try:
+            cut = _cut_vs_cpu(dev, cfg, seed=4, prompts=prompts, steps=4,
+                              why="the CPU side's time",
+                              state_rtol=SSM_STATE_RTOL)
+        except AssertionError as e:
+            cut = e.args[1]
+        checks[arch] = cut["ok"]
+        out[arch] = cut
+        torch.cuda.empty_cache()
+    out["checks"] = checks
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(f"ssm_card_vs_cpu failed its checks: {checks}",
+                             out)
+    return out
+
+
+def ssm_chunked_vs_exact(dev, b=2, L=1024):
+    """On the card in fp32: one full-width Mamba2 block (Zamba2's) and one
+    RWKV6 time-mix, chunked against the exact sequential scan at b 2, L
+    1024 (outputs and final states); then on the card-against-CPU cuts,
+    prefill of L - 1 tokens plus one decode step against the full
+    forward's last two positions."""
+    from repro_torch.models import ssm
+    from repro_torch.models.lm import (lm_decode, lm_forward, lm_init,
+                                       lm_prefill)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(24)
+    blocks = {}
+    zspec = zoo_cfg("zamba2-2.7b").mamba_spec()
+    rspec = zoo_cfg("rwkv6-1.6b").rwkv_spec()
+    for name, spec, init, apply, state in (
+            ("mamba2", zspec, ssm.mamba2_init, ssm.mamba2_apply, "ssm"),
+            ("rwkv6_time_mix", rspec, ssm.rwkv6_time_mix_init,
+             ssm.rwkv6_time_mix, "wkv")):
+        p = init(gen, spec, dev)
+        x = torch.randn((b, L, spec.d_model), generator=gen, device=dev)
+        got, ms = {}, {}
+        with torch.inference_mode():
+            for exact in (False, True):
+                apply(p, spec, x[:, :8], exact=exact)         # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got[exact] = apply(p, spec, x, exact=exact,
+                                   return_state=True)
+                torch.cuda.synchronize()
+                ms[exact] = (time.perf_counter() - t0) * 1e3
+        (oc, sc), (oe, se) = got[False], got[True]
+        blocks[name] = dict(
+            out_rel_err=_max_rel(oc, oe), state_rel_err=_max_rel(
+                sc[state], se[state]),
+            chunked_ms=ms[False], exact_ms=ms[True],
+            finite=bool(torch.isfinite(oc).all() and torch.isfinite(
+                sc[state]).all()))
+        del p, x, got
+    cuts = {}
+    for arch, n_layers in SSM_CUTS:
+        cfg = zoo_cfg(arch, n_layers, "float32")
+        params = lm_init(cfg, seed=5, device=dev)
+        toks = torch.as_tensor(np.random.default_rng(17).integers(
+            0, cfg.vocab, (b, L)), device=dev)
+        with torch.inference_mode():
+            full = lm_forward(params, cfg, toks)[:, -2:].float()
+            lp, cache = lm_prefill(params, cfg, toks[:, :-1], cache_len=L)
+            ld, _ = lm_decode(params, cfg, cache, toks[:, -1:],
+                              torch.full((b,), L - 1, device=dev))
+        cuts[arch] = dict(n_layers=n_layers,
+                          prefill_rel_err=_max_rel(lp[:, 0], full[:, 0]),
+                          decode_rel_err=_max_rel(ld[:, 0], full[:, 1]))
+        del params, full, cache
+        torch.cuda.empty_cache()
+    checks = {f"{k}_{what}": v[f"{what}_rel_err"] <= SSM_EXACT_RTOL
+              and v["finite"] for k, v in blocks.items()
+              for what in ("out", "state")}
+    checks.update({f"{k}_{what}": v[f"{what}_rel_err"]
+                   <= SSM_CONSISTENCY_RTOL for k, v in cuts.items()
+                   for what in ("prefill", "decode")})
+    row = dict(phase="ssm_chunked_vs_exact", b=b, L=L, dtype="float32",
+               exact_rtol=SSM_EXACT_RTOL,
+               consistency_rtol=SSM_CONSISTENCY_RTOL, blocks=blocks,
+               cuts=cuts, checks=checks)
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"ssm_chunked_vs_exact failed its checks: "
+                             f"{checks}", row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3914,14 +4287,20 @@ def main() -> int:
               "serve_moe_card_vs_cpu": lambda: serve_moe_card_vs_cpu(dev),
               "serve_archs": lambda: serve_archs(dev),
               "serve_archs_card_vs_cpu": lambda: serve_archs_card_vs_cpu(dev),
-              "musicgen_decode": lambda: musicgen_decode(dev)}
+              "musicgen_decode": lambda: musicgen_decode(dev),
+              "ssm_kernels": lambda: check_ssm_kernels(timer, dev),
+              "serve_zamba2": lambda: serve_zamba2(dev),
+              "serve_rwkv6": lambda: serve_rwkv6(dev),
+              "ssm_card_vs_cpu": lambda: ssm_card_vs_cpu(dev),
+              "ssm_chunked_vs_exact": lambda: ssm_chunked_vs_exact(dev)}
     out = {}
     for name, run in phases.items():
         t0 = time.perf_counter()
         out[name] = run()
         emit(dict(phase="timing", of=name, seconds=time.perf_counter() - t0))
         if name in ("a8", "wq", "layer", "quant", "lotion_reg",
-                    "opt_step", "synth_kernels", "zoo_kernels", "moe_qt3d"):
+                    "opt_step", "synth_kernels", "zoo_kernels", "moe_qt3d",
+                    "ssm_kernels"):
             # the timer's flush buffer stays; the checks' inputs go
             torch.cuda.empty_cache()
 
@@ -4138,10 +4517,55 @@ def kernels_line(out):
         "the int4 per-tensor penalty), fp32",
         train_step_device_ms=step_dev,
         **stats(opt, opt4, opt_lib)))
-    zoo = zoo_kernel_fields(out)
+    zoo, ssm = zoo_kernel_fields(out), ssm_kernel_fields(out)
     for line in lines:
         line.update(zoo.get(line["name"], {}))
+        line.update(ssm.get(line["name"], {}))
     return lines
+
+
+def ssm_kernel_fields(out):
+    """The SSM phases' numbers for the kernels line: each serving kernel's
+    launches on Zamba2's and RWKV6's static and scheduler runs and in
+    their ``prepare_params``, and the ``ssm_kernels`` rows (device ms,
+    plain ms, bound, library) at their shapes: Zamba2's hd-80 ``fma``
+    decode, the shared block's and the heads' matmuls, and the dense
+    casts of every SSM leaf."""
+    sk = out["ssm_kernels"]
+    runs = {"zamba2": out["serve_zamba2"], "rwkv6": out["serve_rwkv6"]}
+
+    def launches(run, kernel):
+        return {m: r[run]["launches"][kernel] for m, r in runs.items()}
+
+    def timed(r, *extra):
+        return {k: r[k] for k in extra + ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}
+
+    def mm(kernel):
+        return {f"{r['model']}: ({r['M']}, {r['K']}) x ({r['N']}, "
+                f"{r['K']}) int{r['bits']}": timed(r, "variant")
+                for r in sk if r["kernel"] == kernel}
+
+    leaves = [r for r in sk if r["kernel"] == "quant"]
+    return {
+        "wqt_matmul": dict(ssm_static_launches=launches("static",
+                                                        "wqt_matmul"),
+                           ssm=mm("wqt_matmul")),
+        "decode_attn": dict(
+            ssm_static_launches=launches("static", "decode_attn"),
+            ssm_sched_launches=launches("sched", "decode_attn"),
+            hd80={f"L={r['L']} int{r['bits']} {r['ring']}": timed(
+                r, "variant", "splits") for r in sk
+                if r["kernel"] == "decode_attn"}),
+        "wqt_matmul_a8": dict(ssm_sched_launches=launches(
+            "sched", "wqt_matmul_a8"), ssm=mm("wqt_matmul_a8_x")),
+        "quant": dict(
+            ssm_prepare_launches={m: r["static"]["prepare_launches"]["quant"]
+                                  for m, r in runs.items()},
+            ssm_leaves={f"{r['model']} {r['shape']}": timed(r)
+                        for r in leaves},
+            ssm_leaves_bitwise=all(r["bitwise"] for r in leaves)),
+    }
 
 
 def zoo_kernel_fields(out):

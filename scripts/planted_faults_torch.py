@@ -115,6 +115,20 @@ against its own forward, then 2 layers against the CPU):
 * ``codebook_embed_drops_last`` — the codebook embedding on the card sums
   every codebook's rows but the last.
 
+The SSM blocks (phases ``ssm_card_vs_cpu``: Zamba2 cut to one scan
+group and RWKV6 to 2 layers, full width, fp32, card against CPU, prefill
+logits and recurrent states and 4 decode steps; ``ssm_chunked_vs_exact``:
+one full-width block of each kind, chunked against the exact scan, and
+prefill + one decode step against the full forward on the same cuts):
+
+* ``rwkv_var_unbiased``       — RWKV6's per-head group norm on the card
+  divides by n - 1 (``correction=1``) instead of n;
+* ``ssd_drops_carried_state`` — Mamba2's chunked SSD on the card leaves
+  out the carried-in state's contribution (``y_off``) for every chunk
+  after the first (the final state stays right);
+* ``mamba_conv_tail_stale``   — Mamba2's decode step on the card keeps
+  the old conv state instead of shifting the new token in.
+
     python3 scripts/planted_faults_torch.py [--only PHASE[,PHASE...]]
 
 ``--only`` runs just the groups that hold one of the named phases.  Prints one JSON line per run of a phase with its numbers against their
@@ -328,6 +342,40 @@ def _drop_last_codebook(orig):
     return embed
 
 
+def _unbiased_var(orig):
+    def group_norm(y, h):
+        if not y.is_cuda:
+            return orig(y, h)
+        yh = y.reshape(y.shape[:-1] + (h, y.shape[-1] // h))
+        mean = yh.mean(-1, keepdim=True)
+        var = yh.var(-1, keepdim=True, correction=1)
+        return ((yh - mean) * torch.rsqrt(var + 64e-5)).reshape(y.shape)
+    return group_norm
+
+
+def _no_carried_state(orig):
+    """_ssd_chunked that, on the card, computes each chunk's output from a
+    zero carried-in state (its final state from the whole sequence)."""
+    def ssd(x, dt, a_neg, B, C, chunk):
+        y, S = orig(x, dt, a_neg, B, C, chunk)
+        if not x.is_cuda:
+            return y, S
+        ys = [orig(x[:, i:i + chunk], dt[:, i:i + chunk], a_neg,
+                   B[:, i:i + chunk], C[:, i:i + chunk], chunk)[0]
+              for i in range(0, x.shape[1], chunk)]
+        return torch.cat(ys, dim=1), S
+    return ssd
+
+
+def _stale_conv(orig):
+    def decode(params, spec, x, state):
+        out, new = orig(params, spec, x, state)
+        if x.is_cuda:
+            new = dict(new, conv=state["conv"])
+        return out, new
+    return decode
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="",
@@ -346,6 +394,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.wq_matmul import ops as wq_ops
     import repro_torch.models.layers as layers
     import repro_torch.models.lm as lm
+    import repro_torch.models.ssm as ssm
     import repro_torch.optim.fused as fused
     import repro_torch.serve.scheduler as scheduler
     import repro_torch.train.synthetic as syn
@@ -430,6 +479,15 @@ def main(argv=None) -> int:
             sound,
             ("codebook_embed_drops_last", lambda: _patched(
                 lm, "_embed", _drop_last_codebook))]),
+        ([("ssm_card_vs_cpu", cs.ssm_card_vs_cpu),
+          ("ssm_chunked_vs_exact", cs.ssm_chunked_vs_exact)], [
+            sound,
+            ("rwkv_var_unbiased", lambda: _patched(ssm, "_group_norm",
+                                                   _unbiased_var)),
+            ("ssd_drops_carried_state", lambda: _patched(
+                ssm, "_ssd_chunked", _no_carried_state)),
+            ("mamba_conv_tail_stale", lambda: _patched(
+                lm, "mamba2_decode", _stale_conv))]),
     ]
     keys = ("max_rel_diff", "rtol", "penalty_max_rel_diff", "penalty_rtol",
             "late_max_rel_diff", "late_rtol", "rat_micro_rel_diff",
@@ -442,7 +500,8 @@ def main(argv=None) -> int:
             "first_moment_max_rel_l2", "update_max_rel_l2",
             "grad_norm_rtol", "first_moment_rtol", "update_rtol",
             "routing", "dead_rows", "card_vs_cpu", "per_step_err",
-            "held_steps", "codeqwen1.5-7b", "gemma3-12b")
+            "held_steps", "codeqwen1.5-7b", "gemma3-12b", "zamba2-2.7b",
+            "rwkv6-1.6b", "blocks", "cuts")
     if only:
         groups = [g for g in groups if only & {name for name, _ in g[0]}]
         if not groups:

@@ -9,7 +9,8 @@ import importlib
 from repro_torch.models.lm import LMConfig
 
 ARCHS = ["granite_3_2b", "gemma2_2b", "codeqwen1p5_7b", "gemma3_12b",
-         "musicgen_medium", "dbrx_132b", "moonshot_v1_16b_a3b"]
+         "musicgen_medium", "dbrx_132b", "moonshot_v1_16b_a3b",
+         "zamba2_2p7b", "rwkv6_1p6b"]
 
 
 def _norm(arch_id: str) -> str:
@@ -21,7 +22,7 @@ def _module(arch_id: str):
     if name not in ARCHS:
         raise NotImplementedError(
             f"config {arch_id!r} is not ported yet (have {ARCHS}): ROADMAP "
-            f"Queue 1 item 7(d) (zamba2, rwkv6) or 7(e) (llama3.2-vision)")
+            f"Queue 1 item 7(e) (llama3.2-vision)")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -15,7 +15,10 @@ after every tick (``--chaos``).
 Every config of ``repro_torch.configs.ARCHS`` is served: MoE configs
 (``dbrx-132b``, ``moonshot-v1-16b-a3b``) keep their 4-D expert stacks as
 the dense cast and refuse ``--prefill-chunk``; ``musicgen-medium``
-decodes (b, 1, 4) codebook frames on the static path only.
+decodes (b, 1, 4) codebook frames on the static path only; the SSM
+configs (``zamba2-2.7b``, ``rwkv6-1.6b``) keep their projections as the
+dense cast and refuse ``--paged`` and ``--prefill-chunk`` (``--layers``
+must be a multiple of Zamba2's 6-layer unit).
 
 The flags are those of ``repro.launch.serve``, plus ``--layers`` (cut the
 depth) and ``--device`` (default

@@ -1,1 +1,2 @@
-"""Model code of the port: layers and the stage-based language model."""
+"""Model code of the port: layers, the SSM blocks and the stage-based
+language model."""

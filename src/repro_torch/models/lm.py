@@ -1,9 +1,13 @@
-"""Language model of the port (``repro.models.lm``), attention-family
-patterns only: ``attn`` (global) and ``local`` (sliding window) blocks,
-each followed by a dense MLP or a GShard MoE (``ffn="moe"``: top-k
-experts under a per-group capacity, plus ``n_shared_experts`` always-on
-experts as one wider MLP); ``n_codebooks > 1`` sums one embedding per
-codebook and gives each its head (MusicGen's token frames (b, l, C)).
+"""Language model of the port (``repro.models.lm``): ``attn`` (global)
+and ``local`` (sliding window) blocks, each followed by a dense MLP or a
+GShard MoE (``ffn="moe"``: top-k experts under a per-group capacity, plus
+``n_shared_experts`` always-on experts as one wider MLP); ``mamba``
+(Mamba2, no FFN) and ``rwkv`` (RWKV6 time-mix and channel-mix) blocks
+from ``models/ssm.py``; with ``shared_attn_every`` (Zamba2) one shared,
+unstacked attention + MLP block (``params["shared"]``) applied after each
+unit's blocks, its KV in ``cache["shared"]``; ``n_codebooks > 1`` sums
+one embedding per codebook and gives each its head (MusicGen's token
+frames (b, l, C)).
 
 A model is a unit ``pattern`` of block kinds tiled ``n_repeats`` times.
 Parameters keep the JAX tree's layout: unit leaves are stacked along a
@@ -24,9 +28,14 @@ slot rows or pool blocks, ``quantize_cache`` converts a dense cache to
 codes.  The caches are updated in place.  ``LMConfig.act_fmt``
 fake-quantizes the two normed inputs of every block (RTN, one scale per
 batch row, straight-through in backward) in the full-sequence forward
-only, as JAX does: prefill, chunked prefill and decode ignore it.  SSM
-blocks (mamba/rwkv), cross-attention, the shared zamba block and image
-tokens are not in these slices of the port and raise
+only, as JAX does (on attention blocks; the SSM blocks and the shared
+block take their normed inputs as they are): prefill, chunked prefill and
+decode ignore it.  Recurrent blocks carry a state per batch row
+(``{"conv", "ssm"}`` or ``{"shift_tm", "shift_cm", "wkv"}``, stacked
+(repeats, batch, ...)) that decode updates in place; they consume left
+pads as tokens (no ``prompt_lens`` masking reaches them), and chunked
+prefill and paged decode refuse them, as in JAX.  Cross-attention and
+image tokens are not in these slices of the port and raise
 ``NotImplementedError``.
 """
 
@@ -41,15 +50,19 @@ import torch.utils.checkpoint
 
 from .. import resolve_device
 from ..core.qtensor import QTensor
-from ..core.policy import tree_leaves, tree_map_with_path
+from ..core.policy import tree_leaves, tree_map_multi, tree_map_with_path
 from . import layers
 from .layers import (AttnSpec, MLPSpec, MoESpec, attn_apply,
                      attn_chunk_apply, attn_decode, attn_decode_paged,
                      attn_init, dense_init, matmul, mlp_apply, mlp_init,
                      moe_apply, moe_init, rms_norm)
+from .ssm import (Mamba2Spec, RWKV6Spec, mamba2_apply, mamba2_decode,
+                  mamba2_init, mamba2_init_state, rwkv6_channel_mix,
+                  rwkv6_channel_mix_init, rwkv6_init_state, rwkv6_time_mix,
+                  rwkv6_time_mix_decode, rwkv6_time_mix_init)
 
 ATTN_KINDS = ("attn", "local", "xattn")
-PORTED_KINDS = ("attn", "local")
+PORTED_KINDS = ("attn", "local", "mamba", "rwkv")
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -146,6 +159,14 @@ class LMConfig:
         return MLPSpec(self.d_model, self.d_ff * self.n_shared_experts,
                        self.mlp_kind)
 
+    def mamba_spec(self) -> Mamba2Spec:
+        return Mamba2Spec(d_model=self.d_model, d_state=self.ssm_state,
+                          head_dim=self.ssm_head_dim, chunk=self.ssm_chunk)
+
+    def rwkv_spec(self) -> RWKV6Spec:
+        return RWKV6Spec(d_model=self.d_model, head_dim=self.rwkv_head_dim,
+                         chunk=self.rwkv_chunk)
+
 
 def check_ported(cfg: LMConfig) -> None:
     """Raise NotImplementedError for features outside this slice."""
@@ -153,15 +174,11 @@ def check_ported(cfg: LMConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {bad} are not ported yet: ROADMAP "
-            f"Queue 1 item 7(d) (mamba/rwkv in models/ssm.py) and 7(e) "
-            f"(xattn)")
-    unported = {"shared_attn_every": ("7(d)", bool(cfg.shared_attn_every)),
-                "n_image_tokens": ("7(e)", bool(cfg.n_image_tokens))}
-    for field, (item, bad) in unported.items():
-        if bad:
-            raise NotImplementedError(
-                f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported "
-                f"yet: ROADMAP Queue 1 item {item}")
+            f"Queue 1 item 7(e) (xattn)")
+    if cfg.n_image_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: n_image_tokens={cfg.n_image_tokens!r} is not "
+            f"ported yet: ROADMAP Queue 1 item 7(e)")
 
 
 # ==========================================================================
@@ -174,10 +191,18 @@ def _block_init(gen, cfg: LMConfig, kind: str, device, r: int):
     def ones():
         return torch.ones(lead + (cfg.d_model,), device=device)
 
-    p: Dict[str, Any] = {"pre_norm_scale": ones(),
-                         "attn": attn_init(gen, cfg.attn_spec(kind), device,
-                                           lead),
-                         "ffn_norm_scale": ones()}
+    p: Dict[str, Any] = {"pre_norm_scale": ones()}
+    if kind == "mamba":
+        p["mamba"] = mamba2_init(gen, cfg.mamba_spec(), device, lead)
+        return p
+    if kind == "rwkv":
+        p["tm"] = rwkv6_time_mix_init(gen, cfg.rwkv_spec(), device, lead)
+        p["cm_norm_scale"] = ones()
+        p["cm"] = rwkv6_channel_mix_init(gen, cfg.d_model, cfg.d_ff, device,
+                                         lead)
+        return p
+    p["attn"] = attn_init(gen, cfg.attn_spec(kind), device, lead)
+    p["ffn_norm_scale"] = ones()
     if cfg.ffn == "moe":
         p["moe"] = moe_init(gen, cfg.moe_spec(), device, lead)
         if cfg.n_shared_experts:
@@ -206,6 +231,14 @@ def lm_init(cfg: LMConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     r = cfg.n_repeats
     params["stage"] = {f"b{i}_{kind}": _block_init(gen, cfg, kind, device, r)
                        for i, kind in enumerate(cfg.pattern)}
+    if cfg.shared_attn_every:
+        # one unstacked block, applied after every unit's blocks
+        d = cfg.d_model
+        params["shared"] = {
+            "pre_norm_scale": torch.ones((d,), device=device),
+            "attn": attn_init(gen, cfg.attn_spec("attn"), device),
+            "ffn_norm_scale": torch.ones((d,), device=device),
+            "mlp": mlp_init(gen, cfg.mlp_spec(), device)}
     params["final_norm_scale"] = torch.ones((cfg.d_model,), device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, books + (cfg.d_model, cfg.vocab),
@@ -321,13 +354,39 @@ def _apply_ffn(p, cfg: LMConfig, x: torch.Tensor, o: torch.Tensor,
 def _apply_block(p, cfg: LMConfig, kind: str, x: torch.Tensor,
                  positions: torch.Tensor,
                  attn_chunk: Optional[int] = None) -> torch.Tensor:
-    """One attention block and its MLP, full sequence, with the normed
-    inputs of both fake-quantized under ``cfg.act_fmt``; ``attn_chunk``
-    streams the attention over key chunks."""
+    """One block, full sequence: attention and its MLP (the normed inputs
+    of both fake-quantized under ``cfg.act_fmt``; ``attn_chunk`` streams
+    the attention over key chunks), Mamba2, or RWKV6's time-mix and
+    channel-mix."""
+    if kind == "mamba":
+        h = rms_norm(x, p["pre_norm_scale"])
+        return x + mamba2_apply(p["mamba"], cfg.mamba_spec(), h)
+    if kind == "rwkv":
+        h = rms_norm(x, p["pre_norm_scale"])
+        x = x + rwkv6_time_mix(p["tm"], cfg.rwkv_spec(), h)
+        return x + rwkv6_channel_mix(p["cm"], rms_norm(x, p["cm_norm_scale"]))
     h = _act_q(cfg, rms_norm(x, p["pre_norm_scale"]))
     o = attn_apply(p["attn"], cfg.attn_spec(kind), h, positions,
                    chunk=attn_chunk)
     return _apply_ffn(p, cfg, x, o, quantize_acts=True)
+
+
+def _shared_ffn(p, cfg: LMConfig, x: torch.Tensor,
+                o: torch.Tensor) -> torch.Tensor:
+    """The shared block's residual add of its attention output ``o``, then
+    its MLP (no post norms, no MoE, no activation fake-quant, as JAX)."""
+    x = x + o
+    return x + mlp_apply(p["mlp"], cfg.mlp_spec(),
+                         rms_norm(x, p["ffn_norm_scale"]))
+
+
+def _apply_shared(p, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor,
+                  attn_chunk: Optional[int] = None) -> torch.Tensor:
+    """The shared (Zamba2) attention + MLP block, full sequence."""
+    o = attn_apply(p["attn"], cfg.attn_spec("attn"),
+                   rms_norm(x, p["pre_norm_scale"]), positions,
+                   chunk=attn_chunk)
+    return _shared_ffn(p, cfg, x, o)
 
 
 def _trunk(params, cfg: LMConfig, tokens: torch.Tensor,
@@ -344,6 +403,8 @@ def _trunk(params, cfg: LMConfig, tokens: torch.Tensor,
         for i, kind in enumerate(cfg.pattern):
             x = _apply_block(unit_p[f"b{i}_{kind}"], cfg, kind, x, positions,
                              attn_chunk)
+        if cfg.shared_attn_every:
+            x = _apply_shared(params["shared"], cfg, x, positions, attn_chunk)
         return x
 
     for unit_p in unbind_stage(params["stage"]):
@@ -427,21 +488,43 @@ def init_cache(cfg: LMConfig, batch: int, cache_len: int,
     """Cache tree stacked over repeats: ``{"unit": {name: {"k", "v"}}}``;
     global layers hold ``cache_len`` slots, local layers a ring of
     ``window``; ``kv_quant`` stores int8 / int4 codes + fp32 scales.
+    Recurrent blocks hold their state instead (mamba ``{"conv": (r, b,
+    d_conv - 1, conv_dim) in ``dtype``, "ssm": fp32}``, rwkv ``{"shift_tm",
+    "shift_cm", "wkv"}`` fp32), and ``shared_attn_every`` adds
+    ``cache["shared"]``, one global ring per unit, quantized as the others.
     The paged pool is the same tree with ``batch`` = n_blocks and
     ``cache_len`` = block_size: leaves (r, n_blocks, block_size, kvh, ...).
     """
     check_ported(cfg)
     device = resolve_device(device)
+    dtype = torch_dtype(dtype)
     r = cfg.n_repeats
+
+    def ring(length):
+        shape = (r, batch, length, cfg.n_kv_heads, cfg.hd)
+        return {"k": _kv_zeros(shape, dtype, kv_quant, device),
+                "v": _kv_zeros(shape, dtype, kv_quant, device)}
+
+    def stacked(state):
+        return {k: v.new_zeros((r,) + tuple(v.shape))
+                for k, v in state.items()}
+
     unit = {}
     for i, kind in enumerate(cfg.pattern):
-        wl = min(cfg.window or cache_len, cache_len) if kind == "local" \
-            else cache_len
-        shape = (r, batch, wl, cfg.n_kv_heads, cfg.hd)
-        unit[f"b{i}_{kind}"] = {
-            "k": _kv_zeros(shape, torch_dtype(dtype), kv_quant, device),
-            "v": _kv_zeros(shape, torch_dtype(dtype), kv_quant, device)}
-    return {"unit": unit}
+        name = f"b{i}_{kind}"
+        if kind == "mamba":
+            unit[name] = stacked(mamba2_init_state(cfg.mamba_spec(), batch,
+                                                   dtype, device))
+        elif kind == "rwkv":
+            unit[name] = stacked(rwkv6_init_state(cfg.rwkv_spec(), batch,
+                                                  device))
+        else:
+            unit[name] = ring(min(cfg.window or cache_len, cache_len)
+                              if kind == "local" else cache_len)
+    cache = {"unit": unit}
+    if cfg.shared_attn_every:
+        cache["shared"] = ring(cache_len)
+    return cache
 
 
 def _kv_to_cache(k, v, kind: str, cfg: LMConfig, cache_len: int,
@@ -558,19 +641,48 @@ def lm_prefill(params, cfg: LMConfig, tokens: torch.Tensor,
         positions = torch.arange(l, device=dev)[None, :] - pads[:, None]
 
     per_layer = {f"b{i}_{kind}": [] for i, kind in enumerate(cfg.pattern)}
+    shared = []
     for r in range(cfg.n_repeats):
         unit_p = layer_params(params["stage"], r)
         for i, kind in enumerate(cfg.pattern):
             name = f"b{i}_{kind}"
             p = unit_p[name]
             h = rms_norm(x, p["pre_norm_scale"])
+            if kind == "mamba":
+                o, st = mamba2_apply(p["mamba"], cfg.mamba_spec(), h,
+                                     return_state=True)
+                per_layer[name].append(st)
+                x = x + o
+                continue
+            if kind == "rwkv":
+                o, st = rwkv6_time_mix(p["tm"], cfg.rwkv_spec(), h,
+                                       return_state=True)
+                x = x + o
+                h2 = rms_norm(x, p["cm_norm_scale"])
+                per_layer[name].append({
+                    "shift_tm": st["shift_tm"],
+                    "shift_cm": h2[:, -1].to(torch.float32),
+                    "wkv": st["wkv"]})
+                x = x + rwkv6_channel_mix(p["cm"], h2)
+                continue
             o, (k, v) = attn_apply(p["attn"], cfg.attn_spec(kind), h,
                                    positions, chunk=attn_chunk,
                                    return_kv=True)
             per_layer[name].append(_kv_to_cache(k, v, kind, cfg, cache_len,
                                                 kv_quant, pads=pads))
             x = _apply_ffn(p, cfg, x, o)
+        if cfg.shared_attn_every:
+            sp = params["shared"]
+            o, (k, v) = attn_apply(sp["attn"], cfg.attn_spec("attn"),
+                                   rms_norm(x, sp["pre_norm_scale"]),
+                                   positions, chunk=attn_chunk,
+                                   return_kv=True)
+            shared.append(_kv_to_cache(k, v, "attn", cfg, cache_len,
+                                       kv_quant, pads=pads))
+            x = _shared_ffn(sp, cfg, x, o)
     cache = {"unit": {name: _stack_caches(c) for name, c in per_layer.items()}}
+    if shared:
+        cache["shared"] = _stack_caches(shared)
     return _head(params, cfg, x[:, -1:]), cache
 
 
@@ -580,12 +692,24 @@ def _layer_cache(leaf, r: int):
     return leaf[r]
 
 
+def _write_state(c, r: int, state) -> None:
+    """Layer r's new recurrent state into its slice of the stacked cache
+    leaves, in place (after every read of the old state)."""
+    for k, v in state.items():
+        c[k][r].copy_(v)
+
+
 def cache_insert(pool_cache, row_cache, slot: int):
     """Copy a one-request cache (batch 1, the same ``cache_len``) into
-    batch row ``slot`` of the scheduler's slot cache, IN PLACE; the row's
-    whole previous content is replaced.  Returns ``pool_cache``."""
-    for pool, row in zip(tree_leaves(pool_cache), tree_leaves(row_cache)):
+    batch row ``slot`` of the scheduler's slot cache, IN PLACE: every leaf
+    (KV rings, codes and scales, recurrent states, the shared rings) is
+    stacked (repeats, batch, ...), so row ``slot`` of axis 1 is the
+    request's, and its whole previous content is replaced.  Leaves pair
+    by their keys.  Returns ``pool_cache``."""
+    def one(path, pool, row):
         pool[:, slot] = row[:, 0].to(pool.dtype)
+
+    tree_map_multi(one, pool_cache, row_cache)
     return pool_cache
 
 
@@ -621,9 +745,19 @@ def quantize_cache(cfg: LMConfig, cache, kv_quant):
     bits = layers.kv_bits(kv_quant)
     if not bits:
         return cache
-    return {"unit": {name: {"k": layers.kv_quantize(leaf["k"], bits),
-                            "v": layers.kv_quantize(leaf["v"], bits)}
-                     for name, leaf in cache["unit"].items()}}
+
+    def q(leaf):
+        return {"k": layers.kv_quantize(leaf["k"], bits),
+                "v": layers.kv_quantize(leaf["v"], bits)}
+
+    unit = dict(cache["unit"])
+    for i, kind in enumerate(cfg.pattern):
+        if kind in ("attn", "local"):
+            unit[f"b{i}_{kind}"] = q(unit[f"b{i}_{kind}"])
+    out = {"unit": unit}
+    if cfg.shared_attn_every:
+        out["shared"] = q(cache["shared"])
+    return out
 
 
 def lm_prefill_chunk(params, cfg: LMConfig, cache, tokens: torch.Tensor,
@@ -640,6 +774,15 @@ def lm_prefill_chunk(params, cfg: LMConfig, cache, tokens: torch.Tensor,
     blocks only.  Returns (logits of each row's last real token (b, 1,
     vocab) fp32, cache)."""
     check_ported(cfg)
+    for kind in cfg.pattern:
+        if kind not in ("attn", "local"):
+            raise NotImplementedError(
+                f"chunked prefill needs attention-family blocks; {cfg.name} "
+                f"has {kind!r} (recurrent state is not threaded across "
+                f"chunks — use monolithic prefill)")
+    if cfg.shared_attn_every:
+        raise NotImplementedError(
+            f"{cfg.name}: the shared block is not ported to chunked prefill")
     b, cw = tokens.shape[0], tokens.shape[1]
     dev = tokens.device
     if chunk_lens is None:
@@ -678,11 +821,18 @@ def lm_decode(params, cfg: LMConfig, cache, tokens: torch.Tensor,
     kvh, ...), shared by every row) and attention reads and writes go
     through the tables.  ``token_mask`` (b,) marks the live rows under
     continuous batching; only the MoE dispatch reads it (dead rows take
-    no expert capacity).  With codebooks tokens are (b, 1, C).  Returns
+    no expert capacity).  Recurrent blocks write their new state into
+    their slice of the stacked state leaves, and the shared block its K/V
+    into ``cache["shared"]``; paged decode refuses recurrent patterns.
+    With codebooks tokens are (b, 1, C).  Returns
     (logits (b, 1, [C,] V) fp32, cache) with ``cache`` the same object
     that was passed in."""
     check_ported(cfg)
     if block_tables is not None:
+        bad = [k for k in cfg.pattern if k not in ("attn", "local")]
+        if bad:
+            raise ValueError(f"paged decode requires attn/local-only "
+                             f"patterns, got {bad}")
         first = next(iter(cache["unit"].values()))["k"]
         pool_bs = (first["codes"] if isinstance(first, dict)
                    else first).shape[2]
@@ -698,6 +848,23 @@ def lm_decode(params, cfg: LMConfig, cache, tokens: torch.Tensor,
             p = unit_p[name]
             c = cache["unit"][name]
             h = rms_norm(x, p["pre_norm_scale"])
+            if kind == "mamba":
+                o, st = mamba2_decode(p["mamba"], cfg.mamba_spec(), h,
+                                      _layer_cache(c, r))
+                _write_state(c, r, st)
+                x = x + o
+                continue
+            if kind == "rwkv":
+                o, st = rwkv6_time_mix_decode(
+                    p["tm"], cfg.rwkv_spec(), h,
+                    {"shift_tm": c["shift_tm"][r], "wkv": c["wkv"][r]})
+                x = x + o
+                h2 = rms_norm(x, p["cm_norm_scale"])
+                xx = c["shift_cm"][r].to(x.dtype)[:, None, :]
+                x = x + rwkv6_channel_mix(p["cm"], h2, xx=xx)
+                st["shift_cm"] = h2[:, 0].to(torch.float32)
+                _write_state(c, r, st)
+                continue
             ck, cv = _layer_cache(c["k"], r), _layer_cache(c["v"], r)
             if block_tables is not None:
                 o, _, _ = attn_decode_paged(p["attn"], cfg.attn_spec(kind), h,
@@ -707,4 +874,11 @@ def lm_decode(params, cfg: LMConfig, cache, tokens: torch.Tensor,
                 o, _, _ = attn_decode(p["attn"], cfg.attn_spec(kind), h, pos,
                                       ck, cv)
             x = _apply_ffn(p, cfg, x, o, token_mask=token_mask)
+        if cfg.shared_attn_every:
+            sp, c = params["shared"], cache["shared"]
+            o, _, _ = attn_decode(sp["attn"], cfg.attn_spec("attn"),
+                                  rms_norm(x, sp["pre_norm_scale"]), pos,
+                                  _layer_cache(c["k"], r),
+                                  _layer_cache(c["v"], r))
+            x = _shared_ffn(sp, cfg, x, o)
     return _head(params, cfg, x), cache

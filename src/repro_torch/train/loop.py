@@ -267,11 +267,12 @@ def make_train_step(cfg: LMConfig, tcfg: TrainConfig, optimizer,
 
     def train_step(state, batch):
         params = state["params"]
-        if cfg.ffn == "moe" and tree_leaves(params)[0].device.type == "cuda":
+        if tree_leaves(params)[0].device.type == "cuda" and (
+                cfg.ffn == "moe" or set(cfg.pattern) & {"mamba", "rwkv"}):
             raise NotImplementedError(
-                f"{cfg.name}: MoE training on the card (opt_step and "
-                f"lotion_reg over the 4-D expert stacks) is not ported yet: "
-                f"ROADMAP Queue 1 item 10")
+                f"{cfg.name}: MoE and SSM training on the card (opt_step "
+                f"and lotion_reg over the 4-D expert stacks and the SSM "
+                f"leaves) is not ported yet: ROADMAP Queue 1 item 10")
         # pre-update Fisher (AdamW's nu), read through the chain
         fisher = tx.fisher(state["opt"])
         if fisher is None:

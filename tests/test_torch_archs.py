@@ -12,7 +12,9 @@ below eps, as some of a router's are (1e-12 against gradients that
 agree to 1e-6 of their largest), moves by a fraction of lr that its
 last bits decide; the step runs at lr 1e-4, where a step in the wrong
 direction still breaks the tolerance, and every leaf is checked to have
-moved); prefill and decode against the full forward 1e-4, and the port's
+moved: by more than half the tolerance relative to its largest value, or,
+for a leaf whose values dwarf one step, by an update that itself agrees
+with JAX's within the tolerance); prefill and decode against the full forward 1e-4, and the port's
 prefill and decode logits against JAX's 1e-5.
 """
 
@@ -158,7 +160,14 @@ def test_lotion_train_step_matches_jax(arch):
     for path, t in got.items():
         assert _rel(t, want[path]) <= STEP_RTOL, (arch, path,
                                                   _rel(t, want[path]))
-        assert _rel(want[path], before[path]) > STEP_RTOL / 2, path
+        if _rel(want[path], before[path]) <= STEP_RTOL / 2:
+            # a leaf whose values dwarf one step (the SSM configs' a_log,
+            # dt_bias, decay_base: up to about 7) moved by less than the
+            # tolerance above can see: hold the update itself
+            step = want[path] - before[path]
+            assert np.abs(step).max() > 0, path
+            assert _rel(t - before[path], step) <= STEP_RTOL, (
+                arch, path, _rel(t - before[path], step))
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -232,12 +241,12 @@ def test_codebook_head_quantized_is_refused():
         tlm.lm_prefill(q, tcfg, toks)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b",
-                                  "llama3.2-vision-11b"])
+@pytest.mark.parametrize("arch", ["llama3.2-vision-11b"])
 def test_configs_outside_the_slice_raise(arch):
-    """The SSM and vision configs are not in the port yet: the registry
-    and the model both refuse them, naming item 7(d) or 7(e)."""
-    with pytest.raises(NotImplementedError, match=r"item 7\([de]\)"):
+    """The vision config is not in the port yet (the SSM configs are, and
+    run in every test above): the registry and the model both refuse it,
+    naming item 7(e)."""
+    with pytest.raises(NotImplementedError, match=r"item 7\(e\)"):
         get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=r"item 7\([de]\)"):
+    with pytest.raises(NotImplementedError, match=r"item 7\(e\)"):
         tlm.lm_init(bridge.lm_config(j_smoke(arch)), 0, "cpu")

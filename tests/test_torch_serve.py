@@ -269,10 +269,11 @@ def test_rr_and_dense_cast_serving_match_jax(weights, storage):
 
 
 def test_unported_block_kinds_raise():
-    """The SSM and vision configs still raise, naming their ROADMAP step
-    (the MoE ones are served now: test_torch_moe.py)."""
+    """The vision config still raises, naming its ROADMAP step (the MoE
+    ones are served now: test_torch_moe.py; the SSM ones too:
+    test_torch_ssm.py)."""
     from repro.configs import get_smoke_config
-    for arch in ("zamba2-2.7b", "rwkv6-1.6b", "llama3.2-vision-11b"):
+    for arch in ("llama3.2-vision-11b",):
         cfg = bridge.lm_config(get_smoke_config(arch))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlm.lm_init(cfg, 0, "cpu")

@@ -369,8 +369,9 @@ def test_run_loop_counts_and_skip_budget():
 def test_features_outside_the_slice_raise():
     """Streaming attention and the chunked head are ported now (held to
     JAX in test_torch_streaming.py), and so is the MoE FFN (trained on
-    the CPU in test_torch_archs.py); SSM blocks, the shared zamba block
-    and image tokens still raise, naming their ROADMAP item."""
+    the CPU in test_torch_archs.py), and so are the SSM blocks and the
+    shared zamba block (test_torch_ssm.py); cross-attention and image
+    tokens still raise, naming their ROADMAP item."""
     params = _tparams()
     toks = torch.zeros(1, 8, dtype=torch.long)
     with torch.no_grad():
@@ -378,8 +379,7 @@ def test_features_outside_the_slice_raise():
         chunked = tlm.lm_loss(params, TCFG, toks, toks, attn_chunk=4,
                               logit_chunk=4)
     assert _rel(chunked, full) <= RTOL
-    for bad in (dict(shared_attn_every=2), dict(n_image_tokens=4),
-                dict(pattern=("mamba",))):
+    for bad in (dict(n_image_tokens=4), dict(pattern=("xattn",))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlm.lm_forward(params, dataclasses.replace(TCFG, **bad), toks)
 
