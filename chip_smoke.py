@@ -29,18 +29,18 @@ checked:
   int8 activations) from a paged int8 KV pool through the continuous-
   batching ``Scheduler`` with chunked prefill and the prefix trie; ring
   against paged on a 4-layer cut (identical tokens); the card against
-  the CPU on a 2-layer cut (fp32); a seeded chaos replay on 2 layers;
+  the CPU on a 1-layer cut (fp32); a seeded chaos replay on 2 layers;
 * training: full-width 40-layer Granite-3-2B trained 3 LOTION steps
   (fused AdamW, decoupled penalty) then evaluated with fp32, RTN and RR
-  weights; 8 layers with the loss-side penalty; and 2 layers trained on
+  weights; 8 layers with the loss-side penalty; and 1 layer trained on
   the card and on the CPU from the same weights and batches (losses,
   per-step penalties and eval CEs compared);
 * the paper's baselines: the straight-through estimators on the card
   (forward bitwise equal to the cast, gradient to the upstream one);
   full-width 40-layer QAT and RAT (3 steps each) with exact cast counts;
   RAT on 8 layers with and without int8 activations (the ``quant``
-  kernel's bf16 instance, recomputed in backward); QAT and RAT on 2
-  layers, card against CPU from the same uniforms, and RAT's two
+  kernel's bf16 instance, recomputed in backward); QAT and RAT on 1
+  layer, card against CPU from the same uniforms, and RAT's two
   microbatches against one (one cast per step);
 * serving what they train: RR-cast int4 QTensors (re-quantizing the
   cast is the identity, bitwise) through ``wqt_matmul`` and the dense
@@ -48,10 +48,10 @@ checked:
 * checkpoints and self-healing training: EF int8 gradient compression
   on 8 layers (``quant``'s block-256 instance, one launch per gradient
   leaf, bitwise against the plain version); crash-exact auto-resume on
-  2 layers (bitwise) and a tampered payload refused by its crc32; the
+  1 layer (bitwise) and a tampered payload refused by its crc32; the
   skip gate (a NaN step leaves the state bitwise unchanged) and the
   training chaos harness on 1 layer with one and two simulated hosts;
-  the 8-layer state saved in the JAX checkpoint layout and loaded back
+  the 4-layer state saved in the JAX checkpoint layout and loaded back
   in place (the next step bitwise), with save and load rates;
 * the paper's synthetic testbeds at its d = 12000: ``quant`` and
   ``lotion_reg`` checked bitwise and timed at the testbeds' shapes
@@ -60,7 +60,7 @@ checked:
   and §4.2's two-layer width study (Figure 3: k = 16, 64, 256, 300
   steps, the GT construction, Lemma 4), each with exact launch counts
   and a card-against-CPU cut from the same draws;
-* long-context training: 2 full-width layers at batch 1 x 8192 with
+* long-context training: 1 full-width layer at batch 1 x 8192 with
   streaming attention and the chunked head (chunks of 1024) against the
   unchunked step from the same weights and batches, from two weight
   seeds, with both peaks of device memory;
@@ -1186,9 +1186,12 @@ OPT_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
 
 
 def check_opt_one(timer, gen, dev, shape, fmt, bs, *, lam=1e3, core="adamw",
-                  momentum=0.0, fisher_decay=None, ok=1.0, adversarial=None):
+                  momentum=0.0, fisher_decay=None, ok=1.0, adversarial=None,
+                  library=False):
     """One check row; with ``adversarial`` (per-matrix scales) w gets that
-    planted case and the row is checked, not timed."""
+    planted case and the row is checked, not timed.  ``library`` times
+    ``torch._fused_adamw_`` (no penalty) beside an AdamW step with one;
+    a step at lam 0 is always timed against it."""
     from repro_torch.kernels.opt_step import fused_opt_step_leaf, opt_step_ref
     from repro_torch.kernels.opt_step import ops as opt_ops
     w = torch.randn(shape, generator=gen, device=dev) * 0.02
@@ -1246,7 +1249,7 @@ def check_opt_one(timer, gen, dev, shape, fmt, bs, *, lam=1e3, core="adamw",
                   if ok else _elem_bound("opt_step", 0, 4))
     w_k, mu_k, nu_k = w.clone(), mu.clone(), nu.clone()
     library_ms = None
-    if lam == 0.0 and core == "adamw":
+    if (lam == 0.0 or library) and core == "adamw":
         # yardstick: PyTorch's fused AdamW kernel on the same leaf
         w_l, mu_l, nu_l = w.clone(), mu.clone(), nu.clone()
         steps = [torch.tensor(count, device=dev)]
@@ -1598,11 +1601,13 @@ SCHED_DENSE_RTOL = 1e-4
 SCHED_A8_RTOL = 0.05
 
 
-def sched_card_vs_cpu(dev, n_layers=2, n_requests=4):
+def sched_card_vs_cpu(dev, n_layers=1, n_requests=4):
     """The paged W4A8 scheduler on the card and on the CPU from the same
-    weights (fp32, TF32 off): identical greedy tokens, or partings at near
-    ties; and the two sides' prefill logits with dense and with int8
-    activations within their tolerances."""
+    weights (fp32, TF32 off; ``n_layers`` cut from 2 to 1 to keep the
+    script inside its time limit, the CPU side being most of the phase):
+    identical greedy tokens, or partings at near ties; and the two sides'
+    prefill logits with dense and with int8 activations within their
+    tolerances."""
     from repro_torch.core.policy import tree_map_with_path
     from repro_torch.core.qtensor import qtensor_act_fmt
     from repro_torch.models.lm import lm_init, lm_prefill
@@ -1709,9 +1714,10 @@ def granite_trainer(dev, *, n_layers=None, dtype="bfloat16",
                     placement="decoupled", lam=1e3, seed=0, method="lotion",
                     act_fmt=None, n_microbatches=1, rat_uniforms=None,
                     ef_compress=False, chaos=False, lr=3e-3, attn_chunk=0,
-                    logit_chunk=0):
-    """The training path's workload: Granite-3-2B at full width (depth
-    ``n_layers`` if given), random fp32 master weights from ``seed``,
+                    logit_chunk=0, arch="granite-3-2b"):
+    """The training path's workload: Granite-3-2B (or ``arch``) at full
+    width (depth ``n_layers`` if given), random fp32 master weights from
+    ``seed`` (a vision config's cross-attention gates drawn from it too),
     ``dtype`` activations (fake-quantized under ``act_fmt``); ``method``
     int4 per-tensor (LOTION at ``lam`` with the given penalty placement,
     or the QAT/RAT baselines: RAT from ``rat_uniforms(step)`` or the
@@ -1728,7 +1734,7 @@ def granite_trainer(dev, *, n_layers=None, dtype="bfloat16",
     from repro_torch.optim import adamw, cosine_with_warmup
     from repro_torch.train import (TrainConfig, init_state, make_eval_fn,
                                    make_optimizer, make_train_step)
-    cfg = dataclasses.replace(get_config("granite-3-2b"), dtype=dtype,
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype,
                               act_fmt=act_fmt)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -1740,8 +1746,9 @@ def granite_trainer(dev, *, n_layers=None, dtype="bfloat16",
                        ef_compress=ef_compress, attn_chunk=attn_chunk,
                        logit_chunk=logit_chunk)
     opt = make_optimizer(tcfg, adamw(cosine_with_warmup(lr, 5, 100)))
-    state = init_state(lm_init(cfg, seed=seed, device=dev), opt,
-                       lr_scale=chaos)
+    params = lm_init(cfg, seed=seed, device=dev)
+    open_gates(params, cfg, seed)
+    state = init_state(params, opt, lr_scale=chaos)
     loss_fn = None
     if chaos:
         from repro_torch.train.faults import chaos_loss_fn
@@ -1911,7 +1918,12 @@ def _rel(a, b):
     return abs(a - b) / abs(a) if a else abs(b)
 
 
-def train_card_vs_cpu(dev, steps=3):
+def train_card_vs_cpu(dev, steps=3, n_layers=1):
+    """Granite-3-2B on 1 full-width layer (cut from 2 to keep the script
+    inside its time limit), fp32, trained 3 LOTION steps on the card and
+    on the CPU from the same weights and batches: the losses and the
+    fp32 and RTN eval CEs within TRAIN_CPU_RTOL, the per-step penalty
+    within TRAIN_CPU_PENALTY_RTOL."""
     from repro_torch.core.policy import tree_map_with_path
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1919,7 +1931,7 @@ def train_card_vs_cpu(dev, steps=3):
     for side in ("cpu", "cuda"):
         d = torch.device("cpu") if side == "cpu" else dev
         cfg, train_step, eval_fn, state = granite_trainer(
-            dev, n_layers=2, dtype="float32", seed=2)
+            dev, n_layers=n_layers, dtype="float32", seed=2)
         if side == "cpu":
             # the same random weights (drawn on the card), moved over; the
             # step and eval rebuilt for CPU tensors take the plain versions
@@ -1939,7 +1951,8 @@ def train_card_vs_cpu(dev, steps=3):
     worst = max(_rel(a, b) for a, b in pairs)
     pen_worst = max(_rel(a, b) for a, b in zip(c["penalties"],
                                                 g["penalties"]))
-    row = dict(phase="train_card_vs_cpu", n_layers=2, dtype="float32",
+    row = dict(phase="train_card_vs_cpu", n_layers=n_layers,
+               dtype="float32",
                batch=2, seq=128, steps=steps, cpu=c, card=g,
                max_rel_diff=worst, rtol=TRAIN_CPU_RTOL,
                penalty_max_rel_diff=pen_worst,
@@ -2132,8 +2145,9 @@ def _uniform_source(dev, params, seed, n):
             for _ in range(n)]
 
 
-def train_baselines_card_vs_cpu(dev, steps=3):
-    """QAT and RAT on 2 full-width layers, fp32, trained on the card and
+def train_baselines_card_vs_cpu(dev, steps=3, n_layers=1):
+    """QAT and RAT on 1 full-width layer (cut from 2 to keep the script
+    inside its time limit), fp32, trained on the card and
     on the CPU from the same weights, batches and (RAT) uniforms: the
     first two steps' losses and the fp32 eval CE within TRAIN_CPU_RTOL,
     the third step's loss and the RTN and RR eval CEs within
@@ -2149,7 +2163,7 @@ def train_baselines_card_vs_cpu(dev, steps=3):
             d = torch.device("cpu") if side == "cpu" else dev
             draws = []          # per step, then the RR eval's
             cfg, train_step, eval_fn, state = granite_trainer(
-                dev, n_layers=2, dtype="float32", seed=3, method=method,
+                dev, n_layers=n_layers, dtype="float32", seed=3, method=method,
                 rat_uniforms=(lambda step: draws[step]) if method == "rat"
                 else None)
             draws += [{k: v.to(d) for k, v in u.items()} for u in
@@ -2181,7 +2195,7 @@ def train_baselines_card_vs_cpu(dev, steps=3):
     micro = {}
     for n in (1, 2):
         cfg, train_step, _, state = granite_trainer(
-            dev, n_layers=2, dtype="float32", seed=3, method="rat",
+            dev, n_layers=n_layers, dtype="float32", seed=3, method="rat",
             n_microbatches=n)
         pipe, _ = _pipeline(cfg, dev, 4, 128)
         _, rows = _train_steps(train_step, state, pipe, 1)
@@ -2192,7 +2206,7 @@ def train_baselines_card_vs_cpu(dev, steps=3):
                      for k in ("loss", "grad_norm"))
     worst = max(r["max_rel_diff"] for r in out.values())
     late = max(r["late_max_rel_diff"] for r in out.values())
-    row = dict(phase="train_baselines_card_vs_cpu", n_layers=2,
+    row = dict(phase="train_baselines_card_vs_cpu", n_layers=n_layers,
                dtype="float32", batch=2, seq=128, steps=steps, **out,
                max_rel_diff=worst, rtol=TRAIN_CPU_RTOL,
                late_max_rel_diff=late, late_rtol=TRAIN_BASELINE_LATE_RTOL,
@@ -2392,11 +2406,11 @@ _QUIET = dict(log_every=0, log=lambda *a, **k: None)
 CUT_FOR_TIME = "cut for the script's time limit"
 
 
-def ckpt_full_width(dev, n_layers=8):
-    """The LOTION state of 8 full-width layers (fp32 params, mu and nu, the
+def ckpt_full_width(dev, n_layers=4):
+    """The LOTION state of 4 full-width layers (fp32 params, mu and nu, the
     step and optimizer scalars; the depth is cut from 40 to keep the
     script inside its time limit: the 40-layer state took 138 s of disk
-    I/O) saved after step 1 into the JAX package's layout
+    I/O, the 8-layer one about 38 s) saved after step 1 into the JAX package's layout
     (``keep=1``), step 2 taken, the saved step loaded back into the
     state's own tensors (``load(into=state)``) and step 2 taken again:
     the loss and every leaf bitwise equal to the first step 2.  Reports
@@ -2468,10 +2482,11 @@ def ckpt_full_width(dev, n_layers=8):
     return row
 
 
-def train_resume(dev, n_layers=2, steps=6, crash_after=3):
-    """Crash-exact auto-resume on 2 full-width layers (bf16, batch 4 x
-    1024): ``steps`` steps straight through ``run_loop``; then the same
-    run with checkpoints every 2 steps and a hard kill
+def train_resume(dev, n_layers=1, steps=6, crash_after=3):
+    """Crash-exact auto-resume on 1 full-width layer (bf16, batch 4 x
+    1024; cut from 2 to keep the script inside its time limit):
+    ``steps`` steps straight through ``run_loop``; then the same run
+    with checkpoints every 2 steps and a hard kill
     (``InjectedCrash``) after step ``crash_after``, and a fresh state
     auto-resumed to the end.  The final state and every step's loss
     (the replayed ones too) bitwise equal.  Then the newest checkpoint's
@@ -3013,7 +3028,7 @@ def _long_runs(dev, n_layers, steps, seed):
     return out[0], out[LONG_CHUNK], w0
 
 
-def train_long(dev, n_layers=2, steps=2):
+def train_long(dev, n_layers=1, steps=2):
     """Granite-3-2B at full width, ``n_layers`` layers, bf16, LOTION int4
     decoupled, batch 1 x 8192: ``steps`` steps with streaming attention
     and the chunked head (``attn_chunk = logit_chunk = 1024``) against
@@ -3482,7 +3497,7 @@ def _compare_routes(card, cpu):
 
 def _cut_vs_cpu(dev, cfg, *, seed, prompts, steps, why,
                 rtol=(ZOO_CPU_RTOL, ZOO_KV_RTOL), phase=None,
-                state_rtol=None):
+                state_rtol=None, images=None, cross_rtol=None):
     """``cfg`` (TF32 off) from the same random weights on the card and on
     the CPU, int4 QTensor weights and int8 KV as served: prefill of the
     left-padded prompts (per-row ``prompt_lens`` where the Engine masks
@@ -3496,8 +3511,12 @@ def _cut_vs_cpu(dev, cfg, *, seed, prompts, steps, why,
     one that parts are then not held, every step before it is.  With
     ``state_rtol`` the recurrent states after the prefill (each ``ssm``
     and ``wkv`` leaf) are held within that fraction of the CPU's largest
-    value of the leaf.  Returns the row (emitted, with ``phase``, where
-    given); raises AssertionError(message, row) on a failure."""
+    value of the leaf.  ``images`` (b, n_image_tokens, d_vision), on the
+    CPU, feed both sides' prefill (the gates of a vision config are drawn
+    from ``seed``), and with ``cross_rtol`` the cross K/V the prefill
+    caches are held within that fraction of the CPU's largest value.
+    Returns the row (emitted, with ``phase``, where given); raises
+    AssertionError(message, row) on a failure."""
     from repro_torch import bridge
     from repro_torch.core.policy import tree_map_with_path
     from repro_torch.models.lm import lm_decode, lm_init, lm_prefill
@@ -3508,6 +3527,7 @@ def _cut_vs_cpu(dev, cfg, *, seed, prompts, steps, why,
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
     params = lm_init(cfg, seed=seed, device=dev)
+    open_gates(params, cfg, seed)
     cpu_params = tree_map_with_path(lambda p, x: x.cpu(), params)
     scfg = ServeConfig(weights="rtn:int4", kv_quant="int8")
     card_p = prepare_params(params, scfg, dev)
@@ -3530,11 +3550,15 @@ def _cut_vs_cpu(dev, cfg, *, seed, prompts, steps, why,
                 p, cfg, torch.as_tensor(toks, device=device),
                 cache_len=cache_len, kv_quant="int8",
                 prompt_lens=torch.tensor(lens, device=device)
-                if masked else None)
+                if masked else None,
+                image_embeds=None if images is None else images.to(device))
             # copies: decode updates the cache in place
+            flat = bridge.flatten(cache)
             states.append({k: v.float().cpu().clone() for k, v in
-                           bridge.flatten(cache).items()
+                           flat.items()
                            if k.rsplit("/", 1)[-1] in ("ssm", "wkv")})
+            crosses.append({k: v.float().cpu() for k, v in flat.items()
+                            if "_xattn/" in k})
             pos = torch.tensor(lens if masked else [width] * b,
                                device=device) - 1
             for s in range(steps + 1):
@@ -3549,7 +3573,7 @@ def _cut_vs_cpu(dev, cfg, *, seed, prompts, steps, why,
                                       tok.to(device)[:, None].long(), pos)
         return out, fed
 
-    states = []
+    states, crosses = [], []
     with _recorded_routes() as cpu_routes:
         cpu_out, fed = run(cpu_p, torch.device("cpu"))
     with _recorded_routes() as card_routes:
@@ -3586,6 +3610,11 @@ def _cut_vs_cpu(dev, cfg, *, seed, prompts, steps, why,
                  for k, c in states[0].items()}
     if state_rtol is not None:
         ok = ok and bool(state_err) and max(state_err.values()) <= state_rtol
+    cross_err = {k: float((crosses[1][k] - c).abs().max()
+                          / c.abs().max().clamp_min(1e-30))
+                 for k, c in crosses[0].items()}
+    if cross_rtol is not None:
+        ok = ok and bool(cross_err) and max(cross_err.values()) <= cross_rtol
     row = dict(model=cfg.name, n_layers=cfg.n_layers, depth_reason=why,
                dtype=str(cfg.dtype).replace("torch.", ""), weights="rtn:int4",
                kv_quant="int8", batch=b, prompt_lens=lens, steps=steps,
@@ -3597,6 +3626,8 @@ def _cut_vs_cpu(dev, cfg, *, seed, prompts, steps, why,
                    cpu_dropped_choices=drops),
                **({} if state_rtol is None else dict(
                    state_rtol=state_rtol, state_rel_err=state_err)),
+               **({} if cross_rtol is None else dict(
+                   cross_kv_rtol=cross_rtol, cross_kv_rel_err=cross_err)),
                ok=bool(ok))
     if phase:
         row = dict(phase=phase, **row)
@@ -4223,6 +4254,675 @@ def ssm_chunked_vs_exact(dev, b=2, L=1024):
     return row
 
 
+# --------------------------------------------------------------------------
+# phase 9: cross-attention (Llama-3.2-Vision-11B) served and trained, and
+# the zoo's MoE and SSM configs trained on the card
+# --------------------------------------------------------------------------
+
+VISION = "llama3.2-vision-11b"
+# the wqt_matmul shapes of its serving path (M, N, K, what): vision_proj
+# and the cross layers' wk / wv over the 1,601 image tokens of 8 rows,
+# then the decode GEMVs at batch 8
+VISION_WQT = [(8 * 1601, 4096, 1280, "vision_proj"),
+              (8 * 1601, 1024, 4096, "cross wk wv"),
+              (8, 4096, 4096, "wq wo"), (8, 1024, 4096, "wk wv"),
+              (8, 14336, 4096, "w_up w_gate"), (8, 4096, 14336, "w_down")]
+VISION_ATTN = dict(b=8, g=8, rep=4, hd=128)
+VISION_ATTN_LS = (256, 2048)
+# one pattern unit: four self-attention layers and one cross layer
+VISION_CUT = 5
+# the cross K/V of the card's prefill against the CPU's (fp32, TF32 off:
+# summation order of the two projections only)
+VISION_CROSS_RTOL = 1e-5
+# an image that changes nothing on the card would leave the prefill's
+# logits as they are; a second image must move them by more than this
+# fraction of the largest
+VISION_IMAGE_MIN_CHANGE = 1e-3
+# one training step, card against the port on the CPU (fp32, TF32 off):
+# the losses and every updated parameter within 1e-4 of the CPU's largest
+# value of the leaf (tests/test_torch_archs.py holds JAX's step so); the
+# state starts with seeded second moments, so the LOTION penalty has a
+# Fisher and Adam's first update, lr * g / (sqrt(v) + eps), is a smooth
+# function of the gradient: from zero moments it is lr * sign(g) for every
+# element above eps, and an element whose gradient is within rounding of
+# zero can step the other way on one side
+TRAIN_CUT_RTOL = 1e-4
+TRAIN_CUT_NU = (0.5e-6, 1.5e-6)
+TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 1, 64
+# the zoo's training phases: (arch, depth; None = as configured)
+ZOO_TRAIN = (("moonshot-v1-16b-a3b", 2), ("zamba2-2.7b", None),
+             ("rwkv6-1.6b", None))
+ZOO_TRAIN_CUTS = (("moonshot-v1-16b-a3b", 1), ("rwkv6-1.6b", 1),
+                  ("zamba2-2.7b", 6))
+# opt_step and lotion_reg on the leaves these configs train: the SSM
+# leaves per matrix (int4, lam 1e3) and RWKV6's 4-D mu_lora_b in mode none
+ZOO_TRAIN_LEAVES = SSM_QUANT + [("moonlight router", (2, 2048, 64))]
+ZOO_MODE_NONE = [("rwkv6 mu_lora_b", (24, 5, 32, 2048))]
+
+
+def open_gates(params, cfg, seed):
+    """Every cross-attention gate of ``params`` (one per repeat) drawn
+    uniform in [0.25, 0.75] from ``seed``, in place: ``lm_init`` starts
+    them at zero, as JAX's does, where the cross path adds nothing."""
+    rng = np.random.default_rng(seed)
+    for i, kind in enumerate(cfg.pattern):
+        if kind == "xattn":
+            g = params["stage"][f"b{i}_{kind}"]["xattn_gate"]
+            g.copy_(torch.as_tensor(rng.uniform(0.25, 0.75, g.shape[0])
+                                    .astype(np.float32)))
+    return params
+
+
+def _images(dev, cfg, b, seed, dtype=torch.bfloat16):
+    """One (n_image_tokens, d_vision) image embedding per row, normal
+    draws from ``seed`` on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((b, cfg.n_image_tokens, cfg.d_vision), generator=gen,
+                       device=dev).to(dtype)
+
+
+def _vision_launches(cfg):
+    """``wqt_matmul`` launches of a prefill (every layer's 7 matmuls and
+    ``vision_proj``) and of a decode step (a cross layer projects no K/V:
+    5), and ``decode_attn`` launches of a decode step (self-attention
+    only: the cross K/V are dense, read by einsums)."""
+    r = cfg.n_repeats
+    n_self, n_cross = (sum(k == kind for k in cfg.pattern) * r
+                       for kind in ("attn", "xattn"))
+    return dict(prefill=7 * (n_self + n_cross) + 1,
+                decode_step=7 * n_self + 5 * n_cross,
+                decode_attn_step=n_self)
+
+
+def check_vision_kernels(timer, dev):
+    """Llama-3.2-Vision's serving kernels at its shapes: ``wqt_matmul``
+    int4 at M = 8 x 1,601 for ``vision_proj`` (K 1280) and the cross K/V
+    projections (K 4096, N 1024), and the decode GEMVs at M = 8; the
+    ``mma`` ``decode_attn`` at hd 128, g 8, rep 4, b 8, int8, L 256 and
+    2048."""
+    from repro_torch.core.qtensor import quantize_qtensor
+    from repro_torch.kernels.wq_matmul import dequant_t_ref
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rows = []
+    for m, n, k, what in VISION_WQT:
+        w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+        qt = quantize_qtensor(w, "int4", -1)
+        w_lib = dequant_t_ref(qt.codes, qt.scales, -1, True)
+        rows.append(dict(check_wqt_one(
+            timer, gen, dev, qt, w_lib, m=m, n=n, k=k, bits=4, block_k=-1,
+            dtype=BF16), model=f"vision {what}"))
+        del w, qt, w_lib
+        torch.cuda.empty_cache()
+    for L in VISION_ATTN_LS:
+        pos = torch.tensor([0, 5, L // 3, L // 2, L - 9, L - 3, L - 2,
+                            L - 1], dtype=torch.int32, device=dev)
+        rows.append(dict(check_attn_one(
+            timer, gen, dev, L=L, bits=8, window=None, softcap=None,
+            dtype=BF16, pos=pos, **VISION_ATTN), model="vision self-attn"))
+    return rows
+
+
+def serve_vision(dev, n_layers=None, mnt=32):
+    """Llama-3.2-Vision-11B as the repo configures it (40 layers in 8 units
+    of four self-attention layers and one gated cross-attention layer;
+    1,601 image tokens of width 1280) at full width and depth, random
+    weights and gates from a seed: int4 QTensors (``vision_proj`` among
+    them), int8 self-attention KV, bf16 cross K/V; ``prepare_params`` ->
+    ``lm_prefill(image_embeds=...)`` of 8 left-padded prompts of 64-128
+    tokens, one image per row -> ``mnt`` greedy ``lm_decode`` steps, the
+    launches of each counted.  A second image must move the prefill's
+    logits.  (``Engine`` and ``Scheduler`` refuse the config, as JAX's
+    cannot serve it: they pass no images.)"""
+    from repro_torch.core import param_nbytes
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.lm import lm_decode, lm_prefill
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.engine import bucket_cache_len, prepare_params
+    cfg = zoo_cfg(VISION, n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = open_gates(_lm_init(cfg, 0, dev), cfg, 0)
+    torch.cuda.synchronize()
+    init_s, fp32_bytes = time.perf_counter() - t0, param_nbytes(params)
+    try:
+        Engine(cfg, params, ServeConfig(), device=dev)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    served = prepare_params(params, ServeConfig(weights="rtn:int4",
+                                                kv_quant="int8"), dev)
+    torch.cuda.synchronize()
+    prepare_s, prep_counts = time.perf_counter() - t0, launch_counts()
+    del params
+    prepare_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    b = 8
+    prompts = _prompts(np.random.default_rng(18), b, 64, 128, cfg.vocab)
+    width = max(len(p) for p in prompts)
+    toks = np.zeros((b, width), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, width - len(p):] = p
+    toks = torch.as_tensor(toks, device=dev)
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    cache_len = bucket_cache_len(width + mnt + 1)
+    img, img2 = (_images(dev, cfg, b, seed) for seed in (1, 2))
+
+    def prefill(images):
+        return lm_prefill(served, cfg, toks, cache_len=cache_len,
+                          kv_quant="int8", prompt_lens=lens,
+                          image_embeds=images)
+
+    def decode(lg, cache, steps):
+        pos, out = lens - 1, []
+        for _ in range(steps):
+            tok = lg[:, 0].argmax(-1)
+            out.append(tok)
+            pos = pos + 1
+            lg, cache = lm_decode(served, cfg, cache, tok[:, None].long(),
+                                  pos)
+        return lg, out
+
+    with torch.inference_mode():
+        decode(*prefill(img), 2)                             # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = prefill(img)
+        torch.cuda.synchronize()
+        prefill_s, pre_counts = time.perf_counter() - t0, launch_counts()
+        first = lg.float().clone()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        last, out = decode(lg, cache, mnt)
+        torch.cuda.synchronize()
+        decode_s, dec_counts = time.perf_counter() - t0, launch_counts()
+        serve_peak = torch.cuda.max_memory_allocated()
+        xk = next(c["k"] for name, c in cache["unit"].items()
+                  if name.endswith("_xattn"))
+        cross = dict(dtype=str(xk.dtype).replace("torch.", ""),
+                     shape=list(xk.shape),
+                     gb=2 * xk.numel() * xk.element_size() / 1e9)
+        del cache
+        other = prefill(img2)[0].float()
+    tokens = torch.stack(out, 1).cpu()
+    change = float((other - first).abs().max() / first.abs().max())
+    per = _vision_launches(cfg)
+    want_pre = dict.fromkeys(pre_counts, 0)
+    want_pre.update(wqt_matmul=per["prefill"])
+    want_dec = dict.fromkeys(dec_counts, 0)
+    want_dec.update(wqt_matmul=per["decode_step"] * mnt,
+                    decode_attn=per["decode_attn_step"] * mnt)
+    stored, moved = _step_bytes(cfg, served)
+    checks = {"prefill_launches": pre_counts == want_pre,
+              "decode_launches": dec_counts == want_dec,
+              "prepare_launches": not any(prep_counts.values()),
+              "vision_proj_qtensor": type(served["vision_proj"]).__name__
+              == "QTensor",
+              "cross_kv_dense_bf16": cross["dtype"] == "bfloat16"
+              and cross["shape"][2] == cfg.n_image_tokens,
+              "finite": bool(torch.isfinite(first).all()
+                             and torch.isfinite(last).all()),
+              "vocab": bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+              "image_matters": change > VISION_IMAGE_MIN_CHANGE,
+              "engine_refuses": refused is not None}
+    row = dict(phase="serve_vision", model=cfg.name, n_layers=cfg.n_layers,
+               d_model=cfg.d_model, dtype=str(cfg.dtype),
+               weights="rtn:int4", kv_quant="int8 (self-attention)",
+               batch=b, prompt_lens=sorted(len(p) for p in prompts),
+               image_tokens=cfg.n_image_tokens, max_new_tokens=mnt,
+               fp32_gb=fp32_bytes / 1e9,
+               served_gb=param_nbytes(served) / 1e9, init_s=init_s,
+               prepare_s=prepare_s, prefill_ms=prefill_s * 1e3,
+               decode_ms_per_step=decode_s * 1e3 / mnt,
+               prepare_peak_gib=prepare_peak / 2 ** 30,
+               serve_peak_gib=serve_peak / 2 ** 30,
+               decode_step_weight_gb=stored / 1e9,
+               decode_step_bound_ms=stored / HBM_BYTES_PER_S * 1e3,
+               decode_step_moved_gb=moved / 1e9,
+               decode_step_moved_bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+               cross_kv=cross, prefill_launches=pre_counts,
+               expected_prefill_launches=want_pre,
+               decode_launches=dec_counts,
+               expected_decode_launches=want_dec,
+               launches_per_decode_step=dict(
+                   wqt_matmul=per["decode_step"],
+                   decode_attn=per["decode_attn_step"]),
+               second_image_logit_change=change,
+               first_tokens=tokens[:2, :8].tolist(), engine_refusal=refused,
+               checks=checks)
+    del served
+    torch.cuda.empty_cache()
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"serve_vision failed its checks: {checks}", row)
+    return row
+
+
+def _lm_init(cfg, seed, dev):
+    from repro_torch.models.lm import lm_init
+    return lm_init(cfg, seed=seed, device=dev)
+
+
+def vision_card_vs_cpu(dev):
+    """One pattern unit of Llama-3.2-Vision (4 self-attention layers and
+    the cross layer) at full width in fp32 from the same weights and gates
+    on the card and on the CPU (``_cut_vs_cpu``: int4 weights, int8
+    self-attention KV, two left-padded prompts of 60-90 tokens, each row
+    its own image, 4 greedy decode steps): the prefill within 1e-4 and
+    each decode step within 1e-3 of the largest logit, and the cross K/V
+    the prefill caches within ``VISION_CROSS_RTOL``."""
+    cfg = zoo_cfg(VISION, VISION_CUT, "float32")
+    prompts = _prompts(np.random.default_rng(19), 2, 60, 90, cfg.vocab)
+    images = _images(dev, cfg, 2, seed=4, dtype=torch.float32).cpu()
+    cut = _cut_vs_cpu(dev, cfg, seed=6, prompts=prompts, steps=4,
+                      why="one pattern unit: the CPU side's time",
+                      images=images, cross_rtol=VISION_CROSS_RTOL,
+                      phase="vision_card_vs_cpu")
+    torch.cuda.empty_cache()
+    return cut
+
+
+def _train_cut_vs_cpu(dev, arch, n_layers, *, seed):
+    """One LOTION step (the train phase's settings: int4 per matrix,
+    decoupled, lam 1e3, fused AdamW) of ``arch`` cut to ``n_layers`` at
+    full width in fp32 (TF32 off), from the same weights, second moments
+    and batch (1 x 64; a vision config's images too) on the card and on
+    the port's CPU path.  The loss, CE, gradient norm and penalty within
+    ``TRAIN_CUT_RTOL``; every updated parameter within ``TRAIN_CUT_RTOL``
+    of the CPU's largest value of the leaf, and every leaf moved: by more
+    than half that on the CPU, or by an update that itself agrees within
+    ``TRAIN_CUT_RTOL`` of its largest element beyond one unit in the last
+    place of the updated value (w + update is rounded to fp32 on both
+    sides, and where the update is a few thousand units of w's last
+    place, two updates that agree to 1e-6 round one unit apart).  MoE
+    routing (every ``moe_route`` call, forward and recomputation) equal
+    on both sides.  Returns the row; raises AssertionError(message,
+    row) on a failure."""
+    from repro_torch import bridge
+    from repro_torch.core.policy import tree_map
+    from repro_torch.data import lm_batch, permutation_table
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg, train_step, _, state = granite_trainer(
+        dev, arch=arch, n_layers=n_layers, dtype="float32", seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    for nu in tree_leaves(state["opt"]["nu"]):
+        nu.uniform_(*TRAIN_CUT_NU, generator=gen)
+    batch = lm_batch(seed, 0, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, cfg.vocab,
+                     permutation_table(seed, cfg.vocab))
+    if cfg.n_image_tokens:
+        batch["image_embeds"] = _images(dev, cfg, TRAIN_CUT_BATCH, seed + 2,
+                                        torch.float32).cpu()
+    cpu_state = tree_map(lambda x: x.cpu() if torch.is_tensor(x) else x,
+                         state)
+    before = {k: v.clone() for k, v in
+              bridge.flatten(state["params"]).items()}
+    t0 = time.perf_counter()
+    with _recorded_routes() as cpu_routes:
+        cpu_state, cpu_m = train_step(cpu_state, batch)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with _recorded_routes() as card_routes:
+        state, card_m = train_step(state, {k: v.to(dev)
+                                           for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    metrics = {k: (float(card_m[k]), float(cpu_m[k]))
+               for k in ("loss", "ce", "grad_norm", "penalty")}
+    metric_err = {k: _rel(c, g) for k, (g, c) in metrics.items()}
+    got = bridge.flatten(state["params"])
+    want = bridge.flatten(cpu_state["params"])
+    leaf_err, unmoved, via_update = {}, [], []
+    for k, w in want.items():
+        g, b0 = got[k].cpu(), before[k].cpu()
+        scale = float(w.abs().max().clamp_min(1e-30))
+        leaf_err[k] = float((g - w).abs().max()) / scale
+        if float((w - b0).abs().max()) / scale <= TRAIN_CUT_RTOL / 2:
+            # a leaf whose values dwarf one step: hold the update itself
+            du_w, du_g = w - b0, g - b0
+            ref = float(du_w.abs().max())
+            if ref == 0.0:
+                unmoved.append(k)
+                continue
+            top = torch.maximum(w.abs(), g.abs())
+            ulp = torch.nextafter(top, torch.tensor(math.inf)) - top
+            excess = ((du_g - du_w).abs() - ulp).clamp_min(0.0)
+            leaf_err[k] = max(leaf_err[k], float(excess.max()) / ref)
+            via_update.append(k)
+    routes = _compare_routes(card_routes, cpu_routes) if cpu_routes \
+        else None
+    gates = {k: [float(before[k][i]), float(got[k][i]), float(want[k][i])]
+             for k in want if k.endswith("xattn_gate")
+             for i in (0,)}
+    checks = {"metrics": max(metric_err.values()) <= TRAIN_CUT_RTOL,
+              "params": max(leaf_err.values()) <= TRAIN_CUT_RTOL,
+              "every_leaf_moved": not unmoved,
+              "penalty_active": metrics["penalty"][1] > 0.0,
+              "routing_equal": routes is None,
+              "not_skipped": not bool(card_m["skipped"])
+              and not bool(cpu_m["skipped"])}
+    if cfg.n_image_tokens:
+        checks["gates_moved"] = bool(gates) and all(
+            v[1] != v[0] and v[2] != v[0] for v in gates.values())
+    worst = max(leaf_err, key=leaf_err.get)
+    row = dict(model=cfg.name, n_layers=cfg.n_layers, dtype="float32",
+               batch=TRAIN_CUT_BATCH, seq=TRAIN_CUT_SEQ, rtol=TRAIN_CUT_RTOL,
+               nu_init=TRAIN_CUT_NU, metrics=metrics, metric_rel_err=metric_err,
+               max_rel_diff=max(list(metric_err.values())
+                                + list(leaf_err.values())),
+               worst_leaf=worst, worst_leaf_rel_err=leaf_err[worst],
+               leaves=len(leaf_err), held_by_update=len(via_update),
+               unmoved=unmoved, gates=gates,
+               routing=None if not cpu_routes else dict(
+                   calls=len(cpu_routes), parted=routes),
+               cpu_step_s=cpu_s, card_step_s=card_s, checks=checks,
+               ok=all(checks.values()))
+    del state, cpu_state, before, got, want
+    torch.cuda.empty_cache()
+    if not row["ok"]:
+        raise AssertionError(f"{cfg.name}: card and CPU training disagree",
+                             row)
+    return row
+
+
+def _zoo_train(dev, arch, n_layers, *, steps=2, images=False,
+               eval_rtn=False):
+    """``steps`` LOTION steps of ``arch`` at full width (depth ``n_layers``
+    where given), bf16 activations, batch 4 x 1024 (with images of the
+    batch's rows for a vision config): step ms, peak memory, and the
+    launches, exact: ``opt_step`` once per leaf a step, nothing else;
+    with ``eval_rtn`` then the fp32 and RTN eval CE, one ``quant`` launch
+    per eligible leaf."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, train_step, eval_fn, state = granite_trainer(dev, arch=arch,
+                                                      n_layers=n_layers)
+    pipe, val = _pipeline(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    img = (_images(dev, cfg, TRAIN_BATCH, seed=3) if images else None)
+    batches = (dict(bt, image_embeds=img) if images else bt for bt in pipe)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_leaves = len(tree_leaves(state["params"]))
+    n_eligible = len(_eligible(state["params"]))
+    gates0 = {k: v.clone() for k, v in _gates(state["params"]).items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    try:
+        state, rows = _train_steps(train_step, state, batches, steps)
+    finally:
+        pipe.close()
+    train_peak = torch.cuda.max_memory_allocated()
+    counts = launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(opt_step=n_leaves * steps)
+    checks = {"launches": counts == want}
+    row = dict(model=cfg.name, n_layers=cfg.n_layers,
+               full_n_layers=zoo_cfg(arch).n_layers, d_model=cfg.d_model,
+               dtype=str(cfg.dtype), batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               method="lotion int4 per-matrix, decoupled, lam=1e3",
+               params=sum(t.numel() for t in tree_leaves(state["params"])),
+               leaves=n_leaves, eligible=n_eligible, setup_s=setup_s,
+               steps=rows, step_ms=[r["step_ms"] for r in rows],
+               launches=counts, expected_launches=want,
+               launches_per_step=dict(opt_step=n_leaves, quant=0),
+               peak_memory_gib_train=train_peak / 2 ** 30)
+    if images:
+        moved = {k: float((v - gates0[k]).abs().max())
+                 for k, v in _gates(state["params"]).items()}
+        row["gate_moved"] = moved
+        checks["gates_moved"] = bool(moved) and all(moved.values())
+    if eval_rtn:
+        vb = dict(val, image_embeds=img) if images else val
+        reset_launch_counts()
+        ce = {"fp32": float(eval_fn(state["params"], vb)),
+              "rtn": float(eval_fn(state["params"], vb, "rtn"))}
+        ev = launch_counts()
+        want_ev = dict.fromkeys(ev, 0)
+        want_ev.update(quant=n_eligible)
+        row.update(eval_ce=ce, eval_launches=ev,
+                   expected_eval_launches=want_ev)
+        checks["eval_launches"] = ev == want_ev
+        checks["ce_finite"] = all(map(math.isfinite, ce.values()))
+    row["checks"] = checks
+    del state, train_step, eval_fn
+    torch.cuda.empty_cache()
+    return row
+
+
+def _gates(params):
+    from repro_torch import bridge
+    return {k: v for k, v in bridge.flatten(params).items()
+            if k.endswith("xattn_gate")}
+
+
+def train_vision(dev, n_layers=VISION_CUT, steps=2):
+    """Llama-3.2-Vision at full width cut to one pattern unit (its 16-byte
+    training state at 40 layers, about 156 GB, does not fit the card):
+    ``steps`` LOTION steps at batch 4 x 1024 with one image per row
+    (bf16 activations), the gates moved, the fp32 and RTN eval CE; then
+    one step on the card against the port's CPU path at batch 1 x 64
+    (``_train_cut_vs_cpu``)."""
+    row = dict(phase="train_vision", **_zoo_train(
+        dev, VISION, n_layers, steps=steps, images=True, eval_rtn=True))
+    try:
+        cut = _train_cut_vs_cpu(dev, VISION, n_layers, seed=7)
+    except AssertionError as e:
+        cut = e.args[1]
+    row["card_vs_cpu"] = cut
+    row["checks"]["card_vs_cpu"] = cut["ok"]
+    emit(row)
+    if not all(row["checks"].values()):
+        raise AssertionError(f"train_vision failed its checks: "
+                             f"{row['checks']}", row)
+    return row
+
+
+def check_moe_leaf(dev, clock=None):
+    """``opt_step`` (AdamW, int4 per matrix, lam 1e3) and ``lotion_reg``
+    (int4 per matrix, lam 1e3) on one Moonlight expert stack at 12 layers,
+    (12, 64, 2048, 1408): 2,214,592,512 elements in 768 matrices, past
+    2^31.  The leaf does not fit twice with the plain version's
+    temporaries, so its layers are drawn one at a time from seeds: the
+    kernel runs once on the whole leaf, then the plain version on each
+    layer's (64, 2048, 1408) slice (the same 64 matrices, so the same
+    per-matrix scales), and each slice is held bitwise, the penalty within
+    ``PENALTY_RTOL`` of the slices' sum.  With ``clock`` (a ``Timer``)
+    the rows also
+    time the kernel, the plain version over the 12 slices, and
+    ``torch._fused_adamw_`` on the leaf (lam 0, opt_step's yardstick)."""
+    from repro_torch.kernels.lotion_reg import (lotion_penalty_fused_vg,
+                                                 reg_ref)
+    from repro_torch.kernels.lotion_reg import ops as reg_ops
+    from repro_torch.kernels.opt_step import fused_opt_step_leaf, opt_step_ref
+    from repro_torch.kernels.opt_step import ops as opt_ops
+    torch.cuda.empty_cache()
+    n_lay = MOE_LEAF[0]
+    t = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
+    scal = dict(lr=t(3e-4), bc1=t(1 - 0.9 ** 3), bc2=t(1 - 0.95 ** 3),
+                clip_scale=t(0.5), ok=t(1.0))
+    kw = dict(lam=1e3, fmt_name="int4", block_size=-1, core="adamw",
+              **OPT_HYPER)
+
+    def layer(i):
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        shape = MOE_LEAF[1:]
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02,
+                torch.randn(shape, generator=gen, device=dev) * 1e-3,
+                torch.randn(shape, generator=gen, device=dev) * 1e-4,
+                torch.rand(shape, generator=gen, device=dev) * 1e-6)
+
+    def events(fn):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = fn()
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1)
+
+    leaf = [torch.empty(MOE_LEAF, device=dev) for _ in range(4)]
+    for i in range(n_lay):
+        for dst, src in zip(leaf, layer(i)):
+            dst[i].copy_(src)
+    w, g, mu, nu = leaf
+    n = w.numel()
+    rows = []
+    # lotion_reg first (it reads w and the Fisher, here nu, and writes a
+    # new gradient), then opt_step (in place)
+    plan = reg_ops.launch_plan(w, "int4", -1)
+    pen, grad = lotion_penalty_fused_vg(w, nu, "int4", -1, 1e3)
+    same, err, plain_ms, pen_sum = True, 0.0, 0.0, 0.0
+    for i in range(n_lay):
+        (p_i, g_i), ms = events(lambda: reg_ref(w[i], nu[i], "int4", -1,
+                                                1e3))
+        plain_ms += ms
+        e, s, _ = _bitwise([("grad", grad[i], g_i)])
+        same, err, pen_sum = same and s, max(err, e), pen_sum + float(p_i)
+        del p_i, g_i
+    pen_rel = abs(float(pen) - pen_sum) / abs(pen_sum)
+    b_ms, b_by = _elem_bound("lotion_reg", n, n * 4 * 3)
+    row = dict(phase="check", kernel="lotion_reg", model="moonlight",
+               shape=_fmt_shape(MOE_LEAF), elements=n, matrices=768,
+               fmt="int4", block_size=-1, lam=1e3, regime=plan.regime,
+               blocks=plan.blocks, bitwise=same, max_abs_err=err,
+               penalty=float(pen), penalty_rel_err=pen_rel,
+               compared="every layer's slice, plain version per slice")
+    del grad
+    if clock is not None:
+        row.update(ms=clock(lambda: lotion_penalty_fused_vg(
+            w, nu, "int4", -1, 1e3), iters=5), plain_ms=plain_ms,
+            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    emit(row)
+    rows.append(row)
+    torch.cuda.empty_cache()
+    plan = opt_ops.launch_plan(w, lam=1e3, fmt_name="int4")
+    got = fused_opt_step_leaf(w, g, mu, nu, **scal, **kw)
+    in_place = got[0] is w and got[1] is mu and got[2] is nu
+    same, err, plain_ms, pen_sum, bad = True, 0.0, 0.0, 0.0, []
+    for i in range(n_lay):
+        w0, g0, mu0, nu0 = layer(i)
+        want, ms = events(lambda: opt_step_ref(w0, g0, mu0, nu0, **scal,
+                                               **kw))
+        plain_ms += ms
+        e, s, b = _bitwise([("w", w[i], want[0]), ("mu", mu[i], want[1]),
+                            ("nu", nu[i], want[2])])
+        same, err, pen_sum = same and s, max(err, e), pen_sum + float(
+            want[3])
+        bad += [f"layer {i} {x}" for x in b]
+        del w0, g0, mu0, nu0, want
+    pen_rel = abs(float(got[3]) - pen_sum) / abs(pen_sum)
+    b_ms, b_by = _elem_bound("opt_step", n, n * 4 * 7)
+    row2 = dict(phase="check", kernel="opt_step", model="moonlight",
+                shape=_fmt_shape(MOE_LEAF), elements=n, matrices=768,
+                fmt="int4", block_size=-1, mode="matrix", core="adamw",
+                ok=1.0, lam=1e3, blocks=plan.blocks, in_place=in_place,
+                bitwise=same, not_bitwise=bad[:8], max_abs_err=err,
+                penalty=float(got[3]), penalty_rel_err=pen_rel,
+                compared="every layer's slice, plain version per slice from "
+                "the same seeded draws")
+    if clock is not None:
+        # the library call takes the leaf as its 12 layers' views, one
+        # call: a list of tensors is its own interface
+        views = [list(x.unbind(0)) for x in (w, g, mu, nu)]
+        steps = [torch.tensor(3.0, device=dev) for _ in range(n_lay)]
+        row2.update(
+            ms=clock(lambda: fused_opt_step_leaf(w, g, mu, nu, **scal, **kw),
+                     iters=5),
+            plain_ms=plain_ms,
+            library_ms=clock(lambda: torch._fused_adamw_(
+                *views, [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+                weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False),
+                iters=5),
+            bound_ms=b_ms, bound_by=b_by)
+        del views
+    emit(row2)
+    rows.append(row2)
+    del leaf, w, g, mu, nu, got
+    torch.cuda.empty_cache()
+    failed = [f"{r['kernel']}: bitwise {r['bitwise']}, max_abs_err "
+              f"{r['max_abs_err']}, penalty_rel_err {r['penalty_rel_err']}"
+              for r in rows if not (r["bitwise"] and r["penalty_rel_err"]
+                                    <= PENALTY_RTOL)]
+    if not in_place:
+        failed.append("opt_step: not in place")
+    if failed:
+        raise AssertionError("opt_step or lotion_reg disagree on the "
+                             "Moonlight expert stack", dict(failed=failed))
+    return dict(rows=rows, failed=failed)
+
+
+def check_zoo_train_kernels(timer, dev):
+    """The training kernels on the leaves item 10's configs train:
+    ``check_moe_leaf`` (the 2.2e9-element expert stack), then ``opt_step``
+    (AdamW, int4 per matrix, lam 1e3, with ``torch._fused_adamw_``'s time)
+    and ``lotion_reg`` (int4 per matrix) bitwise on every SSM leaf the
+    packer casts and a Moonlight router stack, and ``opt_step`` in mode
+    none (lam 0) on RWKV6's 4-D ``mu_lora_b``."""
+    rows = check_moe_leaf(dev, clock=timer)["rows"]
+    gen = torch.Generator(device=dev).manual_seed(25)
+    for model, shape in ZOO_TRAIN_LEAVES:
+        rows.append(dict(check_opt_one(timer, gen, dev, shape, "int4", -1,
+                                       library=True), model=model))
+        rows.append(dict(check_reg_one(timer, gen, dev, shape, "int4", -1),
+                         model=model))
+        torch.cuda.empty_cache()
+    for model, shape in ZOO_MODE_NONE:
+        rows.append(dict(check_opt_one(timer, gen, dev, shape, "int4", -1,
+                                       lam=0.0), model=model))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_zoo(dev, steps=2):
+    """The zoo's MoE and SSM configs trained on the card at full width:
+    Moonlight-16B-A3B at 2 of its 48 layers (its 16-byte state at 48
+    layers is about 430 GB; 2 layers and the 671M embedding and head hold
+    about 30 GB), Zamba2-2.7B and RWKV6-1.6B at full depth (37 and 26 GB
+    of state): ``steps`` LOTION steps each at batch 4 x 1024, step ms,
+    peak memory and exact launches (``_zoo_train``).  DBRX-132B is left
+    out: one layer's state is 66.9 GiB before its activations (PERF.md
+    §4)."""
+    out = dict(phase="train_zoo")
+    checks = {}
+    for arch, n_layers in ZOO_TRAIN:
+        r = _zoo_train(dev, arch, n_layers, steps=steps)
+        out[arch] = r
+        checks.update({f"{arch}_{k}": v for k, v in r["checks"].items()})
+    out["checks"] = checks
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(f"train_zoo failed its checks: {checks}", out)
+    return out
+
+
+def train_zoo_card_vs_cpu(dev):
+    """One LOTION step of Moonlight (1 layer, routing recorded), RWKV6 (1
+    layer) and Zamba2 (6 layers: one scan group and the shared block) at
+    full width, card against the port's CPU path (``_train_cut_vs_cpu``;
+    Zamba2 is held to the port's CPU run, not JAX's, whose chunked SSD
+    has a non-finite gradient at this width)."""
+    out = dict(phase="train_zoo_card_vs_cpu")
+    checks = {}
+    for i, (arch, n_layers) in enumerate(ZOO_TRAIN_CUTS):
+        try:
+            cut = _train_cut_vs_cpu(dev, arch, n_layers, seed=8 + i)
+        except AssertionError as e:
+            cut = e.args[1]
+        out[arch] = cut
+        checks[arch] = cut["ok"]
+    out["checks"] = checks
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(f"train_zoo_card_vs_cpu failed its checks: "
+                             f"{checks}", out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4292,7 +4992,15 @@ def main() -> int:
               "serve_zamba2": lambda: serve_zamba2(dev),
               "serve_rwkv6": lambda: serve_rwkv6(dev),
               "ssm_card_vs_cpu": lambda: ssm_card_vs_cpu(dev),
-              "ssm_chunked_vs_exact": lambda: ssm_chunked_vs_exact(dev)}
+              "ssm_chunked_vs_exact": lambda: ssm_chunked_vs_exact(dev),
+              "vision_kernels": lambda: check_vision_kernels(timer, dev),
+              "serve_vision": lambda: serve_vision(dev),
+              "vision_card_vs_cpu": lambda: vision_card_vs_cpu(dev),
+              "train_vision": lambda: train_vision(dev),
+              "zoo_train_kernels": lambda: check_zoo_train_kernels(timer,
+                                                                   dev),
+              "train_zoo": lambda: train_zoo(dev),
+              "train_zoo_card_vs_cpu": lambda: train_zoo_card_vs_cpu(dev)}
     out = {}
     for name, run in phases.items():
         t0 = time.perf_counter()
@@ -4300,7 +5008,7 @@ def main() -> int:
         emit(dict(phase="timing", of=name, seconds=time.perf_counter() - t0))
         if name in ("a8", "wq", "layer", "quant", "lotion_reg",
                     "opt_step", "synth_kernels", "zoo_kernels", "moe_qt3d",
-                    "ssm_kernels"):
+                    "ssm_kernels", "vision_kernels", "zoo_train_kernels"):
             # the timer's flush buffer stays; the checks' inputs go
             torch.cuda.empty_cache()
 
@@ -4517,11 +5225,73 @@ def kernels_line(out):
         "the int4 per-tensor penalty), fp32",
         train_step_device_ms=step_dev,
         **stats(opt, opt4, opt_lib)))
-    zoo, ssm = zoo_kernel_fields(out), ssm_kernel_fields(out)
+    extra = (zoo_kernel_fields(out), ssm_kernel_fields(out),
+             vision_kernel_fields(out), zoo_train_kernel_fields(out))
     for line in lines:
-        line.update(zoo.get(line["name"], {}))
-        line.update(ssm.get(line["name"], {}))
+        for fields in extra:
+            line.update(fields.get(line["name"], {}))
     return lines
+
+
+def _timed(r, *extra):
+    return {k: r[k] for k in extra + ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}
+
+
+def vision_kernel_fields(out):
+    """The cross-attention slice's numbers for the kernels line: each
+    serving kernel's launches in ``serve_vision``'s prefill and decode
+    steps, the ``vision_kernels`` rows at Llama-3.2-Vision's shapes, and
+    the eval casts' ``quant`` launches in ``train_vision``."""
+    vk, sv = out["vision_kernels"], out["serve_vision"]
+    return {
+        "wqt_matmul": dict(
+            vision_prefill_launches=sv["prefill_launches"]["wqt_matmul"],
+            vision_decode_launches=sv["decode_launches"]["wqt_matmul"],
+            vision={f"{r['model']}: ({r['M']}, {r['K']}) x ({r['N']}, "
+                    f"{r['K']}) int4": _timed(r, "variant")
+                    for r in vk if r["kernel"] == "wqt_matmul"}),
+        "decode_attn": dict(
+            vision_decode_launches=sv["decode_launches"]["decode_attn"],
+            vision_hd128={f"b=8 g=8 rep=4 hd=128 L={r['L']} int8":
+                          _timed(r, "variant", "splits")
+                          for r in vk if r["kernel"] == "decode_attn"}),
+        "quant": dict(vision_eval_launches=out["train_vision"][
+            "eval_launches"]["quant"]),
+    }
+
+
+def zoo_train_kernel_fields(out):
+    """The zoo's training numbers for the kernels line: ``opt_step``
+    launches in ``train_vision`` and ``train_zoo``, and the
+    ``zoo_train_kernels`` rows of ``opt_step`` and ``lotion_reg``: the
+    2.2e9-element Moonlight stack and the SSM leaves."""
+    rows = out["zoo_train_kernels"]
+    tz = out["train_zoo"]
+
+    def leaves(kernel):
+        return {f"{r['model']} {r['shape']} {r.get('mode', 'matrix')}":
+                dict(_timed(r), bitwise=r["bitwise"])
+                for r in rows if r["kernel"] == kernel
+                and r["model"] != "moonlight"}
+
+    def moe(kernel):
+        r = next(r for r in rows if r["kernel"] == kernel
+                 and r["model"] == "moonlight")
+        return dict(moe_leaf_shape=r["shape"], moe_leaf_bitwise=r["bitwise"],
+                    moe_leaf_penalty_rel_err=r["penalty_rel_err"],
+                    **{f"moe_leaf_{k}": v for k, v in _timed(r).items()})
+
+    return {
+        "opt_step": dict(
+            vision_train_launches=out["train_vision"]["launches"][
+                "opt_step"],
+            zoo_train_launches={a: tz[a]["launches"]["opt_step"]
+                                for a, _ in ZOO_TRAIN},
+            zoo_leaves=leaves("opt_step"), **moe("opt_step")),
+        "lotion_reg": dict(zoo_leaves=leaves("lotion_reg"),
+                           **moe("lotion_reg")),
+    }
 
 
 def ssm_kernel_fields(out):

@@ -3,7 +3,7 @@
 each of those phases once sound and once with each fault planted on the
 card side only, by patching a function for the length of the run.
 
-Training (phase ``train_card_vs_cpu``: 2-layer Granite-3-2B at full width,
+Training (phase ``train_card_vs_cpu``: 1-layer Granite-3-2B at full width,
 fp32, 3 LOTION steps, then the fp32 and RTN eval CE and the per-step
 penalty):
 
@@ -44,7 +44,7 @@ a NaN):
 
 The paper's baselines (phases ``check_ste``: the straight-through
 estimators on a stacked leaf, and ``train_baselines_card_vs_cpu``: QAT
-and RAT on 2 full-width layers, card against CPU from the same uniforms,
+and RAT on 1 full-width layer, card against CPU from the same uniforms,
 then RAT's two microbatches against one on the card):
 
 * ``ste_drops_grad``            — the STE of one weight leaf (the first
@@ -54,7 +54,7 @@ then RAT's two microbatches against one on the card):
 
 Checkpoints and self-healing training (phases ``train_chaos``: the skip
 gate on a NaN step, then the chaos harness on one and two simulated
-hosts; ``train_resume``: crash-exact auto-resume on 2 full-width layers,
+hosts; ``train_resume``: crash-exact auto-resume on 1 full-width layer,
 then a payload rewritten with one leaf changed):
 
 * ``skip_gate_open``       — ``opt_step``'s ok operand forced to 1, so a
@@ -72,7 +72,7 @@ width, int4 weights, prefill and first decode-step logits):
   matmul on the card misses part of its contraction.
 
 Scheduling (phases ``sched_card_vs_cpu`` and ``sched_ring_vs_paged``: the
-paged W4A8 scheduler on 2 and 4 full-width layers):
+paged W4A8 scheduler on 1 and 4 full-width layers):
 
 * ``paged_first_block`` — ``decode_attn_paged`` reads every tile through
   each row's first table entry;
@@ -89,7 +89,7 @@ The paper's synthetic testbed (phase ``synth_quadratic``: §4.1 at d =
 * ``rr_uniforms_ignore_step`` — the testbeds' RR cast on the card reuses
   the first uniforms it was given for a shape, whatever the step.
 
-Long-context training (phase ``train_long``: 2 full-width layers at batch
+Long-context training (phase ``train_long``: 1 full-width layer at batch
 1 x 8192, streaming attention and the chunked head against the unchunked
 step):
 
@@ -128,6 +128,24 @@ prefill + one decode step against the full forward on the same cuts):
   after the first (the final state stays right);
 * ``mamba_conv_tail_stale``   — Mamba2's decode step on the card keeps
   the old conv state instead of shifting the new token in.
+
+Cross-attention (phase ``vision_card_vs_cpu``: one pattern unit of
+Llama-3.2-Vision at full width, fp32, card against CPU, each row its own
+image: prefill and 4 decode steps, the cross K/V the prefill caches):
+
+* ``gate_ignored``  — the cross layers on the card take ``tanh(gate)`` as
+  1, so the cross path enters the residual ungated;
+* ``cross_kv_row0`` — cross-attention decode on the card reads row 0's
+  cached cross K/V for every row (the prefill is right; the decode steps
+  of every other row attend the wrong image).
+
+The training kernels on a leaf past 2^31 elements (phase ``moe_leaf``:
+``opt_step`` and ``lotion_reg`` on Moonlight's (12, 64, 2048, 1408)
+expert stack, every layer's slice against the plain version):
+
+* ``count_wrapped_at_2_31`` — the host wrappers of ``opt_step`` and
+  ``lotion_reg`` hand the kernel the leaf's element count held in 31
+  bits, so the launch walks the first 23 of its 768 matrices.
 
     python3 scripts/planted_faults_torch.py [--only PHASE[,PHASE...]]
 
@@ -376,6 +394,60 @@ def _stale_conv(orig):
     return decode
 
 
+def _gate_one(orig):
+    def gate(p, dtype):
+        g = orig(p, dtype)
+        return torch.ones_like(g) if g.is_cuda else g
+    return gate
+
+
+def _cross_row0(orig):
+    def cross(params, spec, x, cross_kv):
+        if x.is_cuda:
+            cross_kv = tuple(c[:1].expand_as(c) for c in cross_kv)
+        return orig(params, spec, x, cross_kv)
+    return cross
+
+
+class _Lib31:
+    """A kernel library whose ``opt_step`` and ``lotion_reg`` launches get
+    their element count modulo 2^31."""
+    N_ARG = {"opt_step_launch": 9, "lotion_reg_launch": 5}
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in self.N_ARG:
+            return fn
+
+        def call(*args):
+            args = list(args)
+            args[self.N_ARG[name]] %= 2 ** 31
+            return fn(*args)
+        return call
+
+
+class _Build31:
+    def __init__(self, build):
+        self._build = build
+
+    def __getattr__(self, name):
+        return getattr(self._build, name)
+
+    def lib(self):
+        return _Lib31(self._build.lib())
+
+
+@contextlib.contextmanager
+def _count_wrapped(*modules):
+    with contextlib.ExitStack() as stack:
+        for m in modules:
+            stack.enter_context(_patched(m, "_build", _Build31))
+        yield
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="",
@@ -391,6 +463,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.quant import ops as quant_ops
     from repro_torch.kernels.decode_attn import ops as attn_ops
     from repro_torch.kernels.lotion_reg import ops as reg_ops
+    from repro_torch.kernels.opt_step import ops as opt_ops
     from repro_torch.kernels.wq_matmul import ops as wq_ops
     import repro_torch.models.layers as layers
     import repro_torch.models.lm as lm
@@ -488,6 +561,15 @@ def main(argv=None) -> int:
                 ssm, "_ssd_chunked", _no_carried_state)),
             ("mamba_conv_tail_stale", lambda: _patched(
                 lm, "mamba2_decode", _stale_conv))]),
+        ([("vision_card_vs_cpu", cs.vision_card_vs_cpu)], [
+            sound,
+            ("gate_ignored", lambda: _patched(lm, "xattn_gate", _gate_one)),
+            ("cross_kv_row0", lambda: _patched(layers, "_cross_decode",
+                                               _cross_row0))]),
+        ([("moe_leaf", cs.check_moe_leaf)], [
+            sound,
+            ("count_wrapped_at_2_31", lambda: _count_wrapped(opt_ops,
+                                                             reg_ops))]),
     ]
     keys = ("max_rel_diff", "rtol", "penalty_max_rel_diff", "penalty_rtol",
             "late_max_rel_diff", "late_rtol", "rat_micro_rel_diff",
@@ -501,7 +583,7 @@ def main(argv=None) -> int:
             "grad_norm_rtol", "first_moment_rtol", "update_rtol",
             "routing", "dead_rows", "card_vs_cpu", "per_step_err",
             "held_steps", "codeqwen1.5-7b", "gemma3-12b", "zamba2-2.7b",
-            "rwkv6-1.6b", "blocks", "cuts")
+            "rwkv6-1.6b", "blocks", "cuts", "cross_kv_rel_err")
     if only:
         groups = [g for g in groups if only & {name for name, _ in g[0]}]
         if not groups:

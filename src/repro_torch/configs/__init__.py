@@ -10,7 +10,7 @@ from repro_torch.models.lm import LMConfig
 
 ARCHS = ["granite_3_2b", "gemma2_2b", "codeqwen1p5_7b", "gemma3_12b",
          "musicgen_medium", "dbrx_132b", "moonshot_v1_16b_a3b",
-         "zamba2_2p7b", "rwkv6_1p6b"]
+         "zamba2_2p7b", "rwkv6_1p6b", "llama3p2_vision_11b"]
 
 
 def _norm(arch_id: str) -> str:
@@ -20,9 +20,7 @@ def _norm(arch_id: str) -> str:
 def _module(arch_id: str):
     name = _norm(arch_id)
     if name not in ARCHS:
-        raise NotImplementedError(
-            f"config {arch_id!r} is not ported yet (have {ARCHS}): ROADMAP "
-            f"Queue 1 item 7(e) (llama3.2-vision)")
+        raise ValueError(f"unknown config {arch_id!r} (have {ARCHS})")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -7,9 +7,10 @@ the step phase).
 For CUDA tensors it launches the kernel or raises; the kernel writes w',
 mu' and nu' IN PLACE over ``w``, ``mu`` and ``nu`` and the wrapper returns
 those same tensors.  For CPU tensors it takes the plain version in
-``ref.py``, which returns new tensors; callers use the returned tensors
-either way.  ``fused_opt_step_leaf.launches`` counts the kernel's
-launches (nothing else adds to it).
+``ref.py`` (a large leaf a part at a time, ``_plain_in_parts``), which
+returns new tensors; callers use the returned tensors either way.
+``fused_opt_step_leaf.launches`` counts the kernel's launches (nothing
+else adds to it).
 """
 
 from __future__ import annotations
@@ -26,6 +27,10 @@ from .ref import opt_step_ref
 
 _MODES = {"none": 0, "matrix": 1, "block": 2}
 _CORES = {"adamw": 0, "sgd": 1}
+# elements of one part of the plain version on the CPU (16 MB of fp32):
+# the temporaries of a part stay in the caches; those of a whole
+# full-width leaf are fresh pages, about 3x slower
+CPU_PART = 1 << 22
 
 
 def step_scalars(lr, bc1, bc2, clip_scale, ok, device) -> torch.Tensor:
@@ -61,6 +66,35 @@ def launch_plan(w: torch.Tensor, *, lam: float, fmt_name: str,
         _co_resident(w, mode, core, fp4, fisher_decay, momentum))
 
 
+def _plain_in_parts(w, g, mu, nu, mode: str, **kw) -> Tuple:
+    """``opt_step_ref`` over parts of the leaf of at most ``CPU_PART``
+    elements where the leaf allows: runs of whole matrices (per-matrix
+    scales) or of elements (mode none; blockwise scales and one-matrix
+    leaves take one call).  Every output element depends only on its own
+    inputs and its matrix's scale, so w', mu' and nu' are those of one
+    call, bit for bit; the penalty is the float64 sum of the parts'."""
+    if mode == "matrix" and w.ndim > 2:
+        mat = quant_ops.matrix_numel(w)
+        view = (-1,) + tuple(w.shape[-2:])
+        step = max(1, CPU_PART // mat)
+    elif mode == "none":
+        view, step = (-1,), CPU_PART
+    else:
+        return opt_step_ref(w, g, mu, nu, **kw)
+    parts = [t.reshape(view) for t in (w, g, mu, nu)]
+    n = parts[0].shape[0]
+    if n <= step:
+        return opt_step_ref(w, g, mu, nu, **kw)
+    outs = [torch.empty_like(t) for t in parts[:1] + parts[2:]]
+    pen = torch.zeros((), dtype=torch.float64)
+    for i in range(0, n, step):
+        got = opt_step_ref(*(t[i:i + step] for t in parts), **kw)
+        for o, x in zip(outs, got[:3]):
+            o[i:i + step] = x
+        pen += got[3].to(torch.float64)
+    return tuple(o.reshape(w.shape) for o in outs) + (pen.to(torch.float32),)
+
+
 def fused_opt_step_leaf(w, g, mu, nu, *, lr, bc1, bc2, clip_scale,
                         lam: float, fmt_name: str, block_size: int,
                         b1: float, b2: float, eps: float,
@@ -84,12 +118,13 @@ def fused_opt_step_leaf(w, g, mu, nu, *, lr, bc1, bc2, clip_scale,
     if lam != 0.0 and (block_size == 0 or block_size < -1):
         raise ValueError(f"block_size must be -1 or positive, got {block_size}")
     if w.device.type == "cpu":
-        return opt_step_ref(w, g, mu, nu, lr=lr, bc1=bc1, bc2=bc2,
-                            clip_scale=clip_scale, lam=lam, fmt_name=fmt_name,
-                            block_size=block_size, b1=b1, b2=b2, eps=eps,
-                            weight_decay=weight_decay, core=core,
-                            momentum=momentum, fisher_decay=fisher_decay,
-                            ok=ok)
+        return _plain_in_parts(w, g, mu, nu, _mode(lam, block_size), lr=lr,
+                               bc1=bc1, bc2=bc2, clip_scale=clip_scale,
+                               lam=lam, fmt_name=fmt_name,
+                               block_size=block_size, b1=b1, b2=b2, eps=eps,
+                               weight_decay=weight_decay, core=core,
+                               momentum=momentum, fisher_decay=fisher_decay,
+                               ok=ok)
     if w.device.type != "cuda":
         raise ValueError(f"opt_step runs on cuda or cpu, got {w.device}")
     _build.check_cuda_inputs("opt_step", w, g, mu, nu)

@@ -1,6 +1,7 @@
 """Transformer layers of the port (``repro.models.layers``): norms, RoPE,
 GQA attention (full sequence and one-token decode, sliding window, logit
-softcap, QK-norm), the quantized KV cache, the MLP and the GShard MoE.
+softcap, QK-norm; cross-attention from an encoder context with no RoPE
+and no mask), the quantized KV cache, the MLP and the GShard MoE.
 
 Layers are functional, as in the JAX package: ``*_init`` returns a dict of
 tensors, ``*_apply`` takes (params, inputs).  The compute dtype is the
@@ -9,11 +10,12 @@ softmax (the JAX code there is jnp, not Pallas); every weight matmul goes
 through ``matmul`` (the ``wqt_matmul`` kernel for QTensor weights on the
 card) and quantized-cache decode through the ``decode_attn`` kernel, or
 ``decode_attn_paged`` over the paged KV pool (``attn_decode_paged``).
-Chunked prefill (``attn_chunk_apply``) and streaming attention over key
-chunks (``attn_apply(chunk=)``, ``_streaming_sdpa``) are plain torch, as
-in JAX; so are the MoE's routing, its one-hot dispatch and combine, and
-its dense expert einsums (JAX's are outside any Pallas kernel too);
-QTensor experts go through the 3-D QTensor matmul.
+Chunked prefill (``attn_chunk_apply``), streaming attention over key
+chunks (``attn_apply(chunk=)``, ``_streaming_sdpa``) and cross-attention
+(the dense cross K/V, never quantized) are plain torch, as in JAX; so
+are the MoE's routing, its one-hot dispatch and combine, and its dense
+expert einsums (JAX's are outside any Pallas kernel too); QTensor
+experts go through the 3-D QTensor matmul.
 """
 
 from __future__ import annotations
@@ -126,12 +128,20 @@ def attn_init(gen: torch.Generator, spec: AttnSpec, device,
     return p
 
 
-def _qkv(params, spec: AttnSpec, x: torch.Tensor):
-    """Project q, k, v from x (self-attention)."""
+def _qkv(params, spec: AttnSpec, x: torch.Tensor,
+         ctx: Optional[torch.Tensor] = None):
+    """Project q from x, k and v from ``ctx`` (cross) or x (self)."""
     b, l = x.shape[0], x.shape[1]
+    src = ctx if spec.is_cross else x
+    if src is None:
+        raise ValueError("cross-attention needs its context (the projected "
+                         "image embeddings), got ctx=None")
+    ls = src.shape[1]
     q = matmul(x, params["wq"]).reshape(b, l, spec.n_heads, spec.head_dim)
-    k = matmul(x, params["wk"]).reshape(b, l, spec.n_kv_heads, spec.head_dim)
-    v = matmul(x, params["wv"]).reshape(b, l, spec.n_kv_heads, spec.head_dim)
+    k = matmul(src, params["wk"]).reshape(b, ls, spec.n_kv_heads,
+                                          spec.head_dim)
+    v = matmul(src, params["wv"]).reshape(b, ls, spec.n_kv_heads,
+                                          spec.head_dim)
     if spec.qk_norm:
         q = rms_norm(q, params["q_norm_scale"])
         k = rms_norm(k, params["k_norm_scale"])
@@ -173,29 +183,33 @@ def _sdpa(q, k, v, bias, softcap):
 
 def attn_apply(params, spec: AttnSpec, x: torch.Tensor,
                positions: torch.Tensor, causal: bool = True,
-               chunk: Optional[int] = None, return_kv: bool = False):
-    """Full-sequence self-attention (train / prefill).  ``chunk`` streams
-    the keys in chunks of that many through an online softmax
+               chunk: Optional[int] = None, return_kv: bool = False,
+               ctx: Optional[torch.Tensor] = None):
+    """Full-sequence attention (train / prefill).  ``chunk`` streams the
+    keys in chunks of that many through an online softmax
     (``_streaming_sdpa``), so no score tensor of the full key length is
-    held; ``return_kv`` also returns the rotated (k, v) so prefill fills
-    the decode cache."""
-    if spec.is_cross:
-        raise NotImplementedError(
-            "cross-attention (xattn) is not ported yet: ROADMAP Queue 1 "
-            "item 7(e)")
+    held; ``return_kv`` also returns the (rotated) (k, v) so prefill fills
+    the decode cache.  Cross-attention (``spec.is_cross``) takes k and v
+    from ``ctx`` (b, n, d_model): no RoPE, key positions ``arange(n)``,
+    not causal."""
     b, l, _ = x.shape
-    q, k, v = _qkv(params, spec, x)
-    q = apply_rope(q, positions, spec.rope_theta)
-    k = apply_rope(k, positions, spec.rope_theta)
+    q, k, v = _qkv(params, spec, x, ctx)
+    if spec.is_cross:
+        k_pos = torch.arange(k.shape[1], device=x.device)
+        causal = False
+    else:
+        q = apply_rope(q, positions, spec.rope_theta)
+        k = apply_rope(k, positions, spec.rope_theta)
+        k_pos = positions
     if chunk is None or k.shape[1] <= chunk:
         ke = _expand_kv(k, spec.n_heads)
         ve = _expand_kv(v, spec.n_heads)
-        bias = _mask_bias(positions, positions, causal, spec.window)
+        bias = _mask_bias(positions, k_pos, causal, spec.window)
         if bias.ndim == 3:      # per-row positions: (b, q, k) -> (b, 1, q, k)
             bias = bias[:, None]
         o = _sdpa(q, ke, ve, bias, spec.softcap)
     else:
-        o = _streaming_sdpa(q, k, v, positions, positions, causal,
+        o = _streaming_sdpa(q, k, v, positions, k_pos, causal,
                             spec.window, spec.softcap, chunk)
     out = matmul(o.reshape(b, l, spec.q_dim), params["wo"])
     return (out, (k, v)) if return_kv else out
@@ -326,18 +340,18 @@ def _cache_write(cache, new: torch.Tensor, slot: torch.Tensor,
 
 
 def attn_decode(params, spec: AttnSpec, x: torch.Tensor, pos: torch.Tensor,
-                cache_k, cache_v):
-    """Single-token self-attention decode against a ring KV cache.
+                cache_k, cache_v, cross_kv=None):
+    """Single-token decode against a ring KV cache.
 
     x (b, 1, d_model), pos (b,) current positions.  The new K/V are
     written at ``pos % cache_len`` in place.  A quantized cache goes
     through the ``decode_attn`` kernel (its plain version for CPU
-    tensors); a dense cache through grouped einsums.  Returns
-    (out, cache_k, cache_v)."""
+    tensors); a dense cache through grouped einsums.  Cross-attention
+    (``spec.is_cross``) projects q only and attends ``cross_kv`` (the
+    cached (k, v), (b, n, kvh, hd)) with no mask; its caches are returned
+    unchanged.  Returns (out, cache_k, cache_v)."""
     if spec.is_cross:
-        raise NotImplementedError(
-            "cross-attention (xattn) decode is not ported yet: ROADMAP "
-            "Queue 1 item 7(e)")
+        return _cross_decode(params, spec, x, cross_kv), cache_k, cache_v
     b = x.shape[0]
     g = spec.n_kv_heads
     rep = spec.n_heads // g
@@ -363,6 +377,32 @@ def attn_decode(params, spec: AttnSpec, x: torch.Tensor, pos: torch.Tensor,
         o = _decode_dense(q4, cache_k, cache_v, pos, spec, x.dtype)
     o = o.reshape(b, 1, spec.q_dim)
     return matmul(o, params["wo"]), cache_k, cache_v
+
+
+def _cross_decode(params, spec: AttnSpec, x: torch.Tensor,
+                  cross_kv) -> torch.Tensor:
+    """One token's cross-attention over the cached cross K/V: grouped
+    einsums, fp32 scores, a softmax over every context token (JAX's is
+    jnp, outside any kernel)."""
+    if cross_kv is None:
+        raise ValueError("cross-attention decode needs the cached cross "
+                         "K/V (cross_kv)")
+    b = x.shape[0]
+    g = spec.n_kv_heads
+    hd = spec.head_dim
+    q = matmul(x, params["wq"]).reshape(b, spec.n_heads, hd)
+    if spec.qk_norm:
+        q = rms_norm(q, params["q_norm_scale"])
+    q4 = q.reshape(b, g, spec.n_heads // g, hd)
+    k, v = cross_kv
+    logits = torch.einsum("bgrd,blgd->bgrl", q4,
+                          k.to(q4.dtype)).to(torch.float32)
+    logits = div_scalar(logits, math.sqrt(hd))
+    if spec.softcap is not None:
+        logits = spec.softcap * torch.tanh(logits / spec.softcap)
+    probs = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bgrl,blgd->bgrd", probs.to(x.dtype), v.to(x.dtype))
+    return matmul(o.reshape(b, 1, spec.q_dim), params["wo"])
 
 
 def _cache_bits(cache) -> int:
@@ -485,16 +525,25 @@ def attn_chunk_apply(params, spec: AttnSpec, x: torch.Tensor,
     chunk's K/V are then written at ``pos % L``, only each slot's newest
     real position (pad columns and older ring duplicates go to a dump row
     that is cut off), IN PLACE, so the cache ends as per-token decode
-    writes would leave it.  Returns (out (b, cw, d), cache_k, cache_v)."""
-    if spec.is_cross:
-        raise NotImplementedError(
-            "cross-attention (xattn) is not ported yet: ROADMAP Queue 1 "
-            "item 7(e)")
+    writes would leave it.  Cross-attention (``spec.is_cross``) attends
+    the cached cross K/V (position-free context) with no mask and leaves
+    the cache as it is.  Returns (out (b, cw, d), cache_k, cache_v)."""
     b, cw, _ = x.shape
     g = spec.n_kv_heads
     rep = spec.n_heads // g
     hd = spec.head_dim
     dev = x.device
+    if spec.is_cross:
+        q = matmul(x, params["wq"]).reshape(b, cw, spec.n_heads, hd)
+        if spec.qk_norm:
+            q = rms_norm(q, params["q_norm_scale"])
+        ke = _expand_kv(cache_k.to(x.dtype), spec.n_heads)
+        ve = _expand_kv(cache_v.to(x.dtype), spec.n_heads)
+        bias = torch.zeros((1, 1, 1, ke.shape[1]), dtype=torch.float32,
+                           device=dev)
+        o = _sdpa(q, ke, ve, bias, spec.softcap)
+        return (matmul(o.reshape(b, cw, spec.q_dim), params["wo"]), cache_k,
+                cache_v)
 
     q, k, v = _qkv(params, spec, x)
     q = apply_rope(q, positions, spec.rope_theta)

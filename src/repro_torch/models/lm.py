@@ -1,5 +1,7 @@
-"""Language model of the port (``repro.models.lm``): ``attn`` (global)
-and ``local`` (sliding window) blocks, each followed by a dense MLP or a
+"""Language model of the port (``repro.models.lm``): ``attn`` (global),
+``local`` (sliding window) and ``xattn`` (gated cross-attention to the
+image embeddings, projected once per forward through ``vision_proj``:
+Llama-3.2-Vision) blocks, each followed by a dense MLP or a
 GShard MoE (``ffn="moe"``: top-k experts under a per-group capacity, plus
 ``n_shared_experts`` always-on experts as one wider MLP); ``mamba``
 (Mamba2, no FFN) and ``rwkv`` (RWKV6 time-mix and channel-mix) blocks
@@ -34,9 +36,13 @@ decode ignore it.  Recurrent blocks carry a state per batch row
 (``{"conv", "ssm"}`` or ``{"shift_tm", "shift_cm", "wkv"}``, stacked
 (repeats, batch, ...)) that decode updates in place; they consume left
 pads as tokens (no ``prompt_lens`` masking reaches them), and chunked
-prefill and paged decode refuse them, as in JAX.  Cross-attention and
-image tokens are not in these slices of the port and raise
-``NotImplementedError``.
+prefill and paged decode refuse them, as in JAX.  An ``xattn`` block adds
+``tanh(xattn_gate)`` times its attention output to the residual (the gate
+starts at zero, so at init the image changes nothing); its cache holds
+the cross K/V of the image tokens, dense in ``dtype`` whatever
+``kv_quant`` says, written by prefill and only read after.  A config with
+``n_image_tokens`` needs ``image_embeds`` (b, n_image_tokens, d_vision)
+in every forward and prefill.
 """
 
 from __future__ import annotations
@@ -62,7 +68,6 @@ from .ssm import (Mamba2Spec, RWKV6Spec, mamba2_apply, mamba2_decode,
                   rwkv6_time_mix_decode, rwkv6_time_mix_init)
 
 ATTN_KINDS = ("attn", "local", "xattn")
-PORTED_KINDS = ("attn", "local", "mamba", "rwkv")
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -168,19 +173,6 @@ class LMConfig:
                          chunk=self.rwkv_chunk)
 
 
-def check_ported(cfg: LMConfig) -> None:
-    """Raise NotImplementedError for features outside this slice."""
-    bad = [k for k in cfg.pattern if k not in PORTED_KINDS]
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {bad} are not ported yet: ROADMAP "
-            f"Queue 1 item 7(e) (xattn)")
-    if cfg.n_image_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: n_image_tokens={cfg.n_image_tokens!r} is not "
-            f"ported yet: ROADMAP Queue 1 item 7(e)")
-
-
 # ==========================================================================
 # Parameter init
 # ==========================================================================
@@ -202,6 +194,8 @@ def _block_init(gen, cfg: LMConfig, kind: str, device, r: int):
                                          lead)
         return p
     p["attn"] = attn_init(gen, cfg.attn_spec(kind), device, lead)
+    if kind == "xattn":
+        p["xattn_gate"] = torch.zeros(lead, device=device)
     p["ffn_norm_scale"] = ones()
     if cfg.ffn == "moe":
         p["moe"] = moe_init(gen, cfg.moe_spec(), device, lead)
@@ -221,7 +215,6 @@ def lm_init(cfg: LMConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``
     (default ``"cuda"``).  The numbers differ from ``jax.random``'s; tests
     that compare with JAX move JAX's weights over with ``bridge``."""
-    check_ported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
@@ -239,6 +232,9 @@ def lm_init(cfg: LMConfig, seed: int = 0, device=None) -> Dict[str, Any]:
             "attn": attn_init(gen, cfg.attn_spec("attn"), device),
             "ffn_norm_scale": torch.ones((d,), device=device),
             "mlp": mlp_init(gen, cfg.mlp_spec(), device)}
+    if cfg.n_image_tokens:
+        params["vision_proj"] = dense_init(gen, (cfg.d_vision, cfg.d_model),
+                                           device)
     params["final_norm_scale"] = torch.ones((cfg.d_model,), device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, books + (cfg.d_model, cfg.vocab),
@@ -347,16 +343,40 @@ def _apply_ffn(p, cfg: LMConfig, x: torch.Tensor, o: torch.Tensor,
     return x + h
 
 
+def xattn_gate(p, dtype: torch.dtype) -> torch.Tensor:
+    """The factor of an ``xattn`` block's attention output:
+    ``tanh(xattn_gate)`` in the compute dtype."""
+    return torch.tanh(p["xattn_gate"]).to(dtype)
+
+
+def image_context(params, cfg: LMConfig,
+                  image_embeds: Optional[torch.Tensor]):
+    """The cross-attention context (b, n_image_tokens, d_model): the image
+    embeddings in the compute dtype through ``vision_proj`` (a QTensor
+    when packed), once per forward; None for a config without image
+    tokens.  Raises where the config needs images and none are given (the
+    JAX package fails there with an AttributeError)."""
+    if not cfg.n_image_tokens:
+        return None
+    if image_embeds is None:
+        raise ValueError(
+            f"{cfg.name} cross-attends to {cfg.n_image_tokens} image tokens: "
+            f"pass image_embeds (b, {cfg.n_image_tokens}, {cfg.d_vision})")
+    return matmul(image_embeds.to(cfg.dtype), params["vision_proj"])
+
+
 # ==========================================================================
 # Training forward and loss
 # ==========================================================================
 
 def _apply_block(p, cfg: LMConfig, kind: str, x: torch.Tensor,
                  positions: torch.Tensor,
-                 attn_chunk: Optional[int] = None) -> torch.Tensor:
-    """One block, full sequence: attention and its MLP (the normed inputs
-    of both fake-quantized under ``cfg.act_fmt``; ``attn_chunk`` streams
-    the attention over key chunks), Mamba2, or RWKV6's time-mix and
+                 attn_chunk: Optional[int] = None,
+                 ctx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One block, full sequence: attention (cross-attention to ``ctx``,
+    gated, for ``xattn``) and its MLP (the normed inputs of both
+    fake-quantized under ``cfg.act_fmt``; ``attn_chunk`` streams the
+    attention over key chunks), Mamba2, or RWKV6's time-mix and
     channel-mix."""
     if kind == "mamba":
         h = rms_norm(x, p["pre_norm_scale"])
@@ -367,7 +387,9 @@ def _apply_block(p, cfg: LMConfig, kind: str, x: torch.Tensor,
         return x + rwkv6_channel_mix(p["cm"], rms_norm(x, p["cm_norm_scale"]))
     h = _act_q(cfg, rms_norm(x, p["pre_norm_scale"]))
     o = attn_apply(p["attn"], cfg.attn_spec(kind), h, positions,
-                   chunk=attn_chunk)
+                   chunk=attn_chunk, ctx=ctx if kind == "xattn" else None)
+    if kind == "xattn":
+        o = xattn_gate(p, x.dtype) * o
     return _apply_ffn(p, cfg, x, o, quantize_acts=True)
 
 
@@ -390,19 +412,20 @@ def _apply_shared(p, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor,
 
 
 def _trunk(params, cfg: LMConfig, tokens: torch.Tensor,
-           attn_chunk: Optional[int] = None) -> torch.Tensor:
+           attn_chunk: Optional[int] = None,
+           image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Embedding + all blocks; returns final hidden states (b, l, d).
     With ``cfg.remat`` each layer is recomputed in backward
     (``torch.utils.checkpoint``), which keeps one layer's activations
     alive instead of all of them."""
-    check_ported(cfg)
+    ctx = image_context(params, cfg, image_embeds)
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
 
     def unit_body(x, unit_p):
         for i, kind in enumerate(cfg.pattern):
             x = _apply_block(unit_p[f"b{i}_{kind}"], cfg, kind, x, positions,
-                             attn_chunk)
+                             attn_chunk, ctx)
         if cfg.shared_attn_every:
             x = _apply_shared(params["shared"], cfg, x, positions, attn_chunk)
         return x
@@ -417,9 +440,11 @@ def _trunk(params, cfg: LMConfig, tokens: torch.Tensor,
 
 
 def lm_forward(params, cfg: LMConfig, tokens: torch.Tensor,
-               attn_chunk: Optional[int] = None) -> torch.Tensor:
+               attn_chunk: Optional[int] = None,
+               image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Training forward: logits (b, l, [C,] vocab) in fp32."""
-    return _head(params, cfg, _trunk(params, cfg, tokens, attn_chunk))
+    return _head(params, cfg, _trunk(params, cfg, tokens, attn_chunk,
+                                     image_embeds))
 
 
 def _head_ce(params, cfg: LMConfig, x: torch.Tensor, labels: torch.Tensor):
@@ -433,7 +458,8 @@ def _head_ce(params, cfg: LMConfig, x: torch.Tensor, labels: torch.Tensor):
 
 def lm_loss(params, cfg: LMConfig, tokens: torch.Tensor,
             labels: torch.Tensor, attn_chunk: Optional[int] = None,
-            logit_chunk: Optional[int] = None, per_example: bool = False):
+            logit_chunk: Optional[int] = None, per_example: bool = False,
+            image_embeds: Optional[torch.Tensor] = None):
     """Mean next-token CE.  With ``logit_chunk`` < l the head and CE run
     chunk by chunk over the sequence, each chunk recomputed in backward
     (``torch.utils.checkpoint``, JAX's rematerialized scan), so one (b,
@@ -441,8 +467,9 @@ def lm_loss(params, cfg: LMConfig, tokens: torch.Tensor,
     mean of the chunks' means (l must be a multiple of ``logit_chunk``).
     ``per_example=True`` also returns the (b,) per-example mean CE (the
     raw material of the skip gate) as ``(ce, ce_ex)``, from the same
-    elementwise terms as ``ce``."""
-    x = _trunk(params, cfg, tokens, attn_chunk)
+    elementwise terms as ``ce``.  ``image_embeds`` (b, n_image_tokens,
+    d_vision) feed the cross-attention blocks."""
+    x = _trunk(params, cfg, tokens, attn_chunk, image_embeds)
     l = tokens.shape[1]
     if logit_chunk is None or logit_chunk >= l:
         ce, ce_ex = _head_ce(params, cfg, x, labels)
@@ -488,6 +515,8 @@ def init_cache(cfg: LMConfig, batch: int, cache_len: int,
     """Cache tree stacked over repeats: ``{"unit": {name: {"k", "v"}}}``;
     global layers hold ``cache_len`` slots, local layers a ring of
     ``window``; ``kv_quant`` stores int8 / int4 codes + fp32 scales.
+    Cross-attention blocks hold the dense cross K/V of
+    ``max(n_image_tokens, 1)`` context tokens in ``dtype`` (never codes).
     Recurrent blocks hold their state instead (mamba ``{"conv": (r, b,
     d_conv - 1, conv_dim) in ``dtype``, "ssm": fp32}``, rwkv ``{"shift_tm",
     "shift_cm", "wkv"}`` fp32), and ``shared_attn_every`` adds
@@ -495,7 +524,6 @@ def init_cache(cfg: LMConfig, batch: int, cache_len: int,
     The paged pool is the same tree with ``batch`` = n_blocks and
     ``cache_len`` = block_size: leaves (r, n_blocks, block_size, kvh, ...).
     """
-    check_ported(cfg)
     device = resolve_device(device)
     dtype = torch_dtype(dtype)
     r = cfg.n_repeats
@@ -518,6 +546,11 @@ def init_cache(cfg: LMConfig, batch: int, cache_len: int,
         elif kind == "rwkv":
             unit[name] = stacked(rwkv6_init_state(cfg.rwkv_spec(), batch,
                                                   device))
+        elif kind == "xattn":
+            shape = (r, batch, max(cfg.n_image_tokens, 1), cfg.n_kv_heads,
+                     cfg.hd)
+            unit[name] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                          "v": torch.zeros(shape, dtype=dtype, device=device)}
         else:
             unit[name] = ring(min(cfg.window or cache_len, cache_len)
                               if kind == "local" else cache_len)
@@ -533,7 +566,10 @@ def _kv_to_cache(k, v, kind: str, cfg: LMConfig, cache_len: int,
     cache.  With ``pads`` (b,) (left-pad widths of ragged prompts) row i's
     column c holds position c - pads[i] and lands at ring slot
     ``pos % ring_len``; pad columns and positions older than the ring go
-    to a dump row that is sliced off."""
+    to a dump row that is sliced off.  The cross K/V of an ``xattn``
+    block are stored whole, in ``cfg.dtype``, never quantized."""
+    if kind == "xattn":
+        return {"k": k.to(cfg.dtype), "v": v.to(cfg.dtype)}
     b, l = k.shape[0], k.shape[1]
     bits = layers.kv_bits(kv_quant)
     dev = k.device
@@ -619,19 +655,22 @@ def _stack_caches(per_layer):
 def lm_prefill(params, cfg: LMConfig, tokens: torch.Tensor,
                attn_chunk: Optional[int] = None,
                cache_len: Optional[int] = None, kv_quant=False,
-               prompt_lens: Optional[torch.Tensor] = None):
+               prompt_lens: Optional[torch.Tensor] = None,
+               image_embeds: Optional[torch.Tensor] = None):
     """Forward + cache fill in one pass.  Returns (last logits (b, 1, V)
     fp32, cache).  ``attn_chunk`` streams the attention over key chunks.
+    ``image_embeds`` (b, n_image_tokens, d_vision): the context of the
+    cross-attention blocks, whose K/V the cache keeps.
 
     ``prompt_lens`` (b,): real prompt length per row of a left-padded
     ragged batch; rows get per-row positions ``col - pad``, pad keys are
     masked out of every score, and the KV cache is written at
     position-indexed ring slots, so a row's generation does not depend on
     its batchmates."""
-    check_ported(cfg)
     b, l = tokens.shape[0], tokens.shape[1]
     cache_len = cache_len or l
     dev = tokens.device
+    ctx = image_context(params, cfg, image_embeds)
     x = _embed(params, cfg, tokens)
     pads = None
     if prompt_lens is None:
@@ -667,9 +706,12 @@ def lm_prefill(params, cfg: LMConfig, tokens: torch.Tensor,
                 continue
             o, (k, v) = attn_apply(p["attn"], cfg.attn_spec(kind), h,
                                    positions, chunk=attn_chunk,
-                                   return_kv=True)
+                                   return_kv=True,
+                                   ctx=ctx if kind == "xattn" else None)
             per_layer[name].append(_kv_to_cache(k, v, kind, cfg, cache_len,
                                                 kv_quant, pads=pads))
+            if kind == "xattn":
+                o = xattn_gate(p, x.dtype) * o
             x = _apply_ffn(p, cfg, x, o)
         if cfg.shared_attn_every:
             sp = params["shared"]
@@ -770,12 +812,12 @@ def lm_prefill_chunk(params, cfg: LMConfig, cache, tokens: torch.Tensor,
     already in the cache); chunk_lens (b,): real tokens this chunk (None:
     all).  ``cache`` is a dense partial cache holding every position
     below start_pos; the chunk's K/V are ring-written into it IN PLACE
-    (``quantize_cache`` is the deferred kv-quant step).  Attention-family
-    blocks only.  Returns (logits of each row's last real token (b, 1,
-    vocab) fp32, cache)."""
-    check_ported(cfg)
+    (``quantize_cache`` is the deferred kv-quant step); cross-attention
+    blocks read their cached cross K/V and write nothing.
+    Attention-family blocks only.  Returns (logits of each row's last
+    real token (b, 1, vocab) fp32, cache)."""
     for kind in cfg.pattern:
-        if kind not in ("attn", "local"):
+        if kind not in ATTN_KINDS:
             raise NotImplementedError(
                 f"chunked prefill needs attention-family blocks; {cfg.name} "
                 f"has {kind!r} (recurrent state is not threaded across "
@@ -800,6 +842,8 @@ def lm_prefill_chunk(params, cfg: LMConfig, cache, tokens: torch.Tensor,
                                        positions, chunk_lens,
                                        _layer_cache(c["k"], r),
                                        _layer_cache(c["v"], r))
+            if kind == "xattn":
+                o = xattn_gate(p, x.dtype) * o
             x = _apply_ffn(p, cfg, x, o)
     # the head reads each row's last real column only (pads are garbage)
     last = torch.clamp(chunk_lens - 1, min=0).long()
@@ -823,11 +867,12 @@ def lm_decode(params, cfg: LMConfig, cache, tokens: torch.Tensor,
     continuous batching; only the MoE dispatch reads it (dead rows take
     no expert capacity).  Recurrent blocks write their new state into
     their slice of the stacked state leaves, and the shared block its K/V
-    into ``cache["shared"]``; paged decode refuses recurrent patterns.
+    into ``cache["shared"]``; paged decode refuses recurrent and
+    cross-attention patterns.  Cross-attention blocks attend their cached
+    cross K/V (in the compute dtype) and write nothing.
     With codebooks tokens are (b, 1, C).  Returns
     (logits (b, 1, [C,] V) fp32, cache) with ``cache`` the same object
     that was passed in."""
-    check_ported(cfg)
     if block_tables is not None:
         bad = [k for k in cfg.pattern if k not in ("attn", "local")]
         if bad:
@@ -870,6 +915,11 @@ def lm_decode(params, cfg: LMConfig, cache, tokens: torch.Tensor,
                 o, _, _ = attn_decode_paged(p["attn"], cfg.attn_spec(kind), h,
                                             pos, ck, cv, block_tables,
                                             block_size)
+            elif kind == "xattn":
+                o, _, _ = attn_decode(p["attn"], cfg.attn_spec(kind), h, pos,
+                                      ck, cv, cross_kv=(ck.to(x.dtype),
+                                                        cv.to(x.dtype)))
+                o = xattn_gate(p, x.dtype) * o
             else:
                 o, _, _ = attn_decode(p["attn"], cfg.attn_spec(kind), h, pos,
                                       ck, cv)

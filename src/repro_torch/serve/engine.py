@@ -38,7 +38,7 @@ from ..core import QuantPolicy, cast_params, quantize_params
 from ..core.formats import IntFormat, get_format
 from ..core.qtensor import QTensor, _check_act_fmt, qtensor_act_fmt
 from ..core.policy import tree_map_with_path
-from ..models.lm import ATTN_KINDS, LMConfig, check_ported, lm_decode, lm_prefill
+from ..models.lm import ATTN_KINDS, LMConfig, lm_decode, lm_prefill
 from .slots import RejectedError, request_problem
 
 
@@ -86,6 +86,19 @@ def full_ring(cfg: LMConfig, cache_len: int) -> Optional[str]:
             return (f"block kind {kind!r} ring {ring} < cache_len "
                     f"{cache_len} (window wraps)")
     return None
+
+
+def refuse_images(cfg: LMConfig, who: str) -> None:
+    """``Engine`` and ``Scheduler`` take token prompts only, as the JAX
+    package's do; a config that cross-attends to image embeddings is
+    served through ``lm_prefill(image_embeds=...)`` and ``lm_decode``."""
+    if cfg.n_image_tokens or "xattn" in cfg.pattern:
+        raise ValueError(
+            f"{who} cannot serve {cfg.name}: its cross-attention blocks read "
+            f"image embeddings, which {who} never passes (the JAX package's "
+            f"{who} fails there too); the JAX package serves it only through "
+            f"lm_prefill(image_embeds=...) and lm_decode, and so does this "
+            f"one")
 
 
 def _check_scfg(scfg: ServeConfig, device: torch.device) -> None:
@@ -167,7 +180,7 @@ def truncate_output(tokens: Sequence[int], mnt: int,
 class Engine:
     def __init__(self, cfg: LMConfig, params, scfg: ServeConfig,
                  device=None):
-        check_ported(cfg)
+        refuse_images(cfg, "Engine")
         self.device = resolve_device(device)
         _check_scfg(scfg, self.device)
         # the JAX reference contracts in fp32: keep fp32 matmuls and

@@ -59,12 +59,12 @@ from .. import resolve_device
 from ..core.policy import tree_leaves, tree_map_with_path
 from ..core.qtensor import qtensor_act_fmt
 from ..models.lm import (LMConfig, cache_insert, cache_insert_paged,
-                         check_ported, init_cache, lm_decode, lm_prefill,
+                         init_cache, lm_decode, lm_prefill,
                          lm_prefill_chunk, quantize_cache)
 from .block_pool import BlockPool
 from .engine import (Engine, ServeConfig, _check_scfg, _per_request,
                      attn_only, bucket_cache_len, full_ring, prepare_params,
-                     sample_token)
+                     refuse_images, sample_token)
 from .prefix_cache import PrefixCache
 from .slots import (COMPLETED, DECODING, FAILED, PREEMPTED, PREFILLING,
                     QUEUED, REJECTED, TIMED_OUT, RejectedError, Request,
@@ -144,7 +144,7 @@ class Scheduler:
     def __init__(self, cfg: LMConfig, params, scfg: Optional[ServeConfig]
                  = None, sched: Optional[SchedulerConfig] = None,
                  device=None):
-        check_ported(cfg)
+        refuse_images(cfg, "Scheduler")
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.scfg = scfg = scfg if scfg is not None else ServeConfig()

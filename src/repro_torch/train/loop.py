@@ -189,7 +189,8 @@ def make_loss_fn(cfg: LMConfig, tcfg: TrainConfig):
         ce, ce_ex = lm_loss(fwd, cfg, batch["tokens"], batch["labels"],
                             attn_chunk=tcfg.attn_chunk or None,
                             logit_chunk=tcfg.logit_chunk or None,
-                            per_example=True)
+                            per_example=True,
+                            image_embeds=batch.get("image_embeds"))
         del fwd
         aux = {"ce": ce, "ce_ex": ce_ex}
         if loss_side:
@@ -267,12 +268,6 @@ def make_train_step(cfg: LMConfig, tcfg: TrainConfig, optimizer,
 
     def train_step(state, batch):
         params = state["params"]
-        if tree_leaves(params)[0].device.type == "cuda" and (
-                cfg.ffn == "moe" or set(cfg.pattern) & {"mamba", "rwkv"}):
-            raise NotImplementedError(
-                f"{cfg.name}: MoE and SSM training on the card (opt_step "
-                f"and lotion_reg over the 4-D expert stacks and the SSM "
-                f"leaves) is not ported yet: ROADMAP Queue 1 item 10")
         # pre-update Fisher (AdamW's nu), read through the chain
         fisher = tx.fisher(state["opt"])
         if fisher is None:
@@ -354,7 +349,8 @@ def make_eval_fn(cfg: LMConfig, qcfg: QuantConfig):
         else:
             p = cast_params(params, qcfg.fmt, qcfg.policy, qcfg.block_size,
                             mode=mode, uniforms=uniforms, generator=generator)
-        logits = lm_forward(p, cfg, batch["tokens"])
+        logits = lm_forward(p, cfg, batch["tokens"],
+                            image_embeds=batch.get("image_embeds"))
         del p
         return cross_entropy(logits, batch["labels"])
 

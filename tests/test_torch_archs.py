@@ -16,6 +16,11 @@ moved: by more than half the tolerance relative to its largest value, or,
 for a leaf whose values dwarf one step, by an update that itself agrees
 with JAX's within the tolerance); prefill and decode against the full forward 1e-4, and the port's
 prefill and decode logits against JAX's 1e-5.
+
+Llama-3.2-Vision's batches carry image embeddings (numpy normal draws,
+(b, n_image_tokens, d_vision)), and its JAX tree gets cross-attention gates
+drawn uniform in [0.25, 0.75] per repeat before it crosses the bridge:
+JAX's init sets them to zero, where the cross path adds nothing.
 """
 
 import dataclasses
@@ -58,10 +63,21 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)
 
 
+def open_gates(jparams, jcfg, seed=0):
+    """The JAX tree with every ``xattn_gate`` (one per repeat) drawn
+    uniform in [0.25, 0.75] from ``seed``."""
+    rng = np.random.default_rng(seed)
+    for i, kind in enumerate(jcfg.pattern):
+        if kind == "xattn":
+            jparams["stage"][f"b{i}_{kind}"]["xattn_gate"] = jnp.asarray(
+                rng.uniform(0.25, 0.75, jcfg.n_repeats).astype(np.float32))
+    return jparams
+
+
 @functools.lru_cache(maxsize=None)
 def _setup(arch):
     jcfg = j_smoke(arch)
-    jparams = jlm.lm_init(jax.random.PRNGKey(0), jcfg)
+    jparams = open_gates(jlm.lm_init(jax.random.PRNGKey(0), jcfg), jcfg)
     return jcfg, jparams, bridge.lm_config(jcfg)
 
 
@@ -73,6 +89,23 @@ def _tokens(cfg, b=2, l=12, seed=0):
     books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
     return np.random.default_rng(seed).integers(0, cfg.vocab, (b, l) + books,
                                                 dtype=np.int32)
+
+
+def _images(cfg, b=2, seed=0):
+    """Image embeddings (b, n_image_tokens, d_vision) for a config that
+    cross-attends, else None."""
+    if not cfg.n_image_tokens:
+        return None
+    return np.random.default_rng(100 + seed).standard_normal(
+        (b, cfg.n_image_tokens, cfg.d_vision)).astype(np.float32)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
 
 
 def test_archs_are_the_jax_configs():
@@ -113,10 +146,13 @@ def test_bridge_round_trips_every_tree(arch):
 def test_forward_matches_jax(arch):
     jcfg, jparams, tcfg = _setup(arch)
     toks = _tokens(jcfg)
-    want = np.asarray(jlm.lm_forward(jparams, jcfg, jnp.asarray(toks)))
+    img = _images(jcfg)
+    want = np.asarray(jlm.lm_forward(jparams, jcfg, jnp.asarray(toks),
+                                     image_embeds=_j(img)))
     with torch.no_grad():
         got = tlm.lm_forward(_tparams(arch), tcfg,
-                             torch.from_numpy(toks).long()).numpy()
+                             torch.from_numpy(toks).long(),
+                             image_embeds=_t(img)).numpy()
     b, l = toks.shape[:2]
     books = (jcfg.n_codebooks,) if jcfg.n_codebooks > 1 else ()
     assert got.shape == (b, l) + books + (jcfg.vocab,)
@@ -141,14 +177,18 @@ def test_lotion_train_step_matches_jax(arch):
     jcfg, jparams, tcfg = _setup(arch)
     jt, tt = _train_configs()
     toks = _tokens(jcfg, 2, 16, seed=1)
+    img = _images(jcfg, 2, seed=1)
+    jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)}
+    tb = torch.from_numpy(toks).long()
+    tbatch = {"tokens": tb, "labels": tb}
+    if img is not None:
+        jbatch["image_embeds"], tbatch["image_embeds"] = _j(img), _t(img)
     jtx = j_make_optimizer(jt, j_adamw(j_constant(LR)))
     jst, jm = jax.jit(j_make_train_step(jcfg, jt, jtx))(
-        j_init_state(jparams, jtx), {"tokens": jnp.asarray(toks),
-                                     "labels": jnp.asarray(toks)})
+        j_init_state(jparams, jtx), jbatch)
     ttx = make_optimizer(tt, adamw(constant(LR)))
-    tb = torch.from_numpy(toks).long()
     tst, tm = make_train_step(tcfg, tt, ttx)(
-        init_state(_tparams(arch), ttx), {"tokens": tb, "labels": tb})
+        init_state(_tparams(arch), ttx), tbatch)
     for k in ("loss", "ce", "grad_norm", "penalty"):
         assert _rel(float(tm[k]), float(jm[k])) <= STEP_RTOL, (k, tm[k],
                                                               jm[k])
@@ -178,17 +218,19 @@ def test_prefill_decode_consistency(arch):
     jcfg, jparams, tcfg = _setup(arch)
     b, l = 2, 12
     toks = _tokens(jcfg, b, l, seed=2)
+    img = _images(jcfg, b, seed=2)
     tt = torch.from_numpy(toks).long()
     params = _tparams(arch)
     with torch.no_grad():
-        full = tlm.lm_forward(params, tcfg, tt).numpy()
-        lp, cache = tlm.lm_prefill(params, tcfg, tt[:, :l - 1], cache_len=l)
+        full = tlm.lm_forward(params, tcfg, tt, image_embeds=_t(img)).numpy()
+        lp, cache = tlm.lm_prefill(params, tcfg, tt[:, :l - 1], cache_len=l,
+                                   image_embeds=_t(img))
         ld, _ = tlm.lm_decode(params, tcfg, cache, tt[:, l - 1:l],
                               torch.full((b,), l - 1, dtype=torch.long))
     assert _rel(lp[:, 0], full[:, l - 2]) <= CONSISTENCY_RTOL
     assert _rel(ld[:, 0], full[:, l - 1]) <= CONSISTENCY_RTOL
     jlp, jcache = jlm.lm_prefill(jparams, jcfg, jnp.asarray(toks[:, :l - 1]),
-                                 cache_len=l)
+                                 image_embeds=_j(img), cache_len=l)
     jld, _ = jlm.lm_decode(jparams, jcfg, jcache, jnp.asarray(toks[:, l - 1:l]),
                            jnp.full((b,), l - 1, jnp.int32))
     assert _rel(lp, jlp) <= RTOL and _rel(ld, jld) <= RTOL
@@ -239,14 +281,3 @@ def test_codebook_head_quantized_is_refused():
     toks = torch.from_numpy(_tokens(tcfg, 1, 4)).long()
     with pytest.raises(ValueError, match="served dense"):
         tlm.lm_prefill(q, tcfg, toks)
-
-
-@pytest.mark.parametrize("arch", ["llama3.2-vision-11b"])
-def test_configs_outside_the_slice_raise(arch):
-    """The vision config is not in the port yet (the SSM configs are, and
-    run in every test above): the registry and the model both refuse it,
-    naming item 7(e)."""
-    with pytest.raises(NotImplementedError, match=r"item 7\(e\)"):
-        get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=r"item 7\(e\)"):
-        tlm.lm_init(bridge.lm_config(j_smoke(arch)), 0, "cpu")

@@ -269,14 +269,17 @@ def test_rr_and_dense_cast_serving_match_jax(weights, storage):
 
 
 def test_unported_block_kinds_raise():
-    """The vision config still raises, naming its ROADMAP step (the MoE
-    ones are served now: test_torch_moe.py; the SSM ones too:
-    test_torch_ssm.py)."""
+    """Every block kind is ported now (MoE: test_torch_moe.py; SSM:
+    test_torch_ssm.py; cross-attention: test_torch_xattn.py): the vision
+    config initialises, and the static Engine, which takes token prompts
+    only as JAX's does, refuses it and names the path that serves it."""
     from repro.configs import get_smoke_config
     for arch in ("llama3.2-vision-11b",):
         cfg = bridge.lm_config(get_smoke_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.lm_init(cfg, 0, "cpu")
+        params = tlm.lm_init(cfg, 0, "cpu")
+        assert params["vision_proj"].shape == (cfg.d_vision, cfg.d_model)
+        with pytest.raises(ValueError, match=r"lm_prefill\(image_embeds"):
+            Engine(cfg, params, ServeConfig(), device="cpu")
 
 
 def test_paged_decode_raises():

@@ -370,8 +370,10 @@ def test_features_outside_the_slice_raise():
     """Streaming attention and the chunked head are ported now (held to
     JAX in test_torch_streaming.py), and so is the MoE FFN (trained on
     the CPU in test_torch_archs.py), and so are the SSM blocks and the
-    shared zamba block (test_torch_ssm.py); cross-attention and image
-    tokens still raise, naming their ROADMAP item."""
+    shared zamba block (test_torch_ssm.py), and cross-attention
+    (test_torch_xattn.py): a model with image tokens or a cross layer
+    and no image embeddings raises a ValueError that names them (JAX's
+    fails with an AttributeError there)."""
     params = _tparams()
     toks = torch.zeros(1, 8, dtype=torch.long)
     with torch.no_grad():
@@ -379,9 +381,10 @@ def test_features_outside_the_slice_raise():
         chunked = tlm.lm_loss(params, TCFG, toks, toks, attn_chunk=4,
                               logit_chunk=4)
     assert _rel(chunked, full) <= RTOL
-    for bad in (dict(n_image_tokens=4), dict(pattern=("xattn",))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.lm_forward(params, dataclasses.replace(TCFG, **bad), toks)
+    for bad in (dict(n_image_tokens=4, d_vision=8), dict(pattern=("xattn",))):
+        cfg = dataclasses.replace(TCFG, **bad)
+        with pytest.raises(ValueError, match=r"image_embeds|ctx=None"):
+            tlm.lm_forward(tlm.lm_init(cfg, 0, "cpu"), cfg, toks)
 
 
 def test_example_trains_on_the_cpu_and_imports_no_jax():
