@@ -51,7 +51,7 @@ checked:
   1 layer (bitwise) and a tampered payload refused by its crc32; the
   skip gate (a NaN step leaves the state bitwise unchanged) and the
   training chaos harness on 1 layer with one and two simulated hosts;
-  the 4-layer state saved in the JAX checkpoint layout and loaded back
+  the 1-layer state saved in the JAX checkpoint layout and loaded back
   in place (the next step bitwise), with save and load rates;
 * the paper's synthetic testbeds at its d = 12000: ``quant`` and
   ``lotion_reg`` checked bitwise and timed at the testbeds' shapes
@@ -72,10 +72,19 @@ checked:
   MoE, 12 of its 48 layers) served static and through the scheduler
   (W4A8, paged int8 KV), dead decode rows that take no expert capacity,
   and DBRX-132B at 2 layers; Moonlight at 2 layers on the card against
-  the CPU, routing included; CodeQwen1.5-7B and Gemma3-12B at full
-  depth (Gemma3's local rings wrapped), each with a card-against-CPU
-  cut; MusicGen-medium's 4-codebook decode at full depth against its
-  full forward, and a 2-layer cut against the CPU.
+  the CPU, routing included; CodeQwen1.5-7B at full depth and Gemma3-12B
+  at 24 of its 48 layers (its local rings wrapped), each with a
+  card-against-CPU cut; MusicGen-medium's 4-codebook decode at full depth against its
+  full forward, and a 2-layer cut against the CPU;
+* sharded training on a device mesh: ``opt_step``, ``lotion_reg`` and
+  ``quant`` on blocks of Granite leaves as a (2, 1) or (1, 2) mesh cuts
+  them, each given the whole matrices' absmax, bitwise against their
+  plain versions (``mesh_kernels``); the ``train`` run through the
+  launcher's mesh path on a one-rank NCCL mesh, its losses and the
+  fingerprint of its final state bitwise equal to ``train``'s
+  (``train_mesh``); two processes sharing the card over gloo, meshes
+  (2, 1) and (1, 2), each step against one rank, and a NaN on one
+  rank's rows skipping the step on both (``train_mesh_two_ranks``).
 
 Each phase prints one JSON line; a failed check raises and the script
 exits non-zero.  The last three lines are the ``kernels`` summary, the
@@ -486,9 +495,31 @@ def _int_mm_epilogue(xq, xs, w_kn, s):
     return torch._int_mm(xq, w_kn).float() * xs * s
 
 
+def _a8_library_ms(timer, row, xq, xs, qt, bits, block_k):
+    """(ms, rows) of the yardstick ``_int_mm_epilogue`` on the quantized
+    activations ``xq``, ``xs`` (per-tensor weights only; M padded to at
+    least 32 rows), or (None, None)."""
+    from repro_torch.kernels.decode_attn import unpack_int4_ref
+    if block_k != -1:
+        return None, None
+    m, k = xq.shape
+    codes = unpack_int4_ref(qt.codes) if bits == 4 else qt.codes
+    w_kn = codes.contiguous().t()          # (K, N), column-major
+    lib_m = max(m, 32)
+    xq_l = torch.zeros((lib_m, k), dtype=torch.int8, device=xq.device)
+    xq_l[:m] = xq
+    xs_l = torch.ones((lib_m, 1), device=xq.device)
+    xs_l[:m] = xs
+    try:
+        return timer(lambda: _int_mm_epilogue(xq_l, xs_l, w_kn,
+                                              qt.scales)), lib_m
+    except RuntimeError as e:          # a build without int8 cuBLASLt
+        row["library_error"] = str(e)[:200]
+        return None, lib_m
+
+
 def check_a8_one(timer, gen, dev, *, m, n, k, bits, block_k):
     from repro_torch.core.qtensor import quantize_qtensor
-    from repro_torch.kernels.decode_attn import unpack_int4_ref
     from repro_torch.kernels.wq_matmul import (quantize_acts_ref,
                                                wqt_matmul_a8,
                                                wqt_matmul_a8_ref)
@@ -509,20 +540,7 @@ def check_a8_one(timer, gen, dev, *, m, n, k, bits, block_k):
         raise AssertionError(f"wqt_matmul_a8 disagrees: {row}")
     nbytes = xq.numel() + xs.numel() * 4 + qt.nbytes + m * n * 4
     b_ms, b_by = bound(nbytes, 2.0 * m * n * k, INT8_OPS)
-    library_ms = lib_m = None
-    if block_k == -1:
-        codes = unpack_int4_ref(qt.codes) if bits == 4 else qt.codes
-        w_kn = codes.contiguous().t()          # (K, N), column-major
-        lib_m = max(m, 32)
-        xq_l = torch.zeros((lib_m, k), dtype=torch.int8, device=dev)
-        xq_l[:m] = xq
-        xs_l = torch.ones((lib_m, 1), device=dev)
-        xs_l[:m] = xs
-        try:
-            library_ms = timer(lambda: _int_mm_epilogue(xq_l, xs_l, w_kn,
-                                                        qt.scales))
-        except RuntimeError as e:          # a build without int8 cuBLASLt
-            row["library_error"] = str(e)[:200]
+    library_ms, lib_m = _a8_library_ms(timer, row, xq, xs, qt, bits, block_k)
     row.update(ms=timer(lambda: wqt_matmul_a8(*args, bits)),
                plain_ms=timer(lambda: wqt_matmul_a8_ref(*args, bits == 4),
                               iters=3),
@@ -552,7 +570,8 @@ def check_a8_x_one(timer, gen, dev, *, m, n, k, bits, block_k):
     """``wqt_matmul_a8_x`` (row quantizer inside) against its plain
     version, bitwise; timed beside the parent-style composition."""
     from repro_torch.core.qtensor import quantize_qtensor
-    from repro_torch.kernels.wq_matmul import (wqt_matmul_a8_x,
+    from repro_torch.kernels.wq_matmul import (quantize_acts_ref,
+                                               wqt_matmul_a8_x,
                                                wqt_matmul_a8_x_ref)
     w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
     qt = quantize_qtensor(w, f"int{bits}", block_k)
@@ -571,11 +590,16 @@ def check_a8_x_one(timer, gen, dev, *, m, n, k, bits, block_k):
         raise AssertionError(f"wqt_matmul_a8_x disagrees: {row}")
     nbytes = x.numel() * 2 + qt.nbytes + m * n * 2
     b_ms, b_by = bound(nbytes, 2.0 * m * n * k, INT8_OPS)
+    # the yardstick of row 3 (``_int_mm`` and the scale epilogue) on the
+    # activations the plain row quantizer gives
+    library_ms, lib_m = _a8_library_ms(timer, row, *quantize_acts_ref(x), qt,
+                                       bits, block_k)
     row.update(ms=timer(lambda: wqt_matmul_a8_x(*args, bits)),
                composed_ms=timer(lambda: _composed_a8(x, qt)),
                plain_ms=timer(lambda: wqt_matmul_a8_x_ref(*args, bits == 4),
                               iters=3),
-               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+               library_ms=library_ms, library_M=lib_m, bound_ms=b_ms,
+               bound_by=b_by)
     emit(row)
     return row
 
@@ -1710,6 +1734,30 @@ def sched_chaos(dev, n_layers=2, n_requests=48):
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024
 
 
+def granite_setup(*, n_layers=None, dtype="bfloat16", placement="decoupled",
+                  lam=1e3, seed=0, method="lotion", act_fmt=None,
+                  n_microbatches=1, ef_compress=False, lr=3e-3, attn_chunk=0,
+                  logit_chunk=0, arch="granite-3-2b"):
+    """``granite_trainer``'s (cfg, qcfg, tcfg, optimizer), no state."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.modes import QuantConfig
+    from repro_torch.optim import adamw, cosine_with_warmup
+    from repro_torch.train import TrainConfig, make_optimizer
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype,
+                              act_fmt=act_fmt)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    qcfg = QuantConfig(method=method, fmt_name="int4", block_size=-1,
+                       lam=lam if method == "lotion" else 0.0,
+                       penalty_placement=placement)
+    tcfg = TrainConfig(quant=qcfg, clip_norm=1.0,
+                       n_microbatches=n_microbatches, seed=seed,
+                       ef_compress=ef_compress, attn_chunk=attn_chunk,
+                       logit_chunk=logit_chunk)
+    opt = make_optimizer(tcfg, adamw(cosine_with_warmup(lr, 5, 100)))
+    return cfg, qcfg, tcfg, opt
+
+
 def granite_trainer(dev, *, n_layers=None, dtype="bfloat16",
                     placement="decoupled", lam=1e3, seed=0, method="lotion",
                     act_fmt=None, n_microbatches=1, rat_uniforms=None,
@@ -1728,24 +1776,14 @@ def granite_trainer(dev, *, n_layers=None, dtype="bfloat16",
     ``lr_scale`` leaf; ``attn_chunk`` / ``logit_chunk`` stream the
     attention and chunk the head.  Returns (cfg, train_step, eval_fn,
     state)."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.modes import QuantConfig
     from repro_torch.models.lm import lm_init
-    from repro_torch.optim import adamw, cosine_with_warmup
-    from repro_torch.train import (TrainConfig, init_state, make_eval_fn,
-                                   make_optimizer, make_train_step)
-    cfg = dataclasses.replace(get_config(arch), dtype=dtype,
-                              act_fmt=act_fmt)
-    if n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    qcfg = QuantConfig(method=method, fmt_name="int4", block_size=-1,
-                       lam=lam if method == "lotion" else 0.0,
-                       penalty_placement=placement)
-    tcfg = TrainConfig(quant=qcfg, clip_norm=1.0,
-                       n_microbatches=n_microbatches, seed=seed,
-                       ef_compress=ef_compress, attn_chunk=attn_chunk,
-                       logit_chunk=logit_chunk)
-    opt = make_optimizer(tcfg, adamw(cosine_with_warmup(lr, 5, 100)))
+    from repro_torch.train import (init_state, make_eval_fn,
+                                   make_train_step)
+    cfg, qcfg, tcfg, opt = granite_setup(
+        n_layers=n_layers, dtype=dtype, placement=placement, lam=lam,
+        seed=seed, method=method, act_fmt=act_fmt,
+        n_microbatches=n_microbatches, ef_compress=ef_compress, lr=lr,
+        attn_chunk=attn_chunk, logit_chunk=logit_chunk, arch=arch)
     params = lm_init(cfg, seed=seed, device=dev)
     open_gates(params, cfg, seed)
     state = init_state(params, opt, lr_scale=chaos)
@@ -1824,6 +1862,9 @@ def train_full_width(dev, steps=3):
         pipe.close()
     train_peak = torch.cuda.max_memory_allocated()
     after_train = launch_counts()
+    t0 = time.perf_counter()
+    fingerprint = _state_fingerprint(state)
+    fingerprint_s = time.perf_counter() - t0
     ce = {"fp32": float(eval_fn(state["params"], val))}
     ce["rtn"] = float(eval_fn(state["params"], val, "rtn"))
     after_rtn = launch_counts()
@@ -1844,7 +1885,8 @@ def train_full_width(dev, steps=3):
                "cosine warmup", params=sum(t.numel() for t in
                                            tree_leaves(state["params"])),
                setup_s=setup_s, steps=rows, eval_ce=ce, launches=counts,
-               expected_launches=want,
+               expected_launches=want, fingerprint=fingerprint,
+               fingerprint_s=fingerprint_s,
                peak_memory_gib_train=train_peak / 2 ** 30,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                checks=checks)
@@ -1854,6 +1896,29 @@ def train_full_width(dev, steps=3):
     del state, train_step, eval_fn
     torch.cuda.empty_cache()
     return row
+
+
+def _state_fingerprint(state) -> str:
+    """``distributed/audit.py::tree_fingerprint`` of the parameters and
+    both moments."""
+    from repro_torch.distributed.audit import tree_fingerprint
+    return tree_fingerprint({"params": state["params"],
+                             "mu": state["opt"]["mu"],
+                             "nu": state["opt"]["nu"]})
+
+
+def _fingerprint_paths_agree(dev) -> bool:
+    """``tree_fingerprint`` of a card tree (a leaf of more than one pinned
+    run, an int32 leaf, a 0-d leaf) equal to that of its host copy: the
+    card path through pinned runs gives the host path's digest."""
+    from repro_torch.distributed.audit import FINGERPRINT_RUN, tree_fingerprint
+    gen = torch.Generator(device=dev).manual_seed(27)
+    tree = {"a": torch.randn(FINGERPRINT_RUN // 4 + 12345, generator=gen,
+                             device=dev),
+            "b": torch.arange(7, dtype=torch.int32, device=dev),
+            "c": torch.full((), 3.0, device=dev)}
+    return tree_fingerprint(tree) == tree_fingerprint(
+        {k: v.cpu() for k, v in tree.items()})
 
 
 def _eligible(params):
@@ -2406,11 +2471,11 @@ _QUIET = dict(log_every=0, log=lambda *a, **k: None)
 CUT_FOR_TIME = "cut for the script's time limit"
 
 
-def ckpt_full_width(dev, n_layers=4):
-    """The LOTION state of 4 full-width layers (fp32 params, mu and nu, the
+def ckpt_full_width(dev, n_layers=1):
+    """The LOTION state of 1 full-width layer (fp32 params, mu and nu, the
     step and optimizer scalars; the depth is cut from 40 to keep the
     script inside its time limit: the 40-layer state took 138 s of disk
-    I/O, the 8-layer one about 38 s) saved after step 1 into the JAX package's layout
+    I/O, the 8-layer one about 38 s, the 4-layer one 24) saved after step 1 into the JAX package's layout
     (``keep=1``), step 2 taken, the saved step loaded back into the
     state's own tensors (``load(into=state)``) and step 2 taken again:
     the loss and every leaf bitwise equal to the first step 2.  Reports
@@ -3791,20 +3856,22 @@ def serve_moe_card_vs_cpu(dev, n_layers=2):
 
 def serve_archs(dev):
     """CodeQwen1.5-7B (32 layers, MHA at head_dim 128, untied 92,416-row
-    head; 7.2B parameters, 29 GB fp32) and Gemma3-12B (48 layers, 5 local
-    layers of window 1024 per global one, QK-norm, two RoPE thetas, head_dim
-    256, tied 262,144-row embedding; 11.8B parameters, 47 GB fp32) at full
-    width and depth through the static Engine: int4 weights, int8 KV,
-    batch 8, 32 new tokens; Gemma3 with 1,536-token prompts, so that its
-    local rings wrap."""
+    head; 7.2B parameters, 29 GB fp32) at full width and depth and
+    Gemma3-12B (5 local layers of window 1024 per global one, QK-norm,
+    two RoPE thetas, head_dim 256, tied 262,144-row embedding) at full
+    width and 24 of its 48 layers (4 units; cut in PR 25 for the script's
+    time limit: its fp32 prefill took 11.6 s at 48) through the static
+    Engine: int4 weights, int8 KV, batch 8, 32 new tokens; Gemma3 with
+    1,536-token prompts, so that its local rings wrap."""
     out = dict(phase="serve_archs")
     checks = {}
-    for arch, lo, hi in (("codeqwen1.5-7b", 64, 128),
-                         ("gemma3-12b", 1536, 1536)):
-        cfg = zoo_cfg(arch)
+    for arch, n_layers, lo, hi in (("codeqwen1.5-7b", None, 64, 128),
+                                   ("gemma3-12b", 24, 1536, 1536)):
+        cfg = zoo_cfg(arch, n_layers)
         prompts = _prompts(np.random.default_rng(10), 8, lo, hi, cfg.vocab)
         row, eng = _serve_static(dev, cfg, seed=0, prompts=prompts, mnt=32,
-                                 why="full depth")
+                                 why="full depth" if n_layers is None
+                                 else CUT_FOR_TIME)
         del eng
         checks.update({f"{arch}_{k}": v for k, v in row.pop("checks")
                        .items()})
@@ -3818,15 +3885,18 @@ def serve_archs(dev):
 
 
 def serve_archs_card_vs_cpu(dev):
-    """CodeQwen1.5-7B at 2 full-width layers and Gemma3-12B at 6 (its unit
-    of 5 local and 1 global layer, two prompts past the window) on the
-    card against the CPU (``_cut_vs_cpu``, fp32)."""
+    """CodeQwen1.5-7B at 1 full-width layer (two ragged prompts) and
+    Gemma3-12B at 6 (its unit of 5 local and 1 global layer, one prompt
+    past the window; two until PR 25, cut for the script's time limit) on
+    the card against the CPU (``_cut_vs_cpu``, fp32)."""
     out = dict(phase="serve_archs_card_vs_cpu")
     checks = {}
-    cuts = (("codeqwen1.5-7b", 2, (16, 32)), ("gemma3-12b", 6, (1030, 1100)))
-    for arch, n_layers, (lo, hi) in cuts:
+    cuts = (("codeqwen1.5-7b", 1, 2, (16, 32)),
+            ("gemma3-12b", 6, 1, (1030, 1100)))
+    for arch, n_layers, n_prompts, (lo, hi) in cuts:
         cfg = zoo_cfg(arch, n_layers, "float32")
-        prompts = _prompts(np.random.default_rng(11), 2, lo, hi, cfg.vocab)
+        prompts = _prompts(np.random.default_rng(11), n_prompts, lo, hi,
+                           cfg.vocab)
         try:
             cut = _cut_vs_cpu(dev, cfg, seed=1, prompts=prompts, steps=3,
                               why="the CPU side's time")
@@ -4068,18 +4138,19 @@ def _decode_step_profile(params, cfg, prompts, dev):
                      for k, (ms, c) in top])
 
 
-def _serve_ssm(dev, arch, *, rng_seed, include_embeddings):
-    """``arch`` at full width and depth: the static Engine (int4, int8 KV
-    where there is KV, batch 8, 64-128-token prompts, 32 new tokens) with
-    one decode step profiled, then the ring Scheduler on the same
-    prepared tree, which must refuse paged KV and chunked prefill.
-    Returns (row, checks, engine)."""
+def _serve_ssm(dev, arch, *, rng_seed, include_embeddings, n_layers=None):
+    """``arch`` at full width and depth (``n_layers``: cut for time): the
+    static Engine (int4, int8 KV where there is KV, batch 8, 64-128-token
+    prompts, 32 new tokens) with one decode step profiled, then the ring
+    Scheduler on the same prepared tree, which must refuse paged KV and
+    chunked prefill.  Returns (row, checks, engine)."""
     from repro_torch.serve import Scheduler, SchedulerConfig, ServeConfig
-    cfg = zoo_cfg(arch)
+    cfg = zoo_cfg(arch, n_layers)
     prompts = _prompts(np.random.default_rng(rng_seed), 8, 64, 128,
                        cfg.vocab)
     static, eng = _serve_static(dev, cfg, seed=0, prompts=prompts, mnt=32,
-                                why="full depth",
+                                why="full depth" if n_layers is None
+                                else CUT_FOR_TIME,
                                 include_embeddings=include_embeddings)
     checks = {f"static_{k}": v for k, v in static.pop("checks").items()}
     static["launches_per_decode_step"] = dict(
@@ -4107,15 +4178,16 @@ def _serve_ssm(dev, arch, *, rng_seed, include_embeddings):
 
 
 def serve_zamba2(dev):
-    """Zamba2-2.7B as the repo configures it (54 Mamba2 layers in 9 scan
-    groups of 6, each followed by the one shared attention + gelu MLP
-    block; head_dim 80, 32 kv-heads; tied 32,000-row embedding) at full
-    width and depth: int4 QTensors for the shared block, the dense RTN
-    cast through ``quant`` for every Mamba2 projection, int8 KV for the 9
-    shared rings; static Engine, then the W4A8 Scheduler."""
+    """Zamba2-2.7B (Mamba2 layers in scan groups of 6, each followed by
+    the one shared attention + gelu MLP block; head_dim 80, 32 kv-heads;
+    tied 32,000-row embedding) at full width and 18 of its 54 layers (3
+    groups; cut in PR 25 for the script's time limit): int4 QTensors for
+    the shared block, the dense RTN cast through ``quant`` for every
+    Mamba2 projection, int8 KV for the shared rings; static Engine, then
+    the W4A8 Scheduler."""
     torch.cuda.empty_cache()
     row, checks, eng = _serve_ssm(dev, "zamba2-2.7b", rng_seed=14,
-                                  include_embeddings=False)
+                                  include_embeddings=False, n_layers=18)
     del eng
     torch.cuda.empty_cache()
     out = dict(phase="serve_zamba2", **row, checks=checks)
@@ -4290,7 +4362,7 @@ TRAIN_CUT_RTOL = 1e-4
 TRAIN_CUT_NU = (0.5e-6, 1.5e-6)
 TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 1, 64
 # the zoo's training phases: (arch, depth; None = as configured)
-ZOO_TRAIN = (("moonshot-v1-16b-a3b", 2), ("zamba2-2.7b", None),
+ZOO_TRAIN = (("moonshot-v1-16b-a3b", 2), ("zamba2-2.7b", 18),
              ("rwkv6-1.6b", None))
 ZOO_TRAIN_CUTS = (("moonshot-v1-16b-a3b", 1), ("rwkv6-1.6b", 1),
                   ("zamba2-2.7b", 6))
@@ -4882,8 +4954,9 @@ def train_zoo(dev, steps=2):
     """The zoo's MoE and SSM configs trained on the card at full width:
     Moonlight-16B-A3B at 2 of its 48 layers (its 16-byte state at 48
     layers is about 430 GB; 2 layers and the 671M embedding and head hold
-    about 30 GB), Zamba2-2.7B and RWKV6-1.6B at full depth (37 and 26 GB
-    of state): ``steps`` LOTION steps each at batch 4 x 1024, step ms,
+    about 30 GB), Zamba2-2.7B at 18 of its 54 layers (cut in PR 25 for
+    the script's time limit; 37 GB of state at 54) and RWKV6-1.6B at full
+    depth (26 GB): ``steps`` LOTION steps each at batch 4 x 1024, step ms,
     peak memory and exact launches (``_zoo_train``).  DBRX-132B is left
     out: one layer's state is 66.9 GiB before its activations (PERF.md
     §4)."""
@@ -4921,6 +4994,258 @@ def train_zoo_card_vs_cpu(dev):
         raise AssertionError(f"train_zoo_card_vs_cpu failed its checks: "
                              f"{checks}", out)
     return out
+
+# --------------------------------------------------------------------------
+# the mesh: sharded training (opt_step, lotion_reg and quant on blocks)
+# --------------------------------------------------------------------------
+
+# Granite leaves cut as a mesh cuts them: (label, full leaf, cut dim,
+# blocks); the block checked is block 0, and every even matrix's largest
+# |w| is planted in block 1, so its given absmax is above block 0's own
+MESH_LEAVES = [("w_up (2, 1): dim 1 over data", (40, 2048, 8192), 1, 2),
+               ("w_up (1, 2): dim 2 over model", (40, 2048, 8192), 2, 2),
+               ("wo (1, 2): dim 1 over model", (40, 2048, 2048), 1, 2)]
+# bytes per element each kernel must move on a block (read once, written
+# once): quant RTN w, out; RR also u; lotion_reg w, f, grad; opt_step
+# w, g, mu, nu in, w, mu, nu out
+MESH_BYTES = {"quant": 8, "quant_rr": 12, "lotion_reg": 12, "opt_step": 28}
+# the two-rank phase: seconds allowed to each rank process
+TWO_RANKS_TIMEOUT_S = 420
+
+
+def check_mesh_one(timer, gen, dev, label, full_shape, dim, n_blocks):
+    """``quant`` (RTN, RR), ``lotion_reg`` and ``opt_step`` on block 0 of
+    a Granite leaf cut on ``dim``, given the whole matrices' absmax, each
+    bitwise against its plain version with the same operand; timed with
+    the call on the whole leaf (no absmax given) beside it."""
+    from repro_torch.kernels.lotion_reg import lotion_penalty_fused_vg, reg_ref
+    from repro_torch.kernels.opt_step import fused_opt_step_leaf, opt_step_ref
+    from repro_torch.kernels.quant import quant_rr, quant_rtn
+    from repro_torch.kernels.quant.ref import rr_ref, rtn_ref
+    w = torch.randn(full_shape, generator=gen, device=dev) * 0.02
+    even = torch.arange(0, full_shape[0], 2, device=dev)
+    if dim == 1:
+        w[even, -1, -1] = 0.5
+    else:
+        w[even, 0, -1] = 0.5
+    absmax = torch.linalg.vector_norm(w, float("inf"), dim=(1, 2))
+    cut = [slice(None)] * 3
+    cut[dim] = slice(0, full_shape[dim] // n_blocks)
+    wb = w[tuple(cut)].contiguous()
+    own = torch.linalg.vector_norm(wb, float("inf"), dim=(1, 2))
+    above = int((absmax > own).sum())
+    n = wb.numel()
+    f = torch.rand(wb.shape, generator=gen, device=dev) * 1e-6
+    u = torch.rand(wb.shape, generator=gen, device=dev)
+    g = torch.randn(wb.shape, generator=gen, device=dev) * 1e-3
+    mu = torch.randn(wb.shape, generator=gen, device=dev) * 1e-4
+    t = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
+    scal = dict(lr=t(3e-4), bc1=t(1 - 0.9 ** 3), bc2=t(1 - 0.95 ** 3),
+                clip_scale=t(0.5), ok=t(1.0))
+    okw = dict(lam=1e3, fmt_name="int4", block_size=-1, **OPT_HYPER)
+    rows = []
+
+    def row(kernel, same, err, **extra):
+        ms, plain_ms, whole_ms = extra.pop("times")
+        b_ms, b_by = _elem_bound(kernel if kernel != "quant_rr" else "quant",
+                                 n, n * MESH_BYTES[kernel])
+        r = dict(phase="check", kernel=kernel.replace("_rr", ""),
+                 cast="rr" if kernel == "quant_rr" else None, leaf=label,
+                 shape=_fmt_shape(wb.shape), full=_fmt_shape(full_shape),
+                 matrices_given_above_own=above, bitwise=same,
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 unsharded_ms=whole_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None, **extra)
+        emit(r)
+        rows.append(r)
+
+    got, want = quant_rtn(wb, "int4", -1, absmax), rtn_ref(wb, "int4", -1,
+                                                           absmax)
+    err, same, _ = _bitwise([("out", got, want)])
+    row("quant", same, err, times=(
+        timer(lambda: quant_rtn(wb, "int4", -1, absmax)),
+        timer(lambda: rtn_ref(wb, "int4", -1, absmax), iters=3),
+        timer(lambda: quant_rtn(w, "int4", -1))))
+    got, want = (quant_rr(wb, u, "int4", -1, absmax),
+                 rr_ref(wb, u, "int4", -1, absmax))
+    err, same, _ = _bitwise([("out", got, want)])
+    uw = torch.rand(full_shape, generator=gen, device=dev)
+    row("quant_rr", same, err, times=(
+        timer(lambda: quant_rr(wb, u, "int4", -1, absmax)),
+        timer(lambda: rr_ref(wb, u, "int4", -1, absmax), iters=3),
+        timer(lambda: quant_rr(w, uw, "int4", -1))))
+    del uw, got, want
+    (pen, grad), (pen_r, grad_r) = (
+        lotion_penalty_fused_vg(wb, f, "int4", -1, 1e3, absmax),
+        reg_ref(wb, f, "int4", -1, 1e3, absmax))
+    err, same, _ = _bitwise([("grad", grad, grad_r)])
+    fw = torch.rand(full_shape, generator=gen, device=dev) * 1e-6
+    row("lotion_reg", same and _pen_rel(pen, pen_r) <= PENALTY_RTOL, err,
+        penalty_rel_err=_pen_rel(pen, pen_r), times=(
+            timer(lambda: lotion_penalty_fused_vg(wb, f, "int4", -1, 1e3,
+                                                  absmax)),
+            timer(lambda: reg_ref(wb, f, "int4", -1, 1e3, absmax), iters=3),
+            timer(lambda: lotion_penalty_fused_vg(w, fw, "int4", -1, 1e3))))
+    del grad, grad_r, fw
+    want = opt_step_ref(wb, g, mu, f, **scal, **okw, absmax=absmax)
+    wk, muk, nuk = wb.clone(), mu.clone(), f.clone()
+    got = fused_opt_step_leaf(wk, g, muk, nuk, **scal, **okw, absmax=absmax)
+    err, same, _ = _bitwise([("w", got[0], want[0]), ("mu", got[1], want[1]),
+                             ("nu", got[2], want[2])])
+    pen_err = _pen_rel(got[3], want[3])
+    del got, want
+    full = [torch.randn(full_shape, generator=gen, device=dev) * s
+            for s in (1e-3, 1e-4)]
+    fw = torch.rand(full_shape, generator=gen, device=dev) * 1e-6
+    row("opt_step", same and pen_err <= PENALTY_RTOL, err,
+        penalty_rel_err=pen_err, times=(
+            timer(lambda: fused_opt_step_leaf(wk, g, muk, nuk, **scal, **okw,
+                                              absmax=absmax)),
+            timer(lambda: opt_step_ref(wb, g, mu, f, **scal, **okw,
+                                       absmax=absmax), iters=3),
+            timer(lambda: fused_opt_step_leaf(w, full[0], full[1], fw,
+                                              **scal, **okw))))
+    del full, fw, w
+    return rows
+
+
+def check_mesh_kernels(timer, dev):
+    """``check_mesh_one`` on each of ``MESH_LEAVES``; raises unless every
+    row is bitwise and every leaf has matrices whose given absmax is above
+    the block's own."""
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rows = []
+    for leaf in MESH_LEAVES:
+        rows += check_mesh_one(timer, gen, dev, *leaf)
+        torch.cuda.empty_cache()
+    bad = [(r["leaf"], r["kernel"], r["cast"]) for r in rows
+           if not r["bitwise"] or not r["matrices_given_above_own"]]
+    if bad:
+        raise AssertionError(f"mesh kernels disagree: {bad}", dict(
+            failed=bad))
+    return rows
+
+
+def train_mesh(dev, train_row, steps=3):
+    """The train phase's run (40 layers at full width, 4 x 1024, 3 steps,
+    the same settings, weights and batches) through the launcher's mesh
+    path (``launch/train.py::mesh_training``) on a one-rank NCCL mesh:
+    losses and the final fingerprint of params, mu and nu bitwise equal
+    to the train phase's; ``opt_step`` launched once per leaf a step,
+    nothing else."""
+    from repro_torch.data import lm_batch, permutation_table
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import close_mesh, make_mesh
+    from repro_torch.launch.train import mesh_training
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    try:
+        cfg, _, tcfg, opt = granite_setup()
+        perm = permutation_table(0, cfg.vocab)
+        state, step, pipe, _ = mesh_training(
+            cfg, tcfg, opt, mesh,
+            lambda s: lm_batch(0, s, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, perm),
+            TRAIN_BATCH, TRAIN_SEQ, prefetch=2)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        n_leaves = len(tree_leaves(state["params"]))
+        collectives.reset_staged()
+        reset_launch_counts()
+        try:
+            state, rows = _train_steps(step, state, pipe, steps)
+        finally:
+            pipe.close()
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        fingerprint = _state_fingerprint(state)
+        fingerprint_s = time.perf_counter() - t0
+    finally:
+        close_mesh()
+    want = dict(counts, opt_step=n_leaves * steps, lotion_reg=0, quant=0,
+                wqt_matmul=0, decode_attn=0)
+    losses = [r["loss"] for r in rows]
+    train_losses = [r["loss"] for r in train_row["steps"]]
+    checks = {"losses_bitwise": losses == train_losses,
+              "fingerprint_bitwise": fingerprint == train_row["fingerprint"],
+              "fingerprint_card_equals_host": _fingerprint_paths_agree(dev),
+              "launches": counts == want,
+              "nothing_staged": not any(collectives.STAGED.values())}
+    row = dict(phase="train_mesh", model=cfg.name, n_layers=cfg.n_layers,
+               mesh="(1, 1)", backend=mesh.backend, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, setup_s=setup_s, steps=rows,
+               step_ms=[r["step_ms"] for r in rows],
+               train_step_ms=[r["step_ms"] for r in train_row["steps"]],
+               losses=losses, train_losses=train_losses,
+               fingerprint=fingerprint,
+               train_fingerprint=train_row["fingerprint"],
+               fingerprint_s=fingerprint_s, launches=counts,
+               expected_launches=want, checks=checks)
+    emit(row)
+    del state, step
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"train_mesh failed its checks: {checks}", row)
+    return row
+
+
+def _compute_mode() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def train_mesh_two_ranks(dev):
+    """Two processes share the card over gloo
+    (``scripts/mesh_ranks_torch.py``): Granite at full width, 2 layers,
+    fp32, 4 x 1024, one step from seeded second moments on meshes (2, 1)
+    and (1, 2) under both penalty placements, each held against the same
+    step on one rank; a step whose per-example CE is NaN
+    on rank 1's rows only is skipped on both ranks.  Each process is
+    joined with a timeout, then killed."""
+    mode = _compute_mode()
+    if mode.startswith("Exclusive"):
+        row = dict(phase="train_mesh_two_ranks", omitted=True,
+                   compute_mode=mode)
+        emit(row)
+        return row
+    tmp = tempfile.mkdtemp(prefix="mesh_ranks_")
+    out = os.path.join(tmp, "result.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    script = os.path.join(ROOT, "scripts", "mesh_ranks_torch.py")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, script, os.path.join(tmp, "store"), str(r), "2",
+         out], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TWO_RANKS_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    if any(codes) or not os.path.exists(out):
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise AssertionError(f"two-rank processes failed {codes}:\n"
+                             + "\n".join(x[-3000:] for x in logs),
+                             dict(codes=codes))
+    with open(out) as f:
+        res = json.load(f)
+    shutil.rmtree(tmp, ignore_errors=True)
+    row = dict(phase="train_mesh_two_ranks", seconds=seconds,
+               compute_mode=mode, **res)
+    emit(row)
+    if not res["ok"]:
+        raise AssertionError(f"train_mesh_two_ranks failed: "
+                             f"{res['failed']}", row)
+    return row
+
 
 
 def main() -> int:
@@ -5000,7 +5325,10 @@ def main() -> int:
               "zoo_train_kernels": lambda: check_zoo_train_kernels(timer,
                                                                    dev),
               "train_zoo": lambda: train_zoo(dev),
-              "train_zoo_card_vs_cpu": lambda: train_zoo_card_vs_cpu(dev)}
+              "train_zoo_card_vs_cpu": lambda: train_zoo_card_vs_cpu(dev),
+              "mesh_kernels": lambda: check_mesh_kernels(timer, dev),
+              "train_mesh": lambda: train_mesh(dev, out["train"]),
+              "train_mesh_two_ranks": lambda: train_mesh_two_ranks(dev)}
     out = {}
     for name, run in phases.items():
         t0 = time.perf_counter()
@@ -5008,7 +5336,8 @@ def main() -> int:
         emit(dict(phase="timing", of=name, seconds=time.perf_counter() - t0))
         if name in ("a8", "wq", "layer", "quant", "lotion_reg",
                     "opt_step", "synth_kernels", "zoo_kernels", "moe_qt3d",
-                    "ssm_kernels", "vision_kernels", "zoo_train_kernels"):
+                    "ssm_kernels", "vision_kernels", "zoo_train_kernels",
+                    "mesh_kernels"):
             # the timer's flush buffer stays; the checks' inputs go
             torch.cuda.empty_cache()
 
@@ -5226,11 +5555,40 @@ def kernels_line(out):
         train_step_device_ms=step_dev,
         **stats(opt, opt4, opt_lib)))
     extra = (zoo_kernel_fields(out), ssm_kernel_fields(out),
-             vision_kernel_fields(out), zoo_train_kernel_fields(out))
+             vision_kernel_fields(out), zoo_train_kernel_fields(out),
+             mesh_kernel_fields(out))
     for line in lines:
         for fields in extra:
             line.update(fields.get(line["name"], {}))
     return lines
+
+
+def mesh_kernel_fields(out):
+    """The training kernels on a mesh's blocks: each ``mesh_kernels`` row
+    (block of a Granite leaf, given the whole matrices' absmax) with its
+    unsharded call's time, and the launches of the mesh paths
+    (``train_mesh``: one NCCL rank; ``train_mesh_two_ranks``: two gloo
+    ranks on one card, the runs' sum over rank 0)."""
+    rows, two = out["mesh_kernels"], out["train_mesh_two_ranks"]
+
+    def runs_sum(kernel):
+        return (None if two.get("omitted") else
+                sum(r["launches"][kernel] for r in two["runs"]))
+
+    fields = {}
+    for kernel in ("quant", "lotion_reg", "opt_step"):
+        mine = [r for r in rows if r["kernel"] == kernel]
+        fields[kernel] = dict(
+            mesh_path="train_mesh (1, 1) NCCL; train_mesh_two_ranks "
+                      "(2, 1) and (1, 2) gloo",
+            mesh_launches=out["train_mesh"]["launches"][kernel],
+            mesh_two_ranks_launches=runs_sum(kernel),
+            mesh_rows=[{k: r[k] for k in (
+                "leaf", "shape", "cast", "ms", "plain_ms", "unsharded_ms",
+                "bound_ms", "bound_by", "bitwise",
+                "matrices_given_above_own")} for r in mine],
+            mesh_bitwise=all(r["bitwise"] for r in mine))
+    return fields
 
 
 def _timed(r, *extra):
@@ -5392,7 +5750,11 @@ def zoo_kernel_fields(out):
                             **timed(hd256, "hd256"),
                             hd256_bf16_ms=hd256_bf16["ms"]),
         "wqt_matmul_a8": dict(moe_sched_launches=moe["sched"]["launches"][
-            "wqt_matmul_a8"], qt3d=qt3d("int8")),
+            "wqt_matmul_a8"], qt3d=qt3d("int8"), zoo_x={
+                f"{r['model']}: ({r['M']}, {r['K']}) x ({r['N']}, "
+                f"{r['K']}) int{r['bits']}": {k: r[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for r in zk if r["kernel"] == "wqt_matmul_a8_x"}),
         "decode_attn_paged": dict(
             moe_sched_launches=moe["sched"]["launches"]["decode_attn_paged"],
             hd256_variant=paged256["variant"], **timed(paged256, "hd256")),

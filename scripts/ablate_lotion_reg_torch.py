@@ -130,7 +130,7 @@ def block_rows(cs, timer, dev):
                             w.data_ptr(), f.data_ptr(), grad.data_ptr(),
                             scratch.data_ptr(), pen.data_ptr(), n, n, 0, 0, 0,
                             128, 2, fp4, float(get_format(fmt).qmax), 500.0,
-                            p.blocks, p.sum_blocks,
+                            p.blocks, p.sum_blocks, None,
                             torch.cuda.current_stream(dev).cuda_stream)
                         if err:
                             raise RuntimeError(f"{name}: CUDA error {err}")

@@ -147,6 +147,17 @@ expert stack, every layer's slice against the plain version):
   ``lotion_reg`` hand the kernel the leaf's element count held in 31
   bits, so the launch walks the first 23 of its 768 matrices.
 
+Sharded training (phase ``train_mesh_two_ranks``: two processes share the
+card over gloo, meshes (2, 1) and (1, 2), each step against one rank; the
+fault is planted in both rank processes through ``MESH_RANKS_FAULT``):
+
+* ``own_absmax``                 — each block casts and steps with its own
+  per-matrix absmax, not the whole matrix's;
+* ``grads_not_summed_over_data`` — a gathered leaf's gradient is cut to the
+  rank's block without the sum over the data ranks;
+* ``skip_gate_per_rank``         — the skip flag is decided on each rank's
+  rows alone.
+
     python3 scripts/planted_faults_torch.py [--only PHASE[,PHASE...]]
 
 ``--only`` runs just the groups that hold one of the named phases.  Prints one JSON line per run of a phase with its numbers against their
@@ -448,6 +459,67 @@ def _count_wrapped(*modules):
         yield
 
 
+def _own_absmax(orig):
+    """matrix_absmax that returns the block's own maxima (no MAX over the
+    ranks that cut the matrix)."""
+    def absmax(x, sh):
+        return torch.linalg.vector_norm(
+            x.detach(), ord=float("inf"),
+            dim=tuple(range(max(x.ndim - 2, 0), x.ndim))).reshape(-1)
+    return absmax
+
+
+def _no_dp_sum(orig):
+    """The gathered leaves' gradients not summed over the data ranks."""
+    return lambda g, mesh: g.contiguous()
+
+
+def _gate_per_rank(orig):
+    """all_reduce that leaves a MIN (the skip gate's) to each rank."""
+    def all_reduce(x, op, mesh, axes):
+        return x if op == "min" else orig(x, op, mesh, axes)
+    return all_reduce
+
+
+def _mesh_fault(name):
+    """A fault of the two-rank phase, planted in both rank processes."""
+    @contextlib.contextmanager
+    def ctx():
+        prev = os.environ.get("MESH_RANKS_FAULT")
+        os.environ["MESH_RANKS_FAULT"] = name
+        try:
+            yield
+        finally:
+            if prev is None:
+                os.environ.pop("MESH_RANKS_FAULT")
+            else:
+                os.environ["MESH_RANKS_FAULT"] = prev
+    return ctx
+
+
+def _sharding_patch(name, wrap):
+    def ctx():
+        from repro_torch.distributed import sharding
+        return _patched(sharding, name, wrap)
+    return ctx
+
+
+def _collectives_patch(name, wrap):
+    def ctx():
+        from repro_torch.distributed import collectives
+        return _patched(collectives, name, wrap)
+    return ctx
+
+
+# the faults of phase train_mesh_two_ranks, applied inside each rank
+# process (scripts/mesh_ranks_torch.py reads MESH_RANKS_FAULT)
+MESH_FAULTS = {
+    "own_absmax": _sharding_patch("matrix_absmax", _own_absmax),
+    "grads_not_summed_over_data": _sharding_patch("_reduce_dp", _no_dp_sum),
+    "skip_gate_per_rank": _collectives_patch("all_reduce", _gate_per_rank),
+}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="",
@@ -570,6 +642,8 @@ def main(argv=None) -> int:
             sound,
             ("count_wrapped_at_2_31", lambda: _count_wrapped(opt_ops,
                                                              reg_ops))]),
+        ([("train_mesh_two_ranks", cs.train_mesh_two_ranks)], [sound] + [
+            (name, _mesh_fault(name)) for name in MESH_FAULTS]),
     ]
     keys = ("max_rel_diff", "rtol", "penalty_max_rel_diff", "penalty_rtol",
             "late_max_rel_diff", "late_rtol", "rat_micro_rel_diff",
@@ -583,7 +657,8 @@ def main(argv=None) -> int:
             "grad_norm_rtol", "first_moment_rtol", "update_rtol",
             "routing", "dead_rows", "card_vs_cpu", "per_step_err",
             "held_steps", "codeqwen1.5-7b", "gemma3-12b", "zamba2-2.7b",
-            "rwkv6-1.6b", "blocks", "cuts", "cross_kv_rel_err")
+            "rwkv6-1.6b", "blocks", "cuts", "cross_kv_rel_err", "runs",
+            "nan_gate")
     if only:
         groups = [g for g in groups if only & {name for name, _ in g[0]}]
         if not groups:

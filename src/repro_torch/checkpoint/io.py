@@ -38,13 +38,23 @@ card.
 bfloat16 leaves are refused by name: numpy stores one as raw ``|V2``
 bytes, which the reference's own ``verify_dir`` and ``load`` then do not
 read back as bfloat16.
+
+On a mesh (``shardings``: the tree's ``NamedSharding``s, the leaves this
+rank's blocks) ``save`` gathers each leaf to its full shape, one leaf at
+a time in the payload order, and rank 0 alone writes (the other ranks
+take part in the gathers and wait for the publish), so the files are
+those of the one-device state; ``load`` reads every leaf on every rank
+and keeps the rank's block, so a step saved on one mesh shape loads on
+any other.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import json
+import math
 import os
 import re
 import shutil
@@ -177,11 +187,29 @@ def _unflatten_like(like, leaves: dict):
     return build(like, ())
 
 
+class _Gathered:
+    """A block of a sharded leaf, gathered to its full shape when the
+    writer reaches it (every rank gathers, in the same order)."""
+
+    __slots__ = ("block", "sharding", "shape")
+
+    def __init__(self, block, sharding):
+        from ..distributed.sharding import global_shape
+        self.block, self.sharding = block, sharding
+        self.shape = global_shape(sharding, tuple(block.shape))
+
+    def full(self):
+        from ..distributed.sharding import gather
+        return gather(self.block, self.sharding)
+
+
 def _leaf_shape(x) -> tuple:
     return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
 
 
 def _leaf_nbytes(x) -> int:
+    if isinstance(x, _Gathered):
+        return math.prod(x.shape) * x.block.element_size()
     if torch.is_tensor(x):
         return x.numel() * x.element_size()
     return int(np.asarray(x).nbytes)
@@ -190,6 +218,8 @@ def _leaf_nbytes(x) -> int:
 def _host_array(key: str, x) -> np.ndarray:
     """The leaf as a C-contiguous host numpy array (one device-to-host
     copy for a card tensor)."""
+    if isinstance(x, _Gathered):
+        x = x.full()
     if torch.is_tensor(x):
         if x.dtype == torch.bfloat16:
             raise TypeError(
@@ -211,9 +241,76 @@ def _contiguous(a: np.ndarray) -> np.ndarray:
     return a if a.flags.c_contiguous else np.ascontiguousarray(a)
 
 
-def _crc(a: np.ndarray) -> int:
-    """crc32 of a C-contiguous array's bytes, without copying them."""
-    return zlib.crc32(a)
+# crc32 of a large leaf: its bytes in runs of CRC_RUN, each run's crc32 on
+# a thread of a pool (zlib releases the interpreter lock), the runs' values
+# joined as zlib's crc32_combine joins them: the crc32 of the whole
+CRC_RUN = 1 << 26
+_crc_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+
+
+def _gf2_times(mat, vec: int) -> int:
+    out, i = 0, 0
+    while vec:
+        if vec & 1:
+            out ^= mat[i]
+        vec >>= 1
+        i += 1
+    return out
+
+
+def _gf2_square(mat) -> list:
+    return [_gf2_times(mat, mat[n]) for n in range(32)]
+
+
+def _advance(crc: int, n: int) -> int:
+    """The crc32 register ``crc`` carried over ``n`` zero bytes (zlib's
+    ``crc32_combine`` without its second operand)."""
+    odd = [0xEDB88320] + [1 << k for k in range(31)]   # one zero bit
+    even = _gf2_square(odd)                            # two
+    odd = _gf2_square(even)                            # four
+    while n:
+        even = _gf2_square(odd)
+        if n & 1:
+            crc = _gf2_times(even, crc)
+        n >>= 1
+        if not n:
+            break
+        odd = _gf2_square(even)
+        if n & 1:
+            crc = _gf2_times(odd, crc)
+        n >>= 1
+    return crc
+
+
+@functools.lru_cache(maxsize=None)
+def _advance_op(n: int) -> tuple:
+    """``_advance(., n)`` as its GF(2) matrix (it is linear in crc)."""
+    return tuple(_advance(1 << k, n) for k in range(32))
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """crc32 of A + B from crc32(A), crc32(B) and B's length."""
+    op = _advance_op(len2) if len2 == CRC_RUN else None
+    return (_gf2_times(op, crc1) if op else _advance(crc1, len2)) ^ crc2
+
+
+def _crc(a: np.ndarray, value: int = 0) -> int:
+    """crc32 of a C-contiguous array's bytes, without copying them,
+    continuing from ``value`` (``zlib.crc32(a, value)``); a large array
+    in runs on several threads."""
+    global _crc_pool
+    b = a.reshape(-1).view(np.uint8)
+    n = b.shape[0]
+    if n <= CRC_RUN:
+        return zlib.crc32(b, value)
+    if _crc_pool is None:
+        _crc_pool = concurrent.futures.ThreadPoolExecutor(
+            min(8, os.cpu_count() or 1))
+    runs = [b[i:i + CRC_RUN] for i in range(0, n, CRC_RUN)]
+    crc = value
+    for run, c in zip(runs, _crc_pool.map(zlib.crc32, runs)):
+        crc = crc32_combine(crc, c, run.shape[0])
+    return crc
 
 
 def _write_payload(fpath: str, keys: List[str], leaf_of: dict,
@@ -235,11 +332,23 @@ def _write_payload(fpath: str, keys: List[str], leaf_of: dict,
     return meta
 
 
+def _writer_order(items, n_shards: int) -> List[str]:
+    """The keys in the order ``save`` writes them."""
+    assign = _assign_shards({k: _leaf_nbytes(v) for k, v in items},
+                            n_shards)
+    return [k for i in sorted(payload_files({"n_shards": n_shards}))
+            for k, _ in items if assign[k] == i]
+
+
 def save(ckpt_dir: str, step: int, tree, keep: int = 3,
-         n_shards: int = 1) -> str:
+         n_shards: int = 1, shardings=None) -> str:
     """Atomically write the checkpoint of ``step``; returns its directory.
     ``n_shards > 1`` partitions the leaves over that many payload files
-    (all-or-nothing trust on restore)."""
+    (all-or-nothing trust on restore).  With ``shardings`` the leaves are
+    blocks: gathered leaf by leaf, written by rank 0 (module docstring)."""
+    if shardings is not None:
+        return _save_sharded(ckpt_dir, step, tree, keep, n_shards,
+                             shardings)
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
     tmp = final + ".tmp"
@@ -297,6 +406,41 @@ def save(ckpt_dir: str, step: int, tree, keep: int = 3,
     _fsync_path(ckpt_dir)
     _rotate(ckpt_dir, keep, protect=os.path.basename(final))
     _stage("done", final)
+    return final
+
+
+def _gathered_tree(tree, shardings):
+    from ..distributed.sharding import tree_map_with_path
+
+    def one(path, x, s):
+        return _Gathered(x, s) if torch.is_tensor(x) else x
+    return tree_map_with_path(one, tree, shardings)
+
+
+def _save_sharded(ckpt_dir, step, tree, keep, n_shards, shardings) -> str:
+    from ..distributed import collectives
+    from ..distributed.sharding import mesh_of
+    mesh = mesh_of(shardings)
+    lazy = _gathered_tree(tree, shardings)
+    final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    err = None
+    if mesh.rank == 0:
+        try:
+            save(ckpt_dir, step, lazy, keep=keep, n_shards=n_shards)
+        except BaseException as e:   # the other ranks learn of it below
+            err = e
+    else:
+        leaf_of = dict(_paths_and_leaves(lazy))
+        for key in _writer_order(list(leaf_of.items()), n_shards):
+            if isinstance(leaf_of[key], _Gathered):
+                leaf_of[key].full()
+    failed = collectives.broadcast_object(None if err is None
+                                          else repr(err))
+    if err is not None:
+        raise err
+    if failed is not None:
+        raise IOError(f"checkpoint save of step {step} failed on rank 0: "
+                      f"{failed}")
     return final
 
 
@@ -440,9 +584,13 @@ def latest_valid(ckpt_dir: str, quarantine_corrupt: bool = False
     return None
 
 
-def _to_like(key: str, a: np.ndarray, ref, dst):
-    """The restored leaf: copied into ``dst`` in place, or a tensor on
-    ``ref``'s device (a numpy array where ``ref`` is not a tensor)."""
+def _to_like(key: str, a: np.ndarray, ref, dst, sharding=None):
+    """The restored leaf (with ``sharding``: this rank's block of it):
+    copied into ``dst`` in place, or a tensor on ``ref``'s device (a numpy
+    array where ``ref`` is not a tensor)."""
+    if sharding is not None:
+        from ..distributed.sharding import shard
+        a = shard(a, sharding)
     if dst is not None:
         if not torch.is_tensor(dst):
             raise TypeError(f"into leaf {key!r} is not a tensor")
@@ -458,7 +606,7 @@ def _to_like(key: str, a: np.ndarray, ref, dst):
 
 
 def load(ckpt_dir: str, like=None, step: Optional[int] = None,
-         verify: bool = True, into=None):
+         verify: bool = True, into=None, shardings=None):
     """Restore the tree structured like ``like``; returns ``(tree, step)``.
 
     Each leaf lands on the device of the matching ``like`` leaf; with
@@ -467,7 +615,9 @@ def load(ckpt_dir: str, like=None, step: Optional[int] = None,
     ``into`` is returned.  With ``verify`` every leaf's crc32 is checked
     against the manifest before the leaf is placed; a mismatch or an
     unreadable payload raises :class:`CorruptCheckpointError` (with
-    ``into``, the leaves placed before it stay overwritten).
+    ``into``, the leaves placed before it stay overwritten).  With
+    ``shardings`` the template's leaves are this rank's blocks: every
+    rank reads each full leaf and keeps its block.
     """
     like = into if like is None else like
     if like is None:
@@ -488,6 +638,13 @@ def load(ckpt_dir: str, like=None, step: Optional[int] = None,
     items = _paths_and_leaves(like)
     refs = dict(items)
     dsts = dict(_paths_and_leaves(into)) if into is not None else {}
+    shs = {}
+    if shardings is not None:
+        lazy = _gathered_tree(like, shardings)
+        shs = {k: v.sharding for k, v in _paths_and_leaves(lazy)
+               if isinstance(v, _Gathered)}
+        refs.update((k, v) for k, v in _paths_and_leaves(lazy)
+                    if isinstance(v, _Gathered))
     out = {}
     try:
         for key, _, a in _stream(d, manifest, payloads,
@@ -496,7 +653,9 @@ def load(ckpt_dir: str, like=None, step: Optional[int] = None,
             if tuple(a.shape) != tuple(_leaf_shape(ref)):
                 raise ValueError(f"shape mismatch for {key!r}: "
                                  f"{a.shape} vs {_leaf_shape(ref)}")
-            out[key] = _to_like(key, a, ref, dsts.get(key))
+            out[key] = _to_like(
+                key, a, ref.block if isinstance(ref, _Gathered) else ref,
+                dsts.get(key), shs.get(key))
             del a
     finally:
         for pz in payloads.values():

@@ -12,6 +12,14 @@ ARCHS = ["granite_3_2b", "gemma2_2b", "codeqwen1p5_7b", "gemma3_12b",
          "musicgen_medium", "dbrx_132b", "moonshot_v1_16b_a3b",
          "zamba2_2p7b", "rwkv6_1p6b", "llama3p2_vision_11b"]
 
+# the cells of the JAX package's dry-run (global batch and length)
+SHAPES = {
+    "train_4k":    dict(seq_len=4_096,   global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32_768,  global_batch=32,  kind="prefill"),
+    "decode_32k":  dict(seq_len=32_768,  global_batch=128, kind="decode"),
+    "long_500k":   dict(seq_len=524_288, global_batch=1,   kind="decode"),
+}
+
 
 def _norm(arch_id: str) -> str:
     return arch_id.replace("-", "_").replace(".", "p")

@@ -63,7 +63,8 @@ def lotion_penalty(w: torch.Tensor, fisher: torch.Tensor, fmt,
 
 
 def lotion_penalty_and_grad(w: torch.Tensor, fisher: torch.Tensor, fmt,
-                            block_size: int = -1, lam: float = 1.0
+                            block_size: int = -1, lam: float = 1.0,
+                            absmax=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Closed-form (value, grad) of :func:`lotion_penalty` with a constant
     scale: ``grad = ct (hi - w) - ct (w - lo)`` with ``ct = (lam/2) f``,
@@ -71,9 +72,10 @@ def lotion_penalty_and_grad(w: torch.Tensor, fisher: torch.Tensor, fmt,
     ``lam * lotion_penalty``.  The value is unscaled (times ``lam`` for
     the loss-side number).  The value's terms are added in float64 and
     rounded to fp32 once, so it hardly depends on the summation order (the
-    kernels add in double too); the JAX function adds in fp32."""
+    kernels add in double too); the JAX function adds in fp32.  A given
+    ``absmax`` (per matrix, (n_matrices,)) sets the scales."""
     w, fisher = w.detach(), fisher.detach()
-    lo, hi = quantize.rr_neighbors(w, fmt, block_size)
+    lo, hi = quantize.rr_neighbors(w, fmt, block_size, absmax)
     terms = fisher * ((hi - w) * (w - lo))
     value = (0.5 * torch.sum(terms, dtype=torch.float64)).to(torch.float32)
     ct = (0.5 * lam) * fisher

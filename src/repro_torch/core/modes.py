@@ -59,43 +59,74 @@ class QuantConfig:
         return self.method in ("fp32", "ptq")
 
 
-def leaf_uniforms(path, x, uniforms, generator) -> torch.Tensor:
+def leaf_uniforms(path, x, uniforms, generator, sharding=None
+                  ) -> torch.Tensor:
     """The RR uniforms of one leaf: ``uniforms[path_str(path)]``, or a
-    fresh draw in ``x``'s shape from ``generator`` on ``x``'s device."""
+    fresh draw in ``x``'s shape from ``generator`` on ``x``'s device.  For
+    a block of a sharded leaf (``sharding``) the uniforms are the full
+    leaf's, drawn or given whole, and the block's part of them is kept."""
+    from ..distributed.sharding import global_shape, shard
     if uniforms is not None:
-        return uniforms[path_str(path)]
-    return torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype)
+        return shard(uniforms[path_str(path)], sharding)
+    return shard(torch.rand(global_shape(sharding, x.shape),
+                            generator=generator, device=x.device,
+                            dtype=x.dtype), sharding)
+
+
+def map_eligible(policy: QuantPolicy, fn, params, shardings=None):
+    """``fn(path, x, sharding)`` over the eligible leaves (identity
+    elsewhere); with ``shardings`` the leaves are blocks, and eligibility
+    is the full leaf's."""
+    from ..distributed.sharding import full_view
+    if shardings is None:
+        return policy.map_eligible(lambda p, x: fn(p, x, None), params)
+    return tree_map_multi(
+        lambda p, x, s: fn(p, x, s) if policy.eligible(p, full_view(x, s))
+        else x, params, shardings)
 
 
 def forward_params(cfg: QuantConfig, params,
                    uniforms: Optional[Dict[str, torch.Tensor]] = None,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   shardings=None):
     """Parameter transform applied inside the loss (differentiable through
     the straight-through estimators).  ``rat`` takes its uniforms from
     ``uniforms`` (``{path_str: tensor}`` in each leaf's shape) or draws
     them from ``generator``, leaf by leaf in tree order; each leaf's draw
     is dropped once its cast is made, so at most one leaf's uniforms are
-    alive."""
+    alive.  With ``shardings`` the leaves are blocks: each casts with its
+    whole matrices' absmax, and RAT's uniforms are the full leaf's (drawn
+    in the one-device order), the block's part kept, so the casts are the
+    blocks of the one-device casts."""
+    from ..distributed.sharding import leaf_absmax
     if cfg.is_noop or cfg.method == "lotion":
         return params
     fmt, bs = cfg.fmt, cfg.block_size
     if cfg.method == "qat":
-        return cfg.policy.map_eligible(
-            lambda p, x: ste.fake_quant_rtn(x, fmt, bs), params)
+        return map_eligible(
+            cfg.policy, lambda p, x, s: ste.fake_quant_rtn(
+                x, fmt, bs, leaf_absmax(x, s, bs, path_str(p))),
+            params, shardings)
     if cfg.method == "rat":
         if uniforms is None and generator is None:
             raise ValueError("RAT needs uniforms or a generator per step")
-        return cfg.policy.map_eligible(
-            lambda p, x: ste.fake_quant_rr(
-                x, fmt, leaf_uniforms(p, x, uniforms, generator), bs), params)
+        return map_eligible(
+            cfg.policy, lambda p, x, s: ste.fake_quant_rr(
+                x, fmt, leaf_uniforms(p, x, uniforms, generator, s), bs,
+                leaf_absmax(x, s, bs, path_str(p))), params, shardings)
     raise AssertionError(cfg.method)
 
 
-def penalty(cfg: QuantConfig, params, fisher) -> torch.Tensor:
+def penalty(cfg: QuantConfig, params, fisher, shardings=None
+            ) -> torch.Tensor:
     """LOTION regularizer summed over eligible params, scaled by lambda:
     one ``lotion_reg`` autograd call per eligible leaf, ``lam`` folded into
-    each leaf's gradient (as the decoupled placement adds it)."""
+    each leaf's gradient (as the decoupled placement adds it).  With
+    ``shardings`` the leaves are blocks: each takes its whole matrices'
+    absmax, and the sum runs over every rank, each block counted once
+    (its gradient on every replica)."""
+    from ..distributed.sharding import (count_once, full_view, leaf_absmax,
+                                        mesh_of, sum_all)
     from ..kernels.lotion_reg import lotion_penalty_fused
     dev = tree_leaves(params)[0].device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -103,15 +134,19 @@ def penalty(cfg: QuantConfig, params, fisher) -> torch.Tensor:
         return zero
     pens = []
 
-    def visit(path, x, f):
-        if cfg.policy.eligible(path, x):
-            pens.append(lotion_penalty_fused(x, f, cfg.fmt_name,
-                                             cfg.block_size, cfg.lam))
+    def visit(path, x, f, s=None):
+        if cfg.policy.eligible(path, full_view(x, s)):
+            pen = lotion_penalty_fused(
+                x, f, cfg.fmt_name, cfg.block_size, cfg.lam,
+                leaf_absmax(x, s, cfg.block_size, path_str(path)))
+            pens.append(pen if s is None else count_once(pen, s))
 
-    tree_map_multi(visit, params, fisher)
-    if not pens:
-        return zero
-    return torch.sum(torch.stack(pens))
+    tree_map_multi(visit, params, fisher,
+                   *(() if shardings is None else (shardings,)))
+    total = torch.sum(torch.stack(pens)) if pens else zero
+    if shardings is not None:
+        total = sum_all(total, mesh_of(shardings))
+    return total
 
 
 def cast_params(params, fmt, policy: QuantPolicy, block_size: int = -1,

@@ -29,6 +29,23 @@ def _absmax_pertensor(w: torch.Tensor) -> torch.Tensor:
     return torch.amax(torch.abs(w), dim=matrix_axes(w), keepdim=True)
 
 
+def _matrix_absmax(w: torch.Tensor, absmax=None) -> torch.Tensor:
+    """Each matrix's absmax with keepdims: ``w``'s own, or the given
+    ``absmax`` of shape (n_matrices,) (a sharded leaf's block takes its
+    whole matrices' absmax, ``distributed.sharding.matrix_absmax``)."""
+    if absmax is None:
+        return _absmax_pertensor(w)
+    axes = matrix_axes(w)
+    return absmax.reshape(tuple(1 if i in axes else s
+                                for i, s in enumerate(w.shape)))
+
+
+def _no_absmax_blockwise(absmax, block_size: int) -> None:
+    if absmax is not None and block_size != -1:
+        raise ValueError("a given absmax is per matrix (block_size=-1), got "
+                         f"block_size={block_size}")
+
+
 def matrix_scales(w: torch.Tensor, fmt) -> torch.Tensor:
     """Per-matrix scales flattened to ``(n_matrices,)`` fp32: the scalar
     operand the per-tensor kernels read (one per matrix of a stacked
@@ -69,10 +86,13 @@ def block_scales(w: torch.Tensor, fmt, block_size: int = -1) -> torch.Tensor:
     return fmt.scale(torch.amax(torch.abs(blocked), dim=-1))
 
 
-def cast_rtn(w: torch.Tensor, fmt, block_size: int = -1) -> torch.Tensor:
-    """Round-to-nearest cast with shared absmax scales."""
+def cast_rtn(w: torch.Tensor, fmt, block_size: int = -1,
+             absmax=None) -> torch.Tensor:
+    """Round-to-nearest cast with shared absmax scales (per matrix: ``w``'s
+    own absmax, or the given one)."""
+    _no_absmax_blockwise(absmax, block_size)
     if block_size == -1:
-        return fmt.rtn(w, fmt.scale(_absmax_pertensor(w)))
+        return fmt.rtn(w, fmt.scale(_matrix_absmax(w, absmax)))
     blocked, shape, n_pad = _block_view(w, block_size)
     absmax = torch.amax(torch.abs(blocked), dim=-1, keepdim=True)
     return _unblock(fmt.rtn(blocked, fmt.scale(absmax)), shape, n_pad)
@@ -88,26 +108,28 @@ def _rr(w, s, fmt, u):
 
 
 def cast_rr(w: torch.Tensor, fmt, uniforms: torch.Tensor,
-            block_size: int = -1) -> torch.Tensor:
+            block_size: int = -1, absmax=None) -> torch.Tensor:
     """Unbiased randomized-rounding cast: each element goes to ``hi`` when
     its uniform ``u < (w - lo) / (hi - lo)`` and to ``lo`` otherwise, so
     E[cast_rr(w)] = w.  ``uniforms`` has ``w``'s shape."""
     if uniforms.shape != w.shape:
         raise ValueError(f"uniforms {tuple(uniforms.shape)} must have w's "
                          f"shape {tuple(w.shape)}")
+    _no_absmax_blockwise(absmax, block_size)
     if block_size == -1:
-        return _rr(w, fmt.scale(_absmax_pertensor(w)), fmt, uniforms)
+        return _rr(w, fmt.scale(_matrix_absmax(w, absmax)), fmt, uniforms)
     blocked, shape, n_pad = _block_view(w, block_size)
     ub, _, _ = _block_view(uniforms, block_size)
     absmax = torch.amax(torch.abs(blocked), dim=-1, keepdim=True)
     return _unblock(_rr(blocked, fmt.scale(absmax), fmt, ub), shape, n_pad)
 
 
-def rr_neighbors(w: torch.Tensor, fmt, block_size: int = -1
+def rr_neighbors(w: torch.Tensor, fmt, block_size: int = -1, absmax=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Elementwise (lo, hi) representable brackets, in w's shape."""
+    _no_absmax_blockwise(absmax, block_size)
     if block_size == -1:
-        return fmt.neighbors(w, fmt.scale(_absmax_pertensor(w)))
+        return fmt.neighbors(w, fmt.scale(_matrix_absmax(w, absmax)))
     blocked, shape, n_pad = _block_view(w, block_size)
     absmax = torch.amax(torch.abs(blocked), dim=-1, keepdim=True)
     lo, hi = fmt.neighbors(blocked, fmt.scale(absmax))

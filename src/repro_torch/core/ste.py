@@ -27,28 +27,31 @@ class _STECast(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, w: torch.Tensor, fmt_name: str, block_size: int,
-                uniforms: Optional[torch.Tensor]) -> torch.Tensor:
+                uniforms: Optional[torch.Tensor],
+                absmax: Optional[torch.Tensor]) -> torch.Tensor:
         if uniforms is None:
-            return quant_rtn(w, fmt_name, block_size)
-        return quant_rr(w, uniforms, fmt_name, block_size)
+            return quant_rtn(w, fmt_name, block_size, absmax)
+        return quant_rr(w, uniforms, fmt_name, block_size, absmax)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return g, None, None, None
+        return g, None, None, None, None
 
 
 def _fmt_name(fmt) -> str:
     return fmt if isinstance(fmt, str) else fmt.name
 
 
-def fake_quant_rtn(w: torch.Tensor, fmt, block_size: int = -1
-                   ) -> torch.Tensor:
-    """QAT fake-quant: RTN forward, identity backward."""
-    return _STECast.apply(w, _fmt_name(fmt), block_size, None)
+def fake_quant_rtn(w: torch.Tensor, fmt, block_size: int = -1,
+                   absmax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """QAT fake-quant: RTN forward, identity backward (``absmax``: the
+    per-matrix absmax of a sharded leaf's whole matrices)."""
+    return _STECast.apply(w, _fmt_name(fmt), block_size, None, absmax)
 
 
 def fake_quant_rr(w: torch.Tensor, fmt, uniforms: torch.Tensor,
-                  block_size: int = -1) -> torch.Tensor:
+                  block_size: int = -1,
+                  absmax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """RAT fake-quant: randomized rounding against ``uniforms`` (``w``'s
     shape, in [0, 1)) forward, identity backward."""
-    return _STECast.apply(w, _fmt_name(fmt), block_size, uniforms)
+    return _STECast.apply(w, _fmt_name(fmt), block_size, uniforms, absmax)

@@ -7,6 +7,11 @@ device, and overlaps host-side generation with device compute via a
 prefetch thread.  An exception in the worker is enqueued in stream order
 and re-raised from ``__next__`` at the step where it occurred; the
 pipeline then resets, so a retry or a ``seek`` restarts the worker.
+
+With ``sharding`` (a dict of ``NamedSharding`` per batch field,
+``distributed.sharding.train_batch_shardings``) each rank builds the
+global batch of a step (``batch_fn`` is a function of the step) and
+keeps its rows.
 """
 
 from __future__ import annotations
@@ -27,8 +32,9 @@ class _WorkerFailure:
 
 class DataPipeline:
     def __init__(self, batch_fn: Callable[[int], dict], start_step: int = 0,
-                 device=None, prefetch: int = 2):
+                 device=None, prefetch: int = 2, sharding=None):
         self._batch_fn = batch_fn
+        self._sharding = sharding
         self._step = start_step
         self._device = device
         self._prefetch = max(prefetch, 0)
@@ -47,6 +53,9 @@ class DataPipeline:
 
     def _make(self, step: int):
         batch = self._batch_fn(step)
+        if self._sharding is not None:
+            from ..distributed.sharding import sharded_batch
+            batch = sharded_batch(batch, self._sharding)
         if self._device is not None:
             batch = {k: v.to(self._device) for k, v in batch.items()}
         return batch

@@ -1,7 +1,8 @@
-"""The cross-host agreement seam (coordinator) and the divergence audit
-of the self-healing training loop (port of part of
-``repro.distributed``; sharding and the store-backed bus are ROADMAP
-Queue 1 item 8)."""
+"""The port's ``repro.distributed``: the sharding rules and placements
+(``sharding``), the model's placement context (``context``), the
+collectives over a mesh (``collectives``), and the self-healing loop's
+cross-host agreement seam (``coordinator``: the in-process bus the JAX
+package has) and divergence audit (``audit``)."""
 
 from .audit import replica_divergence, tree_fingerprint
 from .coordinator import (DEAD, AgreementError, Coordinator,

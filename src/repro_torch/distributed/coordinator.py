@@ -21,8 +21,9 @@ Every round carries a timeout: a dead or straggling host becomes a typed
 :class:`InProcessBus` simulates ``n_hosts`` peers inside one process:
 peers echo host 0's value by default; a ``peer_fn`` can make one lie,
 return :data:`DEAD`, or return a :class:`Straggle` whose virtual delay is
-compared against the timeout (no wall-clock sleeping).  A bus over the
-``torch.distributed`` store is ROADMAP Queue 1 item 8.
+compared against the timeout (no wall-clock sleeping).  It is the only
+bus, as in the JAX package; the mesh's ranks agree on a restore target by
+a broadcast from rank 0 (``train/loop.py::newest_valid_step``).
 """
 
 from __future__ import annotations

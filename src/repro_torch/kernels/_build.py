@@ -42,7 +42,7 @@ SIGNATURES = {
                      _I, _P],
     "quant_blocks_per_sm": [_I, _I, _I, _I],
     "lotion_reg_launch": [_P] * 5 + [_L] * 5 + [_I] * 3 + [_F] * 2
-                         + [_I] * 2 + [_P],
+                         + [_I] * 2 + [_P, _P],
     "lotion_reg_blocks_per_sm": [_I, _I],
     "opt_step_launch": [_P] * 9 + [_L] * 5 + [_I] * 6 + [_F] * 11
                        + [_I, _P],

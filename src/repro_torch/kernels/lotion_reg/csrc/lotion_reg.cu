@@ -77,6 +77,7 @@ struct Args {
   double* partials;     // grid, block: one per block
   unsigned* slots;      // grid: n_mats * min(grid, scan) run maxima (|w| bits)
   unsigned* amax;       // grid, several matrices: n_mats folded maxima
+  const unsigned* given;  // per-matrix regimes: n_mats |w| bits folded in, or null
   float* pen;
   qm::Walk wk;          // per matrix
   int64_t n;            // blockwise
@@ -157,6 +158,13 @@ __device__ __forceinline__ void grid_penalty(double acc, const Args& a) {
   if (threadIdx.x == 0) a.pen[0] = 0.5f * static_cast<float>(v);
 }
 
+// Matrix mat's given |w| bits (a sharded leaf's block takes its whole
+// matrix's absmax), 0 where none is given: folding it into the block's
+// own maxima leaves the given value, which is at least them.
+__device__ __forceinline__ unsigned given_bits(const Args& a, int64_t mat) {
+  return a.given ? __ldg(a.given + mat) : 0u;
+}
+
 // The largest of slots[0, S), on every thread of the block.
 __device__ __forceinline__ unsigned fold_slots(const unsigned* slots,
                                                int64_t S) {
@@ -196,12 +204,14 @@ reg_grid_kernel(const Args a) {
   // One matrix: every block folds its slots itself.  Several: block b
   // folds matrices b, b + grid, ... into amax, behind one more barrier.
   const bool one = wk.n_mats == 1;
-  float s = one ? qm::scale_of(__uint_as_float(fold_slots(a.slots, S)),
+  float s = one ? qm::scale_of(__uint_as_float(max(fold_slots(a.slots, S),
+                                                   given_bits(a, 0))),
                                a.qmax)
                 : 1.f;
   if (!one) {
     for (int64_t mat = blockIdx.x; mat < wk.n_mats; mat += gridDim.x) {
-      const unsigned v = fold_slots(a.slots + mat * S, S);
+      const unsigned v = max(fold_slots(a.slots + mat * S, S),
+                             given_bits(a, mat));
       if (threadIdx.x == 0) a.amax[mat] = v;
     }
     cg::this_grid().sync();
@@ -244,7 +254,7 @@ reg_cluster_kernel(const Args a) {
     // after the next barrier, which every reader of it has passed
     cluster.sync();
     unsigned v = lane < S ? *cluster.map_shared_rank(&slot[mat & 1], lane) : 0u;
-    v = __reduce_max_sync(0xffffffffu, v);
+    v = max(__reduce_max_sync(0xffffffffu, v), given_bits(a, mat));
     if (r < wk.chunks) {
       qm::chunk_range(wk, mat, r, c0, c1);
       reg_range<FP4>(a, c0, c1, qm::scale_of(__uint_as_float(v), a.qmax), acc);
@@ -363,15 +373,17 @@ extern "C" int lotion_reg_blocks_per_sm(int regime, int fp4) {
 // regime 0, ops.py::scratch_bytes): `grid` doubles (the partials), then
 // for regime 1 n_mats * min(grid, scan) + n_mats uint32 (the run slots,
 // the folded maxima); nothing in it is read before the launch writes it.
-// n_sum: the partials the penalty's sum adds (= grid).  Returns the
-// launch's CUDA error.
+// n_sum: the partials the penalty's sum adds (= grid).  given (regimes 0
+// and 1, or null): n_mats uint32, each matrix's |w| bits to fold into its
+// absmax.  Returns the launch's CUDA error.
 extern "C" int lotion_reg_launch(const void* w, const void* f, void* grad,
                                  void* scratch, void* pen, int64_t n,
                                  int64_t mat_numel, int64_t chunk,
                                  int64_t chunks, int64_t scan,
                                  int block_size, int regime, int fp4,
                                  float qmax, float half_lam, int grid,
-                                 int n_sum, void* stream) {
+                                 int n_sum, const void* given,
+                                 void* stream) {
   const uintptr_t al = reinterpret_cast<uintptr_t>(w) & 15;
   const int64_t n_mats = mat_numel > 0 ? n / mat_numel : 0;
   const int64_t S = grid < scan ? grid : scan;
@@ -380,7 +392,8 @@ extern "C" int lotion_reg_launch(const void* w, const void* f, void* grad,
       regime == kGrid ? reinterpret_cast<unsigned*>(partials + grid) : nullptr;
   Args a{static_cast<const float*>(w), static_cast<const float*>(f),
          static_cast<float*>(grad), partials, slots,
-         slots ? slots + n_mats * S : nullptr, static_cast<float*>(pen),
+         slots ? slots + n_mats * S : nullptr,
+         static_cast<const unsigned*>(given), static_cast<float*>(pen),
          qm::Walk{mat_numel, n_mats, chunk, chunks, scan}, n, block_size,
          static_cast<int>(al >> 2),
          (reinterpret_cast<uintptr_t>(f) & 15) == al &&

@@ -24,7 +24,7 @@ penalty's summation order is fixed for a shape.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -130,20 +130,27 @@ def launch_plan(w: torch.Tensor, fmt_name: str, block_size: int) -> Plan:
 
 def lotion_penalty_fused_vg(w: torch.Tensor, fisher: torch.Tensor,
                             fmt_name: str = "int4", block_size: int = 256,
-                            lam: float = 1.0
+                            lam: float = 1.0,
+                            absmax: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(penalty, grad) of one leaf in one launch, ``grad`` the closed-form
     a.e. derivative of ``lam`` times the penalty with a constant scale:
     the kernel for CUDA tensors, the plain version for CPU tensors.  The
-    penalty is unscaled (no lam)."""
+    penalty is unscaled (no lam).  ``absmax`` ((n_matrices,) fp32,
+    per-matrix scales only) gives each matrix's absmax: a sharded leaf's
+    block takes its whole matrix's (the launch folds it into the block's
+    own maxima)."""
     if fisher.shape != w.shape:
         raise ValueError(f"fisher {tuple(fisher.shape)} must have w's shape "
                          f"{tuple(w.shape)}")
     if block_size == 0 or block_size < -1:
         raise ValueError(f"block_size must be -1 or positive, got {block_size}")
+    if absmax is not None and block_size != -1:
+        raise ValueError("lotion_reg: a given absmax is for per-matrix "
+                         f"scales, got block_size={block_size}")
     w, fisher = w.detach(), fisher.detach()
     if w.device.type == "cpu":
-        return reg_ref(w, fisher, fmt_name, block_size, lam)
+        return reg_ref(w, fisher, fmt_name, block_size, lam, absmax)
     if w.device.type != "cuda":
         raise ValueError(f"lotion_reg runs on cuda or cpu, got {w.device}")
     _build.check_cuda_inputs("lotion_reg", w, fisher)
@@ -156,6 +163,8 @@ def lotion_penalty_fused_vg(w: torch.Tensor, fisher: torch.Tensor,
     nbytes = scratch_bytes(p, n // mat_numel if mat_numel else 0)
     scratch = (torch.empty(nbytes, dtype=torch.uint8, device=w.device)
                if nbytes else None)
+    given = (None if absmax is None or n == 0 else quant_ops.seeded_absmax(
+        "lotion_reg", absmax, n // mat_numel, w.device))
     err = _build.lib().lotion_reg_launch(
         w.data_ptr(), fisher.data_ptr(), grad.data_ptr(),
         None if scratch is None else scratch.data_ptr(), pen.data_ptr(), n,
@@ -163,6 +172,7 @@ def lotion_penalty_fused_vg(w: torch.Tensor, fisher: torch.Tensor,
         REGIMES[p.regime], int(isinstance(fmt, CodebookFormat)),
         # lam / 2 folded on the host in double, as core/lotion.py folds it
         float(fmt.qmax), 0.5 * lam, p.blocks, p.sum_blocks,
+        None if given is None else given.data_ptr(),
         torch.cuda.current_stream(w.device).cuda_stream)
     _build.check(err, "lotion_reg")
     lotion_penalty_fused_vg.launches += 1
@@ -174,22 +184,24 @@ lotion_penalty_fused_vg.launches = 0
 
 class _FusedPenalty(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, fisher, fmt_name, block_size, lam):
+    def forward(ctx, w, fisher, fmt_name, block_size, lam, absmax):
         pen, grad = lotion_penalty_fused_vg(w, fisher, fmt_name, block_size,
-                                            lam)
+                                            lam, absmax)
         ctx.save_for_backward(grad)
         return lam * pen
 
     @staticmethod
     def backward(ctx, g):
         (grad,) = ctx.saved_tensors
-        return g * grad, None, None, None, None
+        return g * grad, None, None, None, None, None
 
 
 def lotion_penalty_fused(w, fisher, fmt_name: str = "int4",
                          block_size: int = 256,
-                         lam: float = 1.0) -> torch.Tensor:
+                         lam: float = 1.0,
+                         absmax: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """``lam`` times the penalty as a differentiable scalar; backward is
     ``g * grad`` from the same launch (no second pass over w), with
     ``lam`` already folded into ``grad``."""
-    return _FusedPenalty.apply(w, fisher, fmt_name, block_size, lam)
+    return _FusedPenalty.apply(w, fisher, fmt_name, block_size, lam, absmax)

@@ -8,6 +8,7 @@ from ...core.formats import get_format
 from ...core.lotion import lotion_penalty_and_grad
 
 
-def reg_ref(w, fisher, fmt_name: str, block_size: int, lam: float = 1.0):
+def reg_ref(w, fisher, fmt_name: str, block_size: int, lam: float = 1.0,
+            absmax=None):
     return lotion_penalty_and_grad(w, fisher, get_format(fmt_name),
-                                   block_size, lam=lam)
+                                   block_size, lam=lam, absmax=absmax)

@@ -27,10 +27,11 @@ from .ref import opt_step_ref
 
 _MODES = {"none": 0, "matrix": 1, "block": 2}
 _CORES = {"adamw": 0, "sgd": 1}
-# elements of one part of the plain version on the CPU (16 MB of fp32):
-# the temporaries of a part stay in the caches; those of a whole
-# full-width leaf are fresh pages, about 3x slower
-CPU_PART = 1 << 22
+# elements of one part of the plain version on the CPU (2 MB of fp32):
+# the temporaries of a part stay in the caches; a whole 2048 x 2048
+# matrix at a time took 1.7x as long on a shared 8-core host, a whole
+# full-width leaf about 3x that
+CPU_PART = 1 << 19
 
 
 def step_scalars(lr, bc1, bc2, clip_scale, ok, device) -> torch.Tensor:
@@ -67,30 +68,43 @@ def launch_plan(w: torch.Tensor, *, lam: float, fmt_name: str,
 
 
 def _plain_in_parts(w, g, mu, nu, mode: str, **kw) -> Tuple:
-    """``opt_step_ref`` over parts of the leaf of at most ``CPU_PART``
-    elements where the leaf allows: runs of whole matrices (per-matrix
-    scales) or of elements (mode none; blockwise scales and one-matrix
-    leaves take one call).  Every output element depends only on its own
-    inputs and its matrix's scale, so w', mu' and nu' are those of one
-    call, bit for bit; the penalty is the float64 sum of the parts'."""
-    if mode == "matrix" and w.ndim > 2:
-        mat = quant_ops.matrix_numel(w)
-        view = (-1,) + tuple(w.shape[-2:])
-        step = max(1, CPU_PART // mat)
-    elif mode == "none":
-        view, step = (-1,), CPU_PART
+    """``opt_step_ref`` over parts of the leaf of at most about
+    ``CPU_PART`` elements: with per-matrix scales, runs of rows of one
+    matrix at a time, each given its matrix's absmax (taken first, in one
+    pass over the leaf, unless ``kw`` gives it); in mode none runs of
+    elements (blockwise scales take one call).  Every output element
+    depends only on its own inputs and its matrix's scale, so w', mu' and
+    nu' are those of one call, bit for bit; the penalty is the float64
+    sum of the parts'."""
+    if mode == "none":
+        parts = [t.reshape(-1) for t in (w, g, mu, nu)]
+        cuts = [(slice(i, i + CPU_PART),)
+                for i in range(0, parts[0].shape[0], CPU_PART)]
+        given = [None] * len(cuts)
+    elif mode == "matrix" and w.ndim >= 2:
+        absmax = kw.pop("absmax", None)
+        if absmax is None:
+            absmax = torch.linalg.vector_norm(
+                w, float("inf"), dim=(-2, -1)).reshape(-1)
+        r, c = w.shape[-2:]
+        parts = [t.reshape(-1, r, c) for t in (w, g, mu, nu)]
+        rows = max(1, CPU_PART // c)
+        cuts, given = [], []
+        for m in range(parts[0].shape[0]):
+            for i in range(0, r, rows):
+                cuts.append((m, slice(i, i + rows)))
+                given.append(absmax[m:m + 1])
     else:
         return opt_step_ref(w, g, mu, nu, **kw)
-    parts = [t.reshape(view) for t in (w, g, mu, nu)]
-    n = parts[0].shape[0]
-    if n <= step:
+    if len(cuts) == 1 and mode == "none":
         return opt_step_ref(w, g, mu, nu, **kw)
     outs = [torch.empty_like(t) for t in parts[:1] + parts[2:]]
     pen = torch.zeros((), dtype=torch.float64)
-    for i in range(0, n, step):
-        got = opt_step_ref(*(t[i:i + step] for t in parts), **kw)
+    for cut, a in zip(cuts, given):
+        got = opt_step_ref(*(t[cut] for t in parts), **kw,
+                           **({} if a is None else {"absmax": a}))
         for o, x in zip(outs, got[:3]):
-            o[i:i + step] = x
+            o[cut] = x
         pen += got[3].to(torch.float64)
     return tuple(o.reshape(w.shape) for o in outs) + (pen.to(torch.float32),)
 
@@ -100,15 +114,20 @@ def fused_opt_step_leaf(w, g, mu, nu, *, lr, bc1, bc2, clip_scale,
                         b1: float, b2: float, eps: float,
                         weight_decay: float, core: str = "adamw",
                         momentum: float = 0.0, fisher_decay=None,
-                        ok=None) -> Tuple:
+                        ok=None, absmax=None) -> Tuple:
     """One fused (clip + LOTION + AdamW/SGD) step for one leaf.
 
     Returns ``(new_w, new_mu, new_nu, pen)``, ``pen`` the UNSCALED penalty
     (0 for ``lam == 0``).  ``lr``/``bc1``/``bc2``/``clip_scale``/``ok`` are
     floats or 0-d tensors; ``ok`` = 0 leaves w, mu, nu unchanged.
     ``core="sgd"`` uses ``momentum``/``fisher_decay`` and ignores b1, b2,
-    eps, weight_decay and the bias corrections."""
+    eps, weight_decay and the bias corrections.  ``absmax``
+    ((n_matrices,) fp32, per-matrix penalties only) gives each matrix's
+    absmax: a sharded leaf's block steps with its whole matrix's."""
     ok = 1.0 if ok is None else ok
+    if absmax is not None and _mode(lam, block_size) != "matrix":
+        raise ValueError("opt_step: a given absmax is for per-matrix "
+                         f"penalties, got lam={lam} block_size={block_size}")
     for name, t in (("g", g), ("mu", mu), ("nu", nu)):
         if t.shape != w.shape:
             raise ValueError(f"{name} {tuple(t.shape)} must have w's shape "
@@ -124,7 +143,7 @@ def fused_opt_step_leaf(w, g, mu, nu, *, lr, bc1, bc2, clip_scale,
                                block_size=block_size, b1=b1, b2=b2, eps=eps,
                                weight_decay=weight_decay, core=core,
                                momentum=momentum, fisher_decay=fisher_decay,
-                               ok=ok)
+                               ok=ok, absmax=absmax)
     if w.device.type != "cuda":
         raise ValueError(f"opt_step runs on cuda or cpu, got {w.device}")
     _build.check_cuda_inputs("opt_step", w, g, mu, nu)
@@ -145,9 +164,13 @@ def fused_opt_step_leaf(w, g, mu, nu, *, lr, bc1, bc2, clip_scale,
                         momentum=momentum, fisher_decay=fisher_decay)
     amax = ticket = partials = None
     if mode != "none":
-        # the per-matrix |w| bits (mode matrix) and the penalty's ticket
+        # the per-matrix |w| bits (mode matrix; seeded with a given
+        # absmax's) and the penalty's ticket
         zeros = torch.zeros(n // mat_numel + 1 if mode == "matrix" else 1,
                             dtype=torch.int32, device=w.device)
+        if absmax is not None:
+            zeros[:-1] = quant_ops.seeded_absmax("opt_step", absmax,
+                                                 n // mat_numel, w.device)
         amax, ticket = zeros.data_ptr(), zeros[-1].data_ptr()
         partials = torch.empty(p.blocks, dtype=torch.float64, device=w.device)
     fd = 0.0 if fisher_decay is None else float(fisher_decay)

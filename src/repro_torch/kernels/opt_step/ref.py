@@ -23,17 +23,18 @@ def opt_step_ref(w, g, mu, nu, *, lr, bc1, bc2, clip_scale,
                  b1: float, b2: float, eps: float,
                  weight_decay: float, core: str = "adamw",
                  momentum: float = 0.0, fisher_decay=None,
-                 ok=None) -> Tuple:
+                 ok=None, absmax=None) -> Tuple:
     """Returns ``(new_w, new_mu, new_nu, pen)``, new tensors; ``pen`` is the
     UNSCALED penalty (0 when ``lam == 0``).  ``ok`` = 0 returns (w, mu, nu)
-    unchanged, the non-finite skip gate."""
+    unchanged, the non-finite skip gate.  ``absmax`` (per matrix) gives
+    the penalty's scales instead of ``w``'s own absmax."""
     dev = w.device
     lr, bc1, bc2, clip_scale = (scalar(x, dev)
                                 for x in (lr, bc1, bc2, clip_scale))
     g = g * clip_scale
     if lam != 0.0:
         pen, grad = lotion_penalty_and_grad(
-            w, nu, get_format(fmt_name), block_size, lam=lam)
+            w, nu, get_format(fmt_name), block_size, lam=lam, absmax=absmax)
         g = g + grad
     else:
         pen = torch.zeros((), dtype=torch.float32, device=dev)

@@ -114,6 +114,21 @@ def launch_plan(w: torch.Tensor, fmt_name: str, rr: bool = False) -> Plan:
     return plan(w.numel(), matrix_numel(w), _co_resident(w, False, fp4, rr))
 
 
+def seeded_absmax(name: str, absmax: torch.Tensor, n_mats: int,
+                  device) -> torch.Tensor:
+    """The per-matrix |w| bits buffer of a per-matrix launch seeded with a
+    given absmax ((n_mats,) fp32, each matrix's largest |w| over the
+    whole matrix, at least the block's own): the kernel's absmax phase
+    folds the block's maxima into it by atomicMax, which leaves the given
+    value."""
+    if tuple(absmax.shape) != (n_mats,) or absmax.dtype != torch.float32:
+        raise ValueError(f"{name}: absmax must be ({n_mats},) float32, got "
+                         f"{tuple(absmax.shape)} {absmax.dtype}")
+    if absmax.device != device:
+        raise ValueError(f"{name}: absmax on {absmax.device}, w on {device}")
+    return absmax.contiguous().view(torch.int32).clone()
+
+
 def _check_bf16(name: str, rr: bool, fmt, block_size: int) -> None:
     """The bf16 instance is the per-matrix RTN cast on an INT grid."""
     if rr or block_size != -1 or isinstance(fmt, CodebookFormat):
@@ -124,13 +139,17 @@ def _check_bf16(name: str, rr: bool, fmt, block_size: int) -> None:
 
 
 def _launch(name: str, w: torch.Tensor, u: Optional[torch.Tensor],
-            fmt_name: str, block_size: int) -> torch.Tensor:
+            fmt_name: str, block_size: int,
+            absmax: Optional[torch.Tensor] = None) -> torch.Tensor:
     if w.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, got {w.device}")
     if block_size == 0 or block_size < -1:
         raise ValueError(f"block_size must be -1 or positive, got {block_size}")
     fmt = get_format(fmt_name)
     bf16 = w.dtype == torch.bfloat16
+    if absmax is not None and (block_size != -1 or bf16):
+        raise ValueError(f"{name}: a given absmax is for per-matrix fp32 "
+                         f"casts, got block_size={block_size} {w.dtype}")
     if bf16:
         _check_bf16(name, u is not None, fmt, block_size)
         _build.check_cuda_inputs(name, w, dtype=torch.bfloat16)
@@ -148,7 +167,9 @@ def _launch(name: str, w: torch.Tensor, u: Optional[torch.Tensor],
             0, 0, 0)
     else:
         mat_numel, p = matrix_numel(w), launch_plan(w, fmt_name, u is not None)
-        amax = torch.zeros(n // mat_numel, dtype=torch.int32, device=w.device)
+        amax = (torch.zeros(n // mat_numel, dtype=torch.int32, device=w.device)
+                if absmax is None else
+                seeded_absmax(name, absmax, n // mat_numel, w.device))
     err = _build.lib().quant_launch(
         w.data_ptr(), None if u is None else u.data_ptr(), out.data_ptr(),
         None if amax is None else amax.data_ptr(), n, mat_numel, p.chunk,
@@ -159,26 +180,31 @@ def _launch(name: str, w: torch.Tensor, u: Optional[torch.Tensor],
 
 
 def quant_rtn(w: torch.Tensor, fmt_name: str = "int4",
-              block_size: int = 256) -> torch.Tensor:
+              block_size: int = 256,
+              absmax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Round-to-nearest cast of ``w`` (any rank), dequantized, in ``w``'s
-    dtype (fp32, or bf16 for the per-matrix INT cast)."""
+    dtype (fp32, or bf16 for the per-matrix INT cast).  ``absmax``
+    ((n_matrices,) fp32, per-matrix scales only) gives each matrix's
+    absmax: a sharded leaf's block casts with its whole matrix's."""
     if w.device.type == "cpu":
-        return rtn_ref(w, fmt_name, block_size)
-    out = _launch("quant_rtn", w, None, fmt_name, block_size)
+        return rtn_ref(w, fmt_name, block_size, absmax)
+    out = _launch("quant_rtn", w, None, fmt_name, block_size, absmax)
     quant_rtn.launches += 1
     return out
 
 
 def quant_rr(w: torch.Tensor, uniforms: torch.Tensor, fmt_name: str = "int4",
-             block_size: int = 256) -> torch.Tensor:
+             block_size: int = 256,
+             absmax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Randomized-rounding cast of ``w`` against ``uniforms`` (``w``'s
-    shape, in [0, 1)): up where ``u < (w - lo) / (hi - lo)``."""
+    shape, in [0, 1)): up where ``u < (w - lo) / (hi - lo)``; ``absmax``
+    as for :func:`quant_rtn`."""
     if uniforms.shape != w.shape:
         raise ValueError(f"uniforms {tuple(uniforms.shape)} must have w's "
                          f"shape {tuple(w.shape)}")
     if w.device.type == "cpu":
-        return rr_ref(w, uniforms, fmt_name, block_size)
-    out = _launch("quant_rr", w, uniforms, fmt_name, block_size)
+        return rr_ref(w, uniforms, fmt_name, block_size, absmax)
+    out = _launch("quant_rr", w, uniforms, fmt_name, block_size, absmax)
     quant_rr.launches += 1
     return out
 

@@ -23,7 +23,7 @@ must be a multiple of Zamba2's 6-layer unit).
 The flags are those of ``repro.launch.serve``, plus ``--layers`` (cut the
 depth) and ``--device`` (default
 ``cuda``; ``cpu`` runs the kernels' plain versions).  ``--mesh`` is
-refused (the distributed launch is ROADMAP Queue 1 item 8), and there is
+refused (sharded serving is ROADMAP Queue 1 item 8(b)), and there is
 no ``--use-kernel``: the port always runs its kernels on the card.
 """
 
@@ -221,7 +221,7 @@ def main(argv=None):
     if args.mesh:
         raise NotImplementedError(
             "--mesh (sharded serving over several devices) is not ported "
-            "yet: ROADMAP Queue 1 item 8")
+            "yet: ROADMAP Queue 1 item 8(b)")
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:

@@ -1,9 +1,23 @@
-"""Training launcher of the port (``repro.launch.train``, one device):
-LOTION (or a baseline) on an architecture's config with random weights
-from seed 0, AdamW on a cosine schedule, the synthetic Markov stream.
+"""Training launcher of the port (``repro.launch.train``): LOTION (or a
+baseline) on an architecture's config with random weights from seed 0,
+AdamW on a cosine schedule, the synthetic Markov stream.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
         --smoke --device cpu --steps 6 --batch 4 --seq 32 [--ckpt-dir D]
+
+``--mesh DxM`` (or ``PxDxM``) trains sharded on a device mesh of that
+shape, one process per rank: the state is placed by
+``distributed.sharding.state_shardings``, each rank keeps its rows of
+every batch and the step gathers each leaf where the model reads it
+(``train.make_train_step(grad_shardings=)``); checkpoints hold the full
+leaves, one payload per host (the product of the non-``model`` axes).
+Under ``torchrun`` the world size must equal the mesh's size::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.train --arch granite-3-2b --smoke \\
+        --device cpu --mesh 2x1 --steps 4
+
+and ``--mesh 1x1`` needs no ``torchrun``.  Only rank 0 prints.
 
 With ``--ckpt-dir`` the run checkpoints itself every ``steps // 2``
 steps and resumes from the newest valid checkpoint there, so running
@@ -14,9 +28,11 @@ mid-write kill and a corrupted checkpoint, every step audited) and exits
 1 on any audit violation.
 
 The flags are those of ``repro.launch.train``, plus ``--device``
-(default ``cuda``; ``cpu`` runs the kernels' plain versions) and
-``--layers`` (cut the depth).  ``--mesh`` is refused (the distributed
-launch is ROADMAP Queue 1 item 8).
+(default ``cuda``, NCCL on a mesh; ``cpu`` runs the kernels' plain
+versions, gloo on a mesh) and ``--layers`` (cut the depth).  ``--chaos``
+on a mesh of more than one rank is refused (the mesh chaos tier is
+ROADMAP Queue 1 item 8(c)); on a mesh of one rank it runs the one-device
+harness on the rank's device.
 """
 
 from __future__ import annotations
@@ -31,6 +47,10 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.modes import QuantConfig
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.data import DataPipeline, lm_batch, permutation_table
+from repro_torch.distributed.sharding import (state_shardings,
+                                              train_batch_shardings)
+from repro_torch.launch import specs
+from repro_torch.launch.mesh import close_mesh, make_mesh, parse_mesh
 from repro_torch.models.lm import lm_init
 from repro_torch.optim import adamw, cosine_with_warmup
 from repro_torch.train import (TrainConfig, init_state, make_optimizer,
@@ -102,12 +122,18 @@ def main(argv=None):
     if args.chaos and args.microbatches != 1:
         ap.error("--chaos requires --microbatches 1 (the poison scalar "
                  "is per batch)")
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(
-            "--mesh (sharded training over several devices) is not ported "
-            "yet: ROADMAP Queue 1 item 8")
-
-    dev = resolve_device(args.device)
+        shape, axes = parse_mesh(args.mesh)
+        if args.chaos and math.prod(shape) > 1:
+            ap.error("--chaos on a mesh of more than one rank (the host-level "
+                     "chaos tier over several ranks) is ROADMAP Queue 1 item "
+                     "8(c)")
+    if args.mesh and not args.chaos:
+        mesh = make_mesh(shape, axes, args.device)
+        dev = mesh.device
+    else:
+        dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
@@ -149,6 +175,11 @@ def main(argv=None):
             print(f"  VIOLATION: {v}")
         raise SystemExit(0 if chaos_ok(summary) else 1)
 
+    if mesh is not None:
+        try:
+            return train_on_mesh(args, cfg, tcfg, opt, mesh, batch_fn)
+        finally:
+            close_mesh()
     state = init_state(lm_init(cfg, seed=0, device=dev), opt)
     step = make_train_step(cfg, tcfg, opt)
     pipe = DataPipeline(batch_fn, device=dev, prefetch=1)
@@ -165,6 +196,52 @@ def main(argv=None):
     print(f"done: {int(out['state']['step'])} steps on {dev} "
           f"skipped={out['skipped']} rollbacks={out['rollbacks']} "
           f"resumed_from={out['resumed_from']}")
+    return out
+
+
+def mesh_training(cfg, tcfg, opt, mesh, batch_fn, batch: int, seq: int,
+                  seed: int = 0, prefetch: int = 1):
+    """The pieces of a sharded run on ``mesh``: ``(state, train_step,
+    pipeline, state_shardings)``, the state placed from ``seed`` (each
+    rank keeps its blocks of every leaf as it is drawn), the step over
+    the blocks and the pipeline of the rank's rows of ``batch_fn``'s
+    global batches.  ``opt`` is ``make_optimizer(tcfg, ...)``."""
+    state_sh = state_shardings(mesh, specs.state_specs(cfg, tcfg))
+    params_sh = state_sh["params"]
+    state = init_state(lm_init(cfg, seed=seed, device=mesh.device,
+                               shardings=params_sh), opt)
+    step = make_train_step(cfg, tcfg, opt, grad_shardings=params_sh)
+    pipe = DataPipeline(batch_fn, device=mesh.device, prefetch=prefetch,
+                        sharding=train_batch_shardings(
+                            mesh, specs.train_batch_specs(cfg, batch, seq),
+                            batch))
+    return state, step, pipe, state_sh
+
+
+def train_on_mesh(args, cfg, tcfg, opt, mesh, batch_fn, log=print):
+    """The sharded run of ``main`` (``--mesh``): the state placed on
+    ``mesh`` from seed 0, the rank's rows of each batch, the loop's
+    checkpoints from and into the blocks.  Returns ``run_loop``'s
+    result (the state holds this rank's blocks)."""
+    say = log if mesh.rank == 0 else (lambda *a, **k: None)
+    state, step, pipe, state_sh = mesh_training(
+        cfg, tcfg, opt, mesh, batch_fn, args.batch, args.seq)
+    # one payload per host: a host per slice of the non-model axes, as
+    # the JAX launcher counts them
+    n_hosts = math.prod(n for ax, n in mesh.shape.items() if ax != "model")
+    hooks = {}
+    if args.ckpt_dir:
+        hooks = dict(ckpt_dir=args.ckpt_dir,
+                     ckpt_every=max(args.steps // 2, 1), ckpt_shards=n_hosts,
+                     auto_resume=True)
+    try:
+        out = run_loop(step, state, pipe, args.steps, log_every=5, log=say,
+                       shardings=state_sh, **hooks)
+    finally:
+        pipe.close()
+    say(f"done: {int(out['state']['step'])} steps on mesh {mesh.shape} "
+        f"({mesh.backend}, {mesh.device.type}) skipped={out['skipped']} "
+        f"rollbacks={out['rollbacks']} resumed_from={out['resumed_from']}")
     return out
 
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -56,11 +56,21 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return ((x * torch.rsqrt(var + eps)) * scale.to(torch.float32)).to(dt)
 
 
+# lm_init's hook on each parameter leaf as it is finished (the sharded
+# init keeps this rank's block of it); None keeps the leaf whole
+_LEAF_HOOK: Optional[Callable] = None
+
+
+def init_leaf(x: torch.Tensor) -> torch.Tensor:
+    """A finished parameter leaf of an init function, through the hook."""
+    return x if _LEAF_HOOK is None else _LEAF_HOOK(x)
+
+
 def dense_init(gen: torch.Generator, shape, device, scale=None) -> torch.Tensor:
     """Normal(0, 1/sqrt(d_in)) weights of ``shape`` (..., d_in, d_out)."""
     scale = scale if scale is not None else 1.0 / np.sqrt(shape[-2])
-    return torch.randn(shape, generator=gen, device=device,
-                       dtype=torch.float32) * scale
+    return init_leaf(torch.randn(shape, generator=gen, device=device,
+                                 dtype=torch.float32) * scale)
 
 
 # --------------------------------------------------------------------------
@@ -123,8 +133,10 @@ def attn_init(gen: torch.Generator, spec: AttnSpec, device,
         "wo": dense_init(gen, lead + (spec.q_dim, spec.d_model), device),
     }
     if spec.qk_norm:
-        p["q_norm_scale"] = torch.ones(lead + (spec.head_dim,), device=device)
-        p["k_norm_scale"] = torch.ones(lead + (spec.head_dim,), device=device)
+        p["q_norm_scale"] = init_leaf(torch.ones(lead + (spec.head_dim,),
+                                                 device=device))
+        p["k_norm_scale"] = init_leaf(torch.ones(lead + (spec.head_dim,),
+                                                 device=device))
     return p
 
 

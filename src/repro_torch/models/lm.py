@@ -57,11 +57,12 @@ import torch.utils.checkpoint
 from .. import resolve_device
 from ..core.qtensor import QTensor
 from ..core.policy import tree_leaves, tree_map_multi, tree_map_with_path
+from ..distributed.context import constrain, constrain_tree
 from . import layers
 from .layers import (AttnSpec, MLPSpec, MoESpec, attn_apply,
                      attn_chunk_apply, attn_decode, attn_decode_paged,
-                     attn_init, dense_init, matmul, mlp_apply, mlp_init,
-                     moe_apply, moe_init, rms_norm)
+                     attn_init, dense_init, init_leaf, matmul, mlp_apply,
+                     mlp_init, moe_apply, moe_init, rms_norm)
 from .ssm import (Mamba2Spec, RWKV6Spec, mamba2_apply, mamba2_decode,
                   mamba2_init, mamba2_init_state, rwkv6_channel_mix,
                   rwkv6_channel_mix_init, rwkv6_init_state, rwkv6_time_mix,
@@ -181,7 +182,7 @@ def _block_init(gen, cfg: LMConfig, kind: str, device, r: int):
     lead = (r,)
 
     def ones():
-        return torch.ones(lead + (cfg.d_model,), device=device)
+        return init_leaf(torch.ones(lead + (cfg.d_model,), device=device))
 
     p: Dict[str, Any] = {"pre_norm_scale": ones()}
     if kind == "mamba":
@@ -195,7 +196,7 @@ def _block_init(gen, cfg: LMConfig, kind: str, device, r: int):
         return p
     p["attn"] = attn_init(gen, cfg.attn_spec(kind), device, lead)
     if kind == "xattn":
-        p["xattn_gate"] = torch.zeros(lead, device=device)
+        p["xattn_gate"] = init_leaf(torch.zeros(lead, device=device))
     p["ffn_norm_scale"] = ones()
     if cfg.ffn == "moe":
         p["moe"] = moe_init(gen, cfg.moe_spec(), device, lead)
@@ -210,17 +211,28 @@ def _block_init(gen, cfg: LMConfig, kind: str, device, r: int):
     return p
 
 
-def lm_init(cfg: LMConfig, seed: int = 0, device=None) -> Dict[str, Any]:
+def lm_init(cfg: LMConfig, seed: int = 0, device=None,
+            shardings=None) -> Dict[str, Any]:
     """Random fp32 weights with the JAX tree's shapes and init scales,
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``
-    (default ``"cuda"``).  The numbers differ from ``jax.random``'s; tests
-    that compare with JAX move JAX's weights over with ``bridge``."""
+    (default ``"cuda"``; on ``"meta"`` nothing is drawn or allocated: the
+    shapes alone).  The numbers differ from ``jax.random``'s; tests that
+    compare with JAX move JAX's weights over with ``bridge``.
+
+    With ``shardings`` (the parameter tree's ``NamedSharding``s,
+    ``distributed.sharding.params_shardings``) every leaf is drawn whole,
+    in the usual order, and only this rank's block of it is kept before
+    the next draw: a rank holds at most one full leaf beyond its blocks,
+    and its blocks are bitwise those of the one-device init."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    if shardings is not None:
+        return _init_sharded(cfg, seed, device, shardings)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
     params: Dict[str, Any] = {
-        "embed": torch.randn(books + (cfg.vocab, cfg.d_model), generator=gen,
-                             device=device) * 0.02}
+        "embed": init_leaf(torch.randn(books + (cfg.vocab, cfg.d_model),
+                                       generator=gen, device=device) * 0.02)}
     r = cfg.n_repeats
     params["stage"] = {f"b{i}_{kind}": _block_init(gen, cfg, kind, device, r)
                        for i, kind in enumerate(cfg.pattern)}
@@ -228,18 +240,48 @@ def lm_init(cfg: LMConfig, seed: int = 0, device=None) -> Dict[str, Any]:
         # one unstacked block, applied after every unit's blocks
         d = cfg.d_model
         params["shared"] = {
-            "pre_norm_scale": torch.ones((d,), device=device),
+            "pre_norm_scale": init_leaf(torch.ones((d,), device=device)),
             "attn": attn_init(gen, cfg.attn_spec("attn"), device),
-            "ffn_norm_scale": torch.ones((d,), device=device),
+            "ffn_norm_scale": init_leaf(torch.ones((d,), device=device)),
             "mlp": mlp_init(gen, cfg.mlp_spec(), device)}
     if cfg.n_image_tokens:
         params["vision_proj"] = dense_init(gen, (cfg.d_vision, cfg.d_model),
                                            device)
-    params["final_norm_scale"] = torch.ones((cfg.d_model,), device=device)
+    params["final_norm_scale"] = init_leaf(torch.ones((cfg.d_model,),
+                                                      device=device))
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, books + (cfg.d_model, cfg.vocab),
                                        device)
     return params
+
+
+def _init_sharded(cfg: LMConfig, seed: int, device, shardings):
+    """``lm_init`` keeping each leaf's block: a run on the meta device
+    records the order in which the init functions finish the leaves
+    (``layers.init_leaf``), then the real run hands each finished leaf to
+    ``sharding.shard`` with that leaf's sharding."""
+    from ..distributed.sharding import shard, tree_leaves_with_path
+    finished: List[torch.Tensor] = []
+
+    def record(x):
+        finished.append(x)
+        return x
+
+    prev = layers._LEAF_HOOK
+    try:
+        layers._LEAF_HOOK = record
+        meta = lm_init(cfg, seed, "meta")
+        path_of = {id(x): p for p, x in tree_leaves_with_path(meta)}
+        order = [path_of.get(id(x)) for x in finished]
+        if None in order or len(set(order)) != len(path_of):
+            raise AssertionError("lm_init: a parameter leaf was not "
+                                 "finished through layers.init_leaf")
+        sh_of = dict(tree_leaves_with_path(shardings))
+        it = iter(order)
+        layers._LEAF_HOOK = lambda x: shard(x, sh_of[next(it)])
+        return lm_init(cfg, seed, device)
+    finally:
+        layers._LEAF_HOOK = prev
 
 
 def layer_params(stage, r: int):
@@ -269,7 +311,7 @@ def _embed(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings (b, l, d) in the compute dtype; with codebooks,
     tokens (b, l, C) and the sum of the C tables' rows, in codebook order
     (the tables stay dense: the packer converts 2-D embeds only)."""
-    emb = params["embed"]
+    emb = constrain(params["embed"], "embed")
     if cfg.n_codebooks > 1:
         x = emb[0][tokens[..., 0]]
         for c in range(1, cfg.n_codebooks):
@@ -287,8 +329,10 @@ def _embed(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 def _head(params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
     """Logits (b, l, vocab) fp32, or (b, l, C, vocab) with codebooks."""
-    x = rms_norm(x, params["final_norm_scale"])
-    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    x = constrain(x, "head_in")
+    x = rms_norm(x, constrain(params["final_norm_scale"], "final_norm_scale"))
+    w = (constrain(params["embed"], "embed") if cfg.tie_embeddings
+         else constrain(params["lm_head"], "lm_head"))
     if cfg.n_codebooks > 1:
         if isinstance(w, QTensor):
             # JAX's head is an einsum on the dense (C, ...) stack too
@@ -301,7 +345,7 @@ def _head(params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
         logits = matmul(x, w)           # out-major (vocab, d) either way
     else:
         logits = x @ (w.T if cfg.tie_embeddings else w).to(x.dtype)
-    logits = logits.to(torch.float32)
+    logits = constrain(logits.to(torch.float32), "logits")
     if cfg.softcap_final is not None:
         logits = cfg.softcap_final * torch.tanh(logits / cfg.softcap_final)
     return logits
@@ -362,7 +406,8 @@ def image_context(params, cfg: LMConfig,
         raise ValueError(
             f"{cfg.name} cross-attends to {cfg.n_image_tokens} image tokens: "
             f"pass image_embeds (b, {cfg.n_image_tokens}, {cfg.d_vision})")
-    return matmul(image_embeds.to(cfg.dtype), params["vision_proj"])
+    return matmul(image_embeds.to(cfg.dtype),
+                  constrain(params["vision_proj"], "vision_proj"))
 
 
 # ==========================================================================
@@ -423,14 +468,19 @@ def _trunk(params, cfg: LMConfig, tokens: torch.Tensor,
     positions = torch.arange(tokens.shape[1], device=tokens.device)
 
     def unit_body(x, unit_p):
+        # the unit's leaves where they are read (and read again in the
+        # recomputation under remat)
+        unit_p = constrain_tree(unit_p, "stage_params")
         for i, kind in enumerate(cfg.pattern):
             x = _apply_block(unit_p[f"b{i}_{kind}"], cfg, kind, x, positions,
                              attn_chunk, ctx)
         if cfg.shared_attn_every:
-            x = _apply_shared(params["shared"], cfg, x, positions, attn_chunk)
+            x = _apply_shared(constrain_tree(params["shared"], "shared"), cfg,
+                              x, positions, attn_chunk)
         return x
 
     for unit_p in unbind_stage(params["stage"]):
+        x = constrain(x, "residual")
         if cfg.remat and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(unit_body, x, unit_p,
                                                   use_reentrant=False)

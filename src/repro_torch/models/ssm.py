@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .layers import dense_init, rms_norm
+from .layers import dense_init, init_leaf, rms_norm
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -96,14 +96,17 @@ def mamba2_init(gen: torch.Generator, spec: Mamba2Spec, device, lead=()):
     a = torch.arange(1, h + 1, dtype=torch.float32, device=device)
     return {
         "in_proj": dense_init(gen, lead + (spec.d_model, d_in_proj), device),
-        "conv_w": torch.randn(lead + (spec.d_conv, spec.conv_dim),
-                              generator=gen, device=device)
-        / float(np.sqrt(spec.d_conv)),
-        "conv_b": torch.zeros(lead + (spec.conv_dim,), device=device),
-        "a_log": torch.log(a).expand(lead + (h,)).clone(),
-        "dt_bias": torch.log(torch.expm1(dt)),     # softplus^-1(dt)
-        "d_skip": torch.ones(lead + (h,), device=device),
-        "out_norm_scale": torch.ones(lead + (spec.d_inner,), device=device),
+        "conv_w": init_leaf(torch.randn(lead + (spec.d_conv, spec.conv_dim),
+                                        generator=gen, device=device)
+                            / float(np.sqrt(spec.d_conv))),
+        "conv_b": init_leaf(torch.zeros(lead + (spec.conv_dim,),
+                                        device=device)),
+        "a_log": init_leaf(torch.log(a).expand(lead + (h,)).clone()),
+        # softplus^-1(dt)
+        "dt_bias": init_leaf(torch.log(torch.expm1(dt))),
+        "d_skip": init_leaf(torch.ones(lead + (h,), device=device)),
+        "out_norm_scale": init_leaf(torch.ones(lead + (spec.d_inner,),
+                                               device=device)),
         "out_proj": dense_init(gen, lead + (spec.d_inner, spec.d_model),
                                device),
     }
@@ -317,20 +320,21 @@ def rwkv6_time_mix_init(gen: torch.Generator, spec: RWKV6Spec, device,
 
     return {
         # data-dependent token shift (ddlerp): base coefficients + LoRA
-        "mu_base": torch.rand(lead + (5, d), generator=gen, device=device),
-        "mu_lora_a": normal((d, 5 * r), 0.01),
-        "mu_lora_b": normal((5, r, d), 0.01),
+        "mu_base": init_leaf(torch.rand(lead + (5, d), generator=gen,
+                                        device=device)),
+        "mu_lora_a": init_leaf(normal((d, 5 * r), 0.01)),
+        "mu_lora_b": init_leaf(normal((5, r, d), 0.01)),
         "w_r": dense_init(gen, lead + (d, d), device),
         "w_k": dense_init(gen, lead + (d, d), device),
         "w_v": dense_init(gen, lead + (d, d), device),
         "w_g": dense_init(gen, lead + (d, d), device),
         "w_o": dense_init(gen, lead + (d, d), device),
         # data-dependent decay
-        "decay_base": normal((d,), 1.0) - 4.0,
-        "decay_lora_a": normal((d, spec.decay_lora_rank), 0.01),
-        "decay_lora_b": normal((spec.decay_lora_rank, d), 0.01),
-        "bonus": normal((spec.n_heads, spec.head_dim), 0.1),
-        "ln_scale": torch.ones(lead + (d,), device=device),
+        "decay_base": init_leaf(normal((d,), 1.0) - 4.0),
+        "decay_lora_a": init_leaf(normal((d, spec.decay_lora_rank), 0.01)),
+        "decay_lora_b": init_leaf(normal((spec.decay_lora_rank, d), 0.01)),
+        "bonus": init_leaf(normal((spec.n_heads, spec.head_dim), 0.1)),
+        "ln_scale": init_leaf(torch.ones(lead + (d,), device=device)),
     }
 
 
@@ -459,8 +463,10 @@ def rwkv6_channel_mix_init(gen: torch.Generator, d_model: int, d_ff: int,
                            device, lead=()):
     lead = tuple(lead)
     return {
-        "mu_k": torch.rand(lead + (d_model,), generator=gen, device=device),
-        "mu_r": torch.rand(lead + (d_model,), generator=gen, device=device),
+        "mu_k": init_leaf(torch.rand(lead + (d_model,), generator=gen,
+                                     device=device)),
+        "mu_r": init_leaf(torch.rand(lead + (d_model,), generator=gen,
+                                     device=device)),
         "w_k_cm": dense_init(gen, lead + (d_model, d_ff), device),
         "w_v_cm": dense_init(gen, lead + (d_ff, d_model), device),
         "w_r_cm": dense_init(gen, lead + (d_model, d_model), device),

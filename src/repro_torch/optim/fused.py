@@ -19,8 +19,10 @@ from typing import Optional
 
 import torch
 
-from ..core.policy import (QuantPolicy, tree_leaves, tree_map, tree_map_multi,
-                           tree_map_with_path)
+from ..core.policy import (QuantPolicy, path_str, tree_leaves, tree_map,
+                           tree_map_multi, tree_map_with_path)
+from ..distributed import collectives
+from ..distributed.sharding import full_view, leaf_absmax, mesh_of, owns
 from ..kernels.opt_step import fused_opt_step_leaf
 from .clip import clip_scale, global_norm
 from .transform import UpdateTransform
@@ -48,7 +50,11 @@ def _fused_core(kind: str, lr_fn, *, b1: float, b2: float, eps: float,
     def update(grads, state, params=None, **extras):
         if params is None:
             raise ValueError(f"fused_lotion_{kind}_core needs params")
-        norm = global_norm(grads)
+        # on a mesh (``shardings``: the parameters' NamedShardings) the
+        # leaves are blocks: the norm and the penalty sum over every rank,
+        # and each per-matrix penalty takes its whole matrices' absmax
+        shardings = extras.get("shardings")
+        norm = global_norm(grads, shardings)
         # non-finite guard: a non-finite gnorm, or the train step's loss
         # flag, applies no update; the flag rides into the kernel as its
         # ok scalar and count/gnorm/penalty are held here
@@ -70,24 +76,35 @@ def _fused_core(kind: str, lr_fn, *, b1: float, b2: float, eps: float,
             lr = lr * extras["lr_scale"]
         pens = []
 
-        def leaf(path, g, w, m, n):
-            leaf_lam = lam if (lam != 0.0 and policy.eligible(path, w)) else 0.0
+        def leaf(path, g, w, m, n, s=None):
+            leaf_lam = (lam if (lam != 0.0
+                                and policy.eligible(path, full_view(w, s)))
+                        else 0.0)
+            absmax = (leaf_absmax(w, s, block_size, path_str(path))
+                      if leaf_lam != 0.0 else None)
             new_w, new_m, new_n, pen = fused_opt_step_leaf(
                 w, g, m, n, lr=lr, bc1=bc1, bc2=bc2, clip_scale=cscale,
                 lam=leaf_lam, fmt_name=fmt_name, block_size=block_size,
                 b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
                 core=kind, momentum=momentum, fisher_decay=fisher_decay,
-                ok=okf)
-            if leaf_lam != 0.0:
+                ok=okf, absmax=absmax)
+            if leaf_lam != 0.0 and (s is None or owns(s)):
                 pens.append(pen.to(torch.float32))
             return (new_w, new_m, new_n)
 
-        out = tree_map_multi(leaf, grads, params, state["mu"], state["nu"])
+        out = tree_map_multi(leaf, grads, params, state["mu"], state["nu"],
+                             *(() if shardings is None else (shardings,)))
         new_state = {"mu": _pick(out, 1), "nu": _pick(out, 2),
                      "count": torch.where(ok, count, state["count"]),
                      "gnorm": torch.where(ok, norm, state["gnorm"])}
         if lam != 0.0:
-            pen = (lam * torch.sum(torch.stack(pens)) if pens
+            total = torch.sum(torch.stack(pens)) if pens else None
+            if shardings is not None:
+                mesh = mesh_of(shardings)
+                total = collectives.all_reduce(
+                    torch.zeros_like(norm) if total is None else total,
+                    "sum", mesh, mesh.axis_names)
+            pen = (lam * total if total is not None
                    else torch.zeros_like(norm))
             new_state["penalty"] = torch.where(ok, pen, state["penalty"])
         return _pick(out, 0), new_state

@@ -15,7 +15,10 @@ from typing import Optional
 import torch
 
 from ..core.formats import get_format
-from ..core.policy import QuantPolicy, tree_leaves, tree_map, tree_map_multi
+from ..core.policy import (QuantPolicy, path_str, tree_leaves, tree_map,
+                           tree_map_multi)
+from ..distributed import collectives
+from ..distributed.sharding import full_view, leaf_absmax, mesh_of, owns
 from ..kernels.lotion_reg import lotion_penalty_fused_vg
 from .transform import UpdateTransform
 
@@ -34,7 +37,8 @@ def lotion_decoupled(fmt, lam: float, block_size: int = -1,
     def init(params):
         return {"penalty": _zero(params)}
 
-    def update(updates, state, params=None, fisher=None, **_):
+    def update(updates, state, params=None, fisher=None, shardings=None,
+               **_):
         if params is None:
             raise ValueError("lotion_decoupled needs params (chain must "
                              "pass them through)")
@@ -44,17 +48,27 @@ def lotion_decoupled(fmt, lam: float, block_size: int = -1,
             fisher = tree_map(torch.zeros_like, params)
         values = []
 
-        def leaf(path, g, w, f):
-            if not policy.eligible(path, w):
+        def leaf(path, g, w, f, s=None):
+            if not policy.eligible(path, full_view(w, s)):
                 return g
-            value, grad = lotion_penalty_fused_vg(w, f, fmt_name, block_size,
-                                                  lam)
-            values.append(value)
+            value, grad = lotion_penalty_fused_vg(
+                w, f, fmt_name, block_size, lam,
+                leaf_absmax(w, s, block_size, path_str(path)))
+            if s is None or owns(s):
+                values.append(value)
             return g + grad
 
-        new_updates = tree_map_multi(leaf, updates, params, fisher)
-        pen = (lam * torch.sum(torch.stack(values)) if values
-               else _zero(params))
+        new_updates = tree_map_multi(
+            leaf, updates, params, fisher,
+            *(() if shardings is None else (shardings,)))
+        total = torch.sum(torch.stack(values)) if values else None
+        if shardings is not None:
+            # the blocks' penalties over every rank, each counted once
+            mesh = mesh_of(shardings)
+            total = collectives.all_reduce(
+                _zero(params) if total is None else total, "sum", mesh,
+                mesh.axis_names)
+        pen = lam * total if total is not None else _zero(params)
         return new_updates, {"penalty": pen}
 
     return UpdateTransform(init=init, update=update, tag="lotion_decoupled")

@@ -33,6 +33,11 @@ import torch
 from ..core.modes import (PENALTY_PLACEMENTS, QuantConfig, cast_params,
                           forward_params, penalty)
 from ..core.policy import tree_leaves, tree_map
+from ..distributed import collectives
+from ..distributed.context import clear_constraints, set_constraints
+from ..distributed.sharding import (dp_size, gather_at_use, mesh_of,
+                                    unit_shardings)
+from ..launch.mesh import dp_axes
 from ..models.lm import LMConfig, lm_forward
 from ..numerics import div_scalar
 from ..optim import (UpdateTransform, apply_updates, as_transform, chain,
@@ -174,18 +179,29 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(mixed[0]))
 
 
-def make_loss_fn(cfg: LMConfig, tcfg: TrainConfig):
+def make_loss_fn(cfg: LMConfig, tcfg: TrainConfig, shardings=None):
     """``loss_fn(params, batch, fisher, uniforms=None, generator=None) ->
     (loss, aux)``: the CE of the model at ``forward_params`` (RAT's
     uniforms keyed by path, or drawn from ``generator``); under loss-side
     placement the LOTION penalty of the master ``params`` is part of
-    ``loss``."""
+    ``loss``.
+
+    With ``shardings`` (the parameters' NamedShardings: ``params`` are
+    this rank's blocks, ``batch`` its rows) the CE is over the rank's
+    rows, and ``loss`` is the rank's share of the global objective: the
+    CE over the data-parallel size (so that the gradients summed over the
+    data ranks are the global mean's) plus the global penalty;
+    ``aux["ce"]`` stays the rank's own mean."""
     from ..models.lm import lm_loss
 
     loss_side = tcfg.placement == "loss"
+    n_dp = dp_size(mesh_of(shardings)) if shardings is not None else 1
 
     def loss_fn(params, batch, fisher, uniforms=None, generator=None):
-        fwd = forward_params(tcfg.quant, params, uniforms, generator)
+        if cfg.ffn == "moe" and n_dp > 1:
+            _check_moe_groups(cfg, batch["tokens"].shape, n_dp)
+        fwd = forward_params(tcfg.quant, params, uniforms, generator,
+                             shardings)
         ce, ce_ex = lm_loss(fwd, cfg, batch["tokens"], batch["labels"],
                             attn_chunk=tcfg.attn_chunk or None,
                             logit_chunk=tcfg.logit_chunk or None,
@@ -193,12 +209,43 @@ def make_loss_fn(cfg: LMConfig, tcfg: TrainConfig):
                             image_embeds=batch.get("image_embeds"))
         del fwd
         aux = {"ce": ce, "ce_ex": ce_ex}
+        obj = ce if shardings is None else div_scalar(ce, n_dp)
         if loss_side:
-            pen = penalty(tcfg.quant, params, fisher)
+            pen = penalty(tcfg.quant, params, fisher, shardings)
             aux["penalty"] = pen
-            return ce + pen, aux
-        return ce, aux
+            return obj + pen, aux
+        return obj, aux
     return loss_fn
+
+
+def _check_moe_groups(cfg: LMConfig, shape, n_dp: int) -> None:
+    """MoE's capacity dispatch runs over groups of tokens; a rank that
+    computes on its rows must see whole groups of the global batch's, or
+    the capacities (and the dropped tokens) differ."""
+    from ..models.layers import moe_groups
+    b, l = shape[0], shape[1]
+    mine = moe_groups(cfg.moe_spec(), b, l)
+    if mine != moe_groups(cfg.moe_spec(), b * n_dp, l):
+        raise ValueError(
+            f"{cfg.name}: a rank's {b} x {l} tokens are not whole MoE "
+            f"dispatch groups of the global {b * n_dp} x {l} batch (groups "
+            f"of {mine} here); give each data rank a multiple of "
+            f"{cfg.moe_spec().group_size} tokens")
+
+
+def model_constraints(shardings) -> Dict[str, Any]:
+    """The placement roles a sharded step installs for the model
+    (``distributed/context.py``): each leaf gathered where the model reads
+    it (``sharding.gather_at_use``), one unit's stage leaves at a time."""
+    def fns(tree):
+        return tree_map(lambda s: (lambda x: gather_at_use(x, s)), tree)
+
+    roles = {"stage_params": fns(unit_shardings(shardings["stage"]))}
+    for key in ("embed", "lm_head", "final_norm_scale", "vision_proj",
+                "shared"):
+        if key in shardings:
+            roles[key] = fns(shardings[key])
+    return roles
 
 
 def _link_metrics(opt_state, out=None) -> Dict[str, torch.Tensor]:
@@ -232,7 +279,8 @@ def _split(batch: dict, n: int, k: int) -> dict:
 
 def make_train_step(cfg: LMConfig, tcfg: TrainConfig, optimizer,
                     loss_fn: Optional[Callable] = None,
-                    rat_uniforms: Optional[Callable] = None):
+                    rat_uniforms: Optional[Callable] = None,
+                    grad_shardings=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``optimizer`` is anything ``make_optimizer`` accepts; the SAME chain
@@ -244,9 +292,29 @@ def make_train_step(cfg: LMConfig, tcfg: TrainConfig, optimizer,
     parameters and moments are written in place (the returned state holds
     the same tensors); with the unfused chain they are new tensors.  A
     step whose loss, per-example CE or gradient norm is not finite applies
-    no update, decided on the device (``metrics["skipped"]``)."""
+    no update, decided on the device (``metrics["skipped"]``).
+
+    ``grad_shardings`` (the parameters' NamedShardings,
+    ``distributed.sharding.params_shardings``) makes it the sharded step
+    of a mesh: the state holds each leaf's block and ``batch`` the rank's
+    rows (``DataPipeline(sharding=...)``); the model gathers each leaf
+    where it reads it and each gradient comes back to its block, summed
+    over the data ranks; the norm, the penalty and the per-matrix absmax
+    of every ``opt_step``, ``lotion_reg`` and ``quant`` call are global;
+    the skip flag is decided over every rank's rows (a NaN on one rank
+    skips the step on all); loss and aux metrics are means over the data
+    ranks.  ``loss_fn`` then follows ``make_loss_fn(..., shardings=)``'s
+    convention.  On a mesh of one rank the step is bitwise the
+    one-device step."""
     tx = make_optimizer(tcfg, optimizer)
-    loss_fn = loss_fn or make_loss_fn(cfg, tcfg)
+    mesh = mesh_of(grad_shardings)
+    if mesh is not None and tcfg.ef_compress:
+        raise ValueError("EF gradient compression is not ported to a mesh "
+                         "(its int8 blocks of a gradient block): ROADMAP "
+                         "Queue 1 item 8(e)")
+    n_dp = dp_size(mesh) if mesh is not None else 1
+    roles = model_constraints(grad_shardings) if mesh is not None else None
+    loss_fn = loss_fn or make_loss_fn(cfg, tcfg, grad_shardings)
 
     rat = tcfg.quant.method == "rat"
 
@@ -258,9 +326,15 @@ def make_train_step(cfg: LMConfig, tcfg: TrainConfig, optimizer,
         elif rat:
             kw["generator"] = step_generator(
                 tcfg.seed, step, tree_leaves(params)[0].device)
-        loss, aux = loss_fn(p, batch, fisher, **kw)
-        leaves = tree_leaves(p)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        if roles is not None:
+            set_constraints(**roles)
+        try:
+            loss, aux = loss_fn(p, batch, fisher, **kw)
+            leaves = tree_leaves(p)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            if roles is not None:
+                clear_constraints()
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(leaves, grads)]
         aux = {k: v.detach() for k, v in aux.items()}
@@ -291,19 +365,27 @@ def make_train_step(cfg: LMConfig, tcfg: TrainConfig, optimizer,
         else:
             loss, aux, grads = grads_of(params, batch, fisher, step)
             ce_ex = aux.pop("ce_ex", None)
+        if mesh is not None:
+            loss, aux = _global_metrics(aux, mesh, n_dp)
 
-        # on-device skip gate: isfinite(loss) and all per-example CE
+        # on-device skip gate: isfinite(loss) and all per-example CE (on
+        # a mesh: every rank's rows)
         ok_loss = torch.isfinite(loss)
         if ce_ex is not None:
             ok_loss = torch.logical_and(ok_loss,
                                         torch.all(torch.isfinite(ce_ex)))
+        if mesh is not None:
+            ok_loss = collectives.all_reduce(
+                ok_loss.to(torch.int32), "min", mesh,
+                mesh.axis_names).to(torch.bool)
+        extra = {} if mesh is None else {"shardings": grad_shardings}
         updates, new_opt = tx.update(grads, state["opt"], params,
                                      fisher=fisher, step_ok=ok_loss,
-                                     lr_scale=state.get("lr_scale"))
+                                     lr_scale=state.get("lr_scale"), **extra)
         link = _link_metrics(new_opt)
         gnorm = link.get("gnorm")
         if gnorm is None:
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads, grad_shardings)
         del grads
         ok = torch.logical_and(ok_loss, torch.isfinite(gnorm))
 
@@ -328,7 +410,21 @@ def make_train_step(cfg: LMConfig, tcfg: TrainConfig, optimizer,
         return new_state, metrics
 
     train_step.optimizer = tx
+    # (loss, aux, grads) of a step's batch, as the step computes them
+    train_step.grads_of = grads_of
     return train_step
+
+
+def _global_metrics(aux: dict, mesh, n_dp: int):
+    """(loss, aux) of a sharded step over every data rank: each metric's
+    mean over the data ranks (the sum of its shares), the penalty (global
+    already) added to the CE for the loss."""
+    out = {}
+    for k, v in aux.items():
+        out[k] = v if k == "penalty" else collectives.all_reduce(
+            div_scalar(v, n_dp), "sum", mesh, dp_axes(mesh))
+    loss = out["ce"] + out["penalty"] if "penalty" in out else out["ce"]
+    return loss, out
 
 
 # --------------------------------------------------------------------------
@@ -362,6 +458,20 @@ def make_eval_fn(cfg: LMConfig, qcfg: QuantConfig):
 # --------------------------------------------------------------------------
 
 TELEMETRY_WINDOW = 200
+
+
+def newest_valid_step(ckpt_dir: str, mesh=None,
+                      quarantine_corrupt: bool = False) -> Optional[int]:
+    """``checkpoint.io.latest_valid``; on a mesh decided on rank 0 (which
+    alone quarantines) and broadcast, so every rank restores the same
+    step."""
+    from ..checkpoint import io as ckpt_io
+    if mesh is None:
+        return ckpt_io.latest_valid(ckpt_dir,
+                                    quarantine_corrupt=quarantine_corrupt)
+    return collectives.broadcast_object(
+        ckpt_io.latest_valid(ckpt_dir, quarantine_corrupt=quarantine_corrupt)
+        if mesh.rank == 0 else None)
 
 
 def _eval_scalar(ev):
@@ -410,7 +520,8 @@ def run_loop(train_step, state, pipeline, n_steps: int,
              max_rollbacks: int = 4,
              rollback_reorder: bool = True,
              coordinator=None,
-             step_hook: Optional[Callable] = None) -> Dict[str, Any]:
+             step_hook: Optional[Callable] = None,
+             shardings=None) -> Dict[str, Any]:
     """Self-healing loop of ``train_step`` over ``pipeline`` (the JAX
     package's ``run_loop``): telemetry, periodic eval and checkpoints,
     and three recovery tiers.
@@ -443,12 +554,22 @@ def run_loop(train_step, state, pipeline, n_steps: int,
     after every step (the chaos harness's crash seam).  The loss and the
     skip flag come to the host in one read per step.
 
+    On a mesh (``shardings``: the state's NamedShardings, the state this
+    rank's blocks) checkpoints are saved from and loaded into the blocks
+    (``checkpoint.io``), and the newest valid step is decided on rank 0
+    (which alone quarantines) and broadcast; every other decision follows
+    from the step's global metrics, the same on every rank.
+
     Returns ``{"state", "history", "step_times", "skipped", "rollbacks",
     "eval_rollbacks", "data_windows_skipped", "resumed_from"}``."""
     from ..checkpoint import io as ckpt_io
     from ..distributed.coordinator import Coordinator
 
     coord = coordinator if coordinator is not None else Coordinator()
+    mesh = mesh_of(shardings)
+
+    def newest_valid(quarantine_corrupt: bool):
+        return newest_valid_step(ckpt_dir, mesh, quarantine_corrupt)
     spiking = spike_zscore > 0.0
     eval_spiking = eval_spike_zscore > 0.0
     any_spiking = spiking or eval_spiking
@@ -485,11 +606,12 @@ def run_loop(train_step, state, pipeline, n_steps: int,
 
     local_best = None
     if auto_resume:
-        local_best = ckpt_io.latest_valid(ckpt_dir, quarantine_corrupt=True)
+        local_best = newest_valid(True)
         # newest-common-valid election across hosts
         best = coord.elect_checkpoint(local_best)
         if best is not None:
-            state, s = ckpt_io.load(ckpt_dir, into=state, step=best)
+            state, s = ckpt_io.load(ckpt_dir, into=state, step=best,
+                                    shardings=shardings)
             if any_spiking:
                 # a fresh segment starts calm: a crash mid-cooldown must
                 # not pin the reduced LR
@@ -502,9 +624,9 @@ def run_loop(train_step, state, pipeline, n_steps: int,
     # auto-resume scan the directory is unchanged: its answer stands)
     if (ckpt_dir and (ckpt_every or any_spiking)
             and (local_best if auto_resume
-                 else ckpt_io.latest_valid(ckpt_dir)) is None):
+                 else newest_valid(False)) is None):
         ckpt_io.save(ckpt_dir, int(state["step"]), state, keep=ckpt_keep,
-                     n_shards=ckpt_shards)
+                     n_shards=ckpt_shards, shardings=shardings)
 
     history = []
     times = collections.deque(maxlen=TELEMETRY_WINDOW)
@@ -531,8 +653,7 @@ def run_loop(train_step, state, pipeline, n_steps: int,
                 f"spike rollback budget ({max_rollbacks}) exhausted at "
                 f"step {cur} ({origin} trigger={trigger:.4f})",
                 {"step": cur, "loss": trigger, **counters})
-        best = ckpt_io.latest_valid(ckpt_dir, quarantine_corrupt=True)
-        best = coord.elect_checkpoint(best)
+        best = coord.elect_checkpoint(newest_valid(True))
         if best is None:
             raise RollbackBudgetError(
                 f"{origin} spike at step {cur} but no commonly-valid "
@@ -545,7 +666,8 @@ def run_loop(train_step, state, pipeline, n_steps: int,
         seek_to = best + data_lead
         # unanimity before mutating anything
         coord.agree("rollback", (best, seek_to, origin))
-        state, s = ckpt_io.load(ckpt_dir, into=state, step=best)
+        state, s = ckpt_io.load(ckpt_dir, into=state, step=best,
+                                shardings=shardings)
         pipeline.seek(seek_to)
         cur = s
         lr_scale_now *= backoff_scale
@@ -622,7 +744,7 @@ def run_loop(train_step, state, pipeline, n_steps: int,
                    or (eval_monitor is not None and eval_monitor.hot))
             if ckpt_dir and not hot:
                 ckpt_io.save(ckpt_dir, step, state, keep=ckpt_keep,
-                             n_shards=ckpt_shards)
+                             n_shards=ckpt_shards, shardings=shardings)
             if ckpt_hook:
                 ckpt_hook(state)
     return {"state": state, "history": history, "step_times": list(times),

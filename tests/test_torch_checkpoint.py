@@ -16,6 +16,7 @@ gradient norm, 1e-4 for the penalty).
 
 import json
 import os
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -711,3 +712,17 @@ def test_port_fused_checkpoint_layout_matches_jax_fused_layout(tmp_path):
     j_corrupt(path, "bitflip")
     assert not ckpt.verify_dir(path)
     assert ckpt.latest_valid(str(tmp_path), quarantine_corrupt=True) is None
+
+
+@pytest.mark.parametrize("n", [0, 1, 1023, 1024, 1025, 5 * 1024 + 17])
+def test_crc_of_a_leaf_in_runs_is_zlibs(monkeypatch, n):
+    """A leaf's crc32 taken in runs on several threads and joined by
+    ``crc32_combine`` equals zlib's crc32 of the whole, from 0 and from a
+    running value (runs of 1 KiB here, 64 MiB in use)."""
+    monkeypatch.setattr(ckpt_io, "CRC_RUN", 1024)
+    a = np.random.default_rng(n).standard_normal(n // 4 + 1).astype(
+        np.float32)[: n // 4]
+    b = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
+    for x in (a, b, b.reshape(1, -1)):
+        for value in (0, 0x9E3779B9):
+            assert ckpt_io._crc(x, value) == zlib.crc32(x, value)
