@@ -84,7 +84,22 @@ checked:
   fingerprint of its final state bitwise equal to ``train``'s
   (``train_mesh``); two processes sharing the card over gloo, meshes
   (2, 1) and (1, 2), each step against one rank, and a NaN on one
-  rank's rows skipping the step on both (``train_mesh_two_ranks``).
+  rank's rows skipping the step on both (``train_mesh_two_ranks``);
+* sharded serving: the ``serve`` run through the launcher's mesh path
+  (blocks drawn and cast on blocks) on a one-rank NCCL mesh, tokens,
+  last logits and launches equal to ``serve``'s, the W4A8 scheduler on 8
+  layers against one device's on the chaos replay's fault-free clock,
+  and the launcher's ``--chaos`` replay (``serve_mesh``); two processes
+  sharing the card over gloo, meshes (2, 1) and (1, 2), static and
+  scheduler, per-matrix and blockwise scales, against one rank
+  (``serve_mesh_two_ranks``);
+* the dry-run (``launch/dryrun.py``) held to live numbers: the ``train``
+  phase's cell traced on fake tensors, its FLOPs equal to
+  ``FlopCounterMode``'s over one live step and its peak within
+  ``DRYRUN_PEAK_RTOL`` of that step's; its collectives on fake (2, 1)
+  and (1, 2) worlds equal to those ``train_mesh_two_ranks`` issues a
+  step; the roofline rows of Granite-3-2B ``train_4k`` and ``decode_32k``
+  on (16, 16) (``dryrun``).
 
 Each phase prints one JSON line; a failed check raises and the script
 exits non-zero.  The last three lines are the ``kernels`` summary, the
@@ -99,6 +114,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
+import io
 import json
 import math
 import os
@@ -1338,6 +1355,16 @@ def check_opt_step(timer, dev):
 # phase 4: full-width Granite-3-2B served through Engine
 # --------------------------------------------------------------------------
 
+def tensor_sha(t: torch.Tensor) -> str:
+    """SHA-256 of a tensor's bytes (its bits, on the host)."""
+    return hashlib.sha256(t.detach().contiguous().cpu().reshape(-1)
+                          .view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def tokens_sha(rows) -> str:
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()
+
+
 def _prompts(rng, n, lo, hi, vocab):
     return [rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))).tolist()
             for _ in range(n)]
@@ -1381,6 +1408,7 @@ def serve_full_width(dev):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     counts = launch_counts()
+    logits_sha = tensor_sha(eng.last_logits)
 
     per_forward = 7 * cfg.n_layers
     want = dict.fromkeys(counts, 0)
@@ -1416,8 +1444,10 @@ def serve_full_width(dev):
                tok_per_s=len(prompts) * mnt / gen_s,
                weight_storage_mib=param_nbytes(eng.params) / 2 ** 20,
                max_memory_allocated_mib=torch.cuda.max_memory_allocated()
-               / 2 ** 20, first_tokens=[o[:8] for o in outs[:2]])
+               / 2 ** 20, first_tokens=[o[:8] for o in outs[:2]],
+               tokens_sha=tokens_sha(outs), last_logits_sha=logits_sha)
     emit(row)
+    row["tokens"] = outs
     del eng
     torch.cuda.empty_cache()
     return row
@@ -1872,6 +1902,10 @@ def train_full_width(dev, steps=3):
                              generator=torch.Generator(device=dev)
                              .manual_seed(1)))
     counts = launch_counts()
+    # the phase's peak (training and the evals), read before the counted
+    # step resets it for its own
+    peak = torch.cuda.max_memory_allocated()
+    counted = _counted_step(train_step, state, cfg, steps)
     want = dict(counts, opt_step=n_leaves * steps, lotion_reg=0,
                 quant=2 * n_eligible, wqt_matmul=0, decode_attn=0)
     checks = {"after_train_quant": after_train["quant"] == 0,
@@ -1888,7 +1922,7 @@ def train_full_width(dev, steps=3):
                expected_launches=want, fingerprint=fingerprint,
                fingerprint_s=fingerprint_s,
                peak_memory_gib_train=train_peak / 2 ** 30,
-               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               peak_memory_gib=peak / 2 ** 30, counted_step=counted,
                checks=checks)
     emit(row)
     if not all(checks.values()):
@@ -1896,6 +1930,28 @@ def train_full_width(dev, steps=3):
     del state, train_step, eval_fn
     torch.cuda.empty_cache()
     return row
+
+
+def _counted_step(train_step, state, cfg, step):
+    """One more step (batch ``step`` of the stream, after everything the
+    phase checks) under ``FlopCounterMode``, with its device memory peak
+    from ``reset_peak_memory_stats``: what the dry-run's trace of the
+    same cell is held to."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.data import lm_batch, permutation_table
+    batch = {k: v.to(state["step"].device) for k, v in lm_batch(
+        0, step, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab,
+        permutation_table(0, cfg.vocab)).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        train_step(state, batch)
+    torch.cuda.synchronize()
+    return dict(flops=fc.get_total_flops(),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                seconds=time.perf_counter() - t0)
 
 
 def _state_fingerprint(state) -> str:
@@ -2410,10 +2466,21 @@ def _state_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for _, x in _state_leaves(tree))
 
 
-def _ckpt_dir(need: int):
-    """A fresh directory on the local filesystem with the most free space
-    (the checkout's or the temp dir's); raises if it has less than
-    ``need`` bytes free.  Returns (dir, free bytes)."""
+# a RAM-backed filesystem for the checkpoints of the phases that check the
+# harness's logic (train_resume, train_chaos): their disk I/O was most of
+# their time; ckpt_full_width measures the disk and stays on it
+RAM_DIR = "/dev/shm"
+
+
+def _ckpt_dir(need: int, ram: bool = False):
+    """A fresh directory with the most free space: with ``ram`` on
+    ``RAM_DIR`` where it has ``need`` bytes free, else on the local
+    filesystem (the checkout's or the temp dir's); raises if it has less
+    than ``need`` bytes free.  Returns (dir, free bytes)."""
+    if ram and os.path.isdir(RAM_DIR) and \
+            shutil.disk_usage(RAM_DIR).free >= need:
+        return (tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=RAM_DIR),
+                shutil.disk_usage(RAM_DIR).free)
     best = max({ROOT, tempfile.gettempdir()},
                key=lambda d: shutil.disk_usage(d).free)
     free = shutil.disk_usage(best).free
@@ -2584,7 +2651,7 @@ def train_resume(dev, n_layers=1, steps=6, crash_after=3):
         pipe.close()
     calls += step.calls
     nbytes = _state_bytes(ref)
-    d, free = _ckpt_dir(4 * nbytes)
+    d, free = _ckpt_dir(5 * nbytes, ram=True)
     try:
         step, state, pipe = fresh()
         crashed = False
@@ -2652,6 +2719,56 @@ def train_resume(dev, n_layers=1, steps=6, crash_after=3):
     if not all(checks.values()):
         raise AssertionError(f"resume phase failed: {checks}", row)
     return row
+
+
+class _Split:
+    """Seconds spent in named calls (each synchronized with the card at
+    its end), the rest of a run's time as ``other``."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def wrap(self, name, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds[name] = (self.seconds.get(name, 0.0)
+                                      + time.perf_counter() - t0)
+        for attr in ("calls", "optimizer"):
+            if hasattr(fn, attr):
+                setattr(timed, attr, getattr(fn, attr))
+        return timed
+
+    def split(self, total):
+        out = dict(self.seconds)
+        out["other"] = total - sum(self.seconds.values())
+        return out
+
+
+@contextlib.contextmanager
+def _timed_calls():
+    """A chaos run's seconds by what takes them: checkpoint saves, loads
+    and the validity scans that pick the one to resume from, the audits'
+    fingerprints and replica checks; the caller wraps the steps and the
+    state re-inits (``wrap``)."""
+    from repro_torch import distributed
+    from repro_torch.checkpoint import io as ckpt_io
+    split = _Split()
+    targets = [(ckpt_io, "save", "saves"), (ckpt_io, "load", "loads"),
+               (ckpt_io, "latest_valid", "verifies"),
+               (distributed, "tree_fingerprint", "audits"),
+               (distributed, "replica_divergence", "audits")]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in targets]
+    try:
+        for m, n, key in targets:
+            setattr(m, n, split.wrap(key, getattr(m, n)))
+        yield split
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
 
 
 # the chaos phase's peak learning rate: at 3e-3 the random 2-layer model's
@@ -2733,14 +2850,17 @@ def train_chaos(dev, n_layers=1, n_steps=18):
                                          spike_len=3, n_crashes=1)
                 if hosts == 1 else chaos_plan(1, n_steps, hosts))
         step = _counting(train_step)
-        d, _ = _ckpt_dir(5 * nbytes)
+        d, _ = _ckpt_dir(5 * nbytes, ram=True)
         reset_launch_counts()
         t0 = time.perf_counter()
         try:
-            s = tfaults.run_chaos(step, make_state, batch_fn, plan, n_steps,
-                                  d, n_hosts=hosts, ckpt_shards=hosts,
-                                  spike_warmup=4 if hosts == 1 else 6,
-                                  audit_every=CHAOS_AUDIT_EVERY, device=dev)
+            with _timed_calls() as split:
+                s = tfaults.run_chaos(
+                    split.wrap("steps", step), split.wrap(
+                        "reinits", make_state), batch_fn, plan, n_steps, d,
+                    n_hosts=hosts, ckpt_shards=hosts,
+                    spike_warmup=4 if hosts == 1 else 6,
+                    audit_every=CHAOS_AUDIT_EVERY, device=dev)
         except (NonFiniteBudgetError, RollbackBudgetError) as e:
             raise AssertionError(
                 f"chaos run on {hosts} host(s) aborted: {e}",
@@ -2759,6 +2879,8 @@ def train_chaos(dev, n_layers=1, n_steps=18):
             tiers.update(host_kill=s["host_kill_timeouts"] >= 1,
                          straggler=s["straggler_timeouts"] >= 1)
         runs[hosts] = dict(plan=plan.describe(), seconds=seconds,
+                           split_s=split.split(seconds), ckpt_dir_ram=d
+                           .startswith(RAM_DIR),
                            train_steps_run=step.calls, launches=counts,
                            expected_launches=want, tiers=tiers,
                            **{k: s[k] for k in keys})
@@ -2773,7 +2895,7 @@ def train_chaos(dev, n_layers=1, n_steps=18):
                          **_QUIET)["state"]
     finally:
         plain_pipe.close()
-    d, _ = _ckpt_dir(5 * nbytes)
+    d, _ = _ckpt_dir(5 * nbytes, ram=True)
     try:
         s = tfaults.run_chaos(train_step, make_state, batch_fn, None, 8, d,
                               ckpt_every=3, audit_every=CHAOS_AUDIT_EVERY,
@@ -5196,28 +5318,188 @@ def _compute_mode() -> str:
                           text=True, check=True).stdout.strip()
 
 
-def train_mesh_two_ranks(dev):
+def train_mesh_two_ranks(dev, then_serve=False):
     """Two processes share the card over gloo
     (``scripts/mesh_ranks_torch.py``): Granite at full width, 2 layers,
     fp32, 4 x 1024, one step from seeded second moments on meshes (2, 1)
     and (1, 2) under both penalty placements, each held against the same
     step on one rank; a step whose per-example CE is NaN
     on rank 1's rows only is skipped on both ranks.  Each process is
-    joined with a timeout, then killed."""
-    mode = _compute_mode()
-    if mode.startswith("Exclusive"):
+    joined with a timeout, then killed.  With ``then_serve`` the same
+    processes then run ``serve_mesh_two_ranks``' checks for that phase
+    (one start of two processes fewer)."""
+    res, mode, served = _two_ranks("train_mesh_two_ranks",
+                                   "mesh_ranks_torch.py", then_serve)
+    if res is None:
         row = dict(phase="train_mesh_two_ranks", omitted=True,
                    compute_mode=mode)
         emit(row)
         return row
+    row = dict(phase="train_mesh_two_ranks", compute_mode=mode, **res)
+    emit(row)
+    if not res["ok"]:
+        raise AssertionError(f"train_mesh_two_ranks failed: "
+                             f"{res['failed']}", row)
+    row["served"] = served      # for serve_mesh_two_ranks, not printed
+    return row
+
+
+
+# the scheduler half of serve_mesh runs at this depth (40 layers would
+# take about 50 s of the script's time for the two runs; the static half
+# runs all 40)
+SERVE_MESH_SCHED_LAYERS = 8
+# requests of sched's workload generator (16 take about twice as long)
+SERVE_MESH_SCHED_REQUESTS = 8
+SERVE_MESH_KERNELS = ("wqt_matmul", "decode_attn", "wqt_matmul_a8",
+                      "decode_attn_paged")
+
+
+def _sched_virtual(dev, cfg, mesh=None, n_requests=16):
+    """``sched``'s workload on ``cfg`` through the W4A8 scheduler over the
+    paged int8 pool, on the chaos replay's fault-free virtual clock (the
+    ticks, and so the launches, are a function of the workload alone):
+    (outputs, counters, violations, launches, seconds).  On ``mesh``
+    through the launcher's placement."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import serving_params
+    from repro_torch.serve import Scheduler, SchedulerConfig, ServeConfig
+    from repro_torch.serve.replay import replay_chaos
+    params, sh, _ = serving_params(cfg, SCHED_SCFG["weights"], dev,
+                                   mesh=mesh)
+    scfg = dict(SCHED_SCFG, weights="fp32")
+    sch = Scheduler(cfg, params, ServeConfig(max_new_tokens=32, **scfg),
+                    SchedulerConfig(**SCHED_CFG), device=dev, shardings=sh)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = replay_chaos(sch, sched_workload(cfg.vocab, n_requests), plan=None)
+    torch.cuda.synchronize()
+    return dict(outputs=res["outputs"], counters=res["counters"],
+                ticks=res["ticks"], violations=res["violations"],
+                launches=launch_counts(), seconds=time.perf_counter() - t0)
+
+
+def serve_mesh(dev, serve_row=None):
+    """Sharded serving through the launcher's mesh path on a one-rank NCCL
+    mesh: the ``serve`` run (40 layers, int4, int8 KV, batch 8) with its
+    blocks drawn and cast on blocks, tokens, last logits and launches
+    equal to ``serve``'s (run here when ``serve_row`` is not given); the
+    W4A8 scheduler over the paged int8 pool on ``SERVE_MESH_SCHED_LAYERS``
+    layers against one device's on the same virtual clock (tokens,
+    counters and launches equal); the launcher's ``--chaos`` replay on 2
+    layers with no violation."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch.mesh import close_mesh, make_mesh
+    from repro_torch.serve import Engine, ServeConfig
+    if serve_row is None:
+        serve_row = serve_full_width(dev)
+    mnt = 32
+    cfg = granite_cfg()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    try:
+        t0 = time.perf_counter()
+        params, sh, _ = launcher.serving_params(cfg, "rtn:int4", mesh.device,
+                                                mesh=mesh)
+        eng = Engine(cfg, params, ServeConfig(kv_quant="int8",
+                                              max_new_tokens=mnt),
+                     device=mesh.device, shardings=sh)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        prompts = _prompts(np.random.default_rng(0), 8, 64, 128, cfg.vocab)
+        eng.generate(prompts[:2], max_new_tokens=2)           # warm-up
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        static_launches = launch_counts()
+        logits_sha = tensor_sha(eng.last_logits)
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        del eng, params
+        torch.cuda.empty_cache()
+        sched_cfg = granite_cfg(SERVE_MESH_SCHED_LAYERS)
+        sched_mesh = _sched_virtual(mesh.device, sched_cfg, mesh,
+                                    SERVE_MESH_SCHED_REQUESTS)
+    finally:
+        close_mesh()
+    torch.cuda.empty_cache()
+    sched_one = _sched_virtual(dev, sched_cfg, None,
+                               SERVE_MESH_SCHED_REQUESTS)
+    torch.cuda.empty_cache()
+    chaos_log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(chaos_log):
+        chaos = launcher.main([
+            "--arch", "granite-3-2b", "--layers", "2", "--mesh", "1x1",
+            "--chaos", "--weights", "rtn:int4", "--kv-quant", "int8",
+            "--act-fmt", "int8", "--n-requests", "16", "--n-slots", "4",
+            "--prompt-len", "48", "--new-tokens", "8"])
+    chaos_s = time.perf_counter() - t0
+    checks = {
+        "tokens_equal_serve": outs == serve_row["tokens"],
+        "last_logits_bitwise": logits_sha == serve_row["last_logits_sha"],
+        "static_launches_equal": static_launches == serve_row["launches"],
+        "sched_tokens_bitwise": sched_mesh["outputs"] == sched_one["outputs"],
+        "sched_counters_equal": sched_mesh["counters"]
+        == sched_one["counters"],
+        "sched_launches_equal": sched_mesh["launches"]
+        == sched_one["launches"],
+        "sched_no_violations": sched_mesh["violations"]
+        == sched_one["violations"] == [],
+        "chaos_no_violations": chaos["violations"] == []}
+    launches = {k: static_launches[k] + sched_mesh["launches"][k]
+                for k in SERVE_MESH_KERNELS}
+    row = dict(phase="serve_mesh", model=cfg.name, mesh="(1, 1)",
+               backend="nccl", n_layers=cfg.n_layers, weights="rtn:int4",
+               kv_quant="int8", batch=len(prompts), max_new_tokens=mnt,
+               setup_s=setup_s, generate_s=gen_s, prefill_ms=prefill_s * 1e3,
+               decode_ms_per_step=(gen_s - prefill_s) * 1e3 / (mnt - 1),
+               serve_decode_ms_per_step=serve_row["decode_ms_per_step"],
+               serve_prefill_ms=serve_row["prefill_ms"],
+               static_launches=static_launches,
+               sched_n_layers=sched_cfg.n_layers,
+               sched_ticks=sched_mesh["ticks"],
+               sched_launches=sched_mesh["launches"],
+               sched_one_device_launches=sched_one["launches"],
+               sched_s=sched_mesh["seconds"],
+               sched_one_device_s=sched_one["seconds"],
+               chaos_by_state=chaos["by_state"], chaos_ticks=chaos["ticks"],
+               chaos_s=chaos_s, launches=launches,
+               seconds=time.perf_counter() - t_phase, checks=checks)
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"serve_mesh failed its checks: {checks}", row)
+    return row
+
+
+def _two_ranks(phase, script, then_serve=False):
+    """Two processes of ``scripts/<script>`` sharing the card over gloo,
+    each joined with a timeout, then killed; returns (rank 0's JSON
+    result with the seconds it took, the compute mode, the serving
+    checks' result), or (None, mode, None) where the card's compute mode
+    refuses a second process.  With ``then_serve`` the processes go on
+    to ``serve_mesh_two_ranks``' checks."""
+    mode = _compute_mode()
+    if mode.startswith("Exclusive"):
+        return None, mode, None
     tmp = tempfile.mkdtemp(prefix="mesh_ranks_")
     out = os.path.join(tmp, "result.json")
+    serve_out = os.path.join(tmp, "serve.json")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    script = os.path.join(ROOT, "scripts", "mesh_ranks_torch.py")
+    path = os.path.join(ROOT, "scripts", script)
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
-        [sys.executable, script, os.path.join(tmp, "store"), str(r), "2",
-         out], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        [sys.executable, path, os.path.join(tmp, "store"), str(r), "2",
+         out] + ([serve_out] if then_serve else []), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(2)]
     logs = []
     try:
@@ -5232,20 +5514,224 @@ def train_mesh_two_ranks(dev):
     codes = [p.returncode for p in procs]
     if any(codes) or not os.path.exists(out):
         shutil.rmtree(tmp, ignore_errors=True)
-        raise AssertionError(f"two-rank processes failed {codes}:\n"
+        raise AssertionError(f"{phase}: rank processes failed {codes}:\n"
                              + "\n".join(x[-3000:] for x in logs),
-                             dict(codes=codes))
+                             dict(phase=phase, codes=codes,
+                                  error=logs[0][-2000:]))
     with open(out) as f:
         res = json.load(f)
+    served = None
+    if then_serve:
+        with open(serve_out) as f:
+            served = json.load(f)
     shutil.rmtree(tmp, ignore_errors=True)
-    row = dict(phase="train_mesh_two_ranks", seconds=seconds,
-               compute_mode=mode, **res)
+    res["seconds"] = seconds
+    return res, mode, served
+
+
+def serve_mesh_two_ranks(dev, served=None):
+    """Two processes share the card over gloo
+    (``scripts/serve_ranks_torch.py``): Granite at full width, 2 layers,
+    fp32, int4 weights, int8 KV, on meshes (2, 1) and (1, 2), the static
+    engine and the W4A8 scheduler, and on (1, 2) blockwise int4 scales
+    (block 128), each against one rank.  In a whole run the processes
+    of ``train_mesh_two_ranks`` have run these checks already
+    (``served``); alone, this phase starts its own."""
+    res, mode = served, "as train_mesh_two_ranks"
+    if res is None:
+        res, mode, _ = _two_ranks("serve_mesh_two_ranks",
+                                  "serve_ranks_torch.py")
+    if res is None:
+        row = dict(phase="serve_mesh_two_ranks", omitted=True,
+                   compute_mode=mode)
+        emit(row)
+        return row
+    row = dict(phase="serve_mesh_two_ranks", compute_mode=mode, **res)
     emit(row)
     if not res["ok"]:
-        raise AssertionError(f"train_mesh_two_ranks failed: "
+        raise AssertionError(f"serve_mesh_two_ranks failed: "
                              f"{res['failed']}", row)
     return row
 
+
+# the dry-run's peak against the live step's torch.cuda.max_memory_
+# allocated; tightened from readings only
+DRYRUN_PEAK_RTOL = 0.15
+
+
+DRYRUN_CELLS = ("train_phase", "two_ranks", "train_4k", "decode_32k")
+DRYRUN_TIMEOUT_S = 900
+# the phase before which a whole run starts the dry-run's traces: the
+# kernel, serving and scheduler phases before it run on a quiet host, as
+# in earlier runs; the traces (a few minutes of one niced core) end
+# during the training phases, which are bound by the card
+DRYRUN_BESIDE_FROM = "train"
+
+
+def start_dryrun_cells(cells=DRYRUN_CELLS):
+    """``scripts/dryrun_cells_torch.py`` on ``cells``, started now in a
+    process of its own: its traces take host time only (fake tensors, no
+    kernel; a context on the card and one element, nothing more), so
+    they run beside the card's phases.  Returns the job for
+    ``dryrun_records``."""
+    tmp = tempfile.mkdtemp(prefix="dryrun_cells_")
+    out = os.path.join(tmp, "cells.jsonl")
+    log = open(os.path.join(tmp, "log.txt"), "w")
+    # one thread, at the lowest priority: the traces take the host's idle
+    # time and leave its cores to the phases
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "scripts",
+                                      "dryrun_cells_torch.py"), out, *cells],
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                 OMP_NUM_THREADS="1"),
+        stdout=log, stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19))
+    return dict(proc=proc, out=out, tmp=tmp, log=log,
+                started=time.perf_counter())
+
+
+def stop_dryrun_cells(job) -> None:
+    if job["proc"].poll() is None:
+        job["proc"].kill()
+        job["proc"].wait()
+    job["log"].close()
+    shutil.rmtree(job["tmp"], ignore_errors=True)
+
+
+def dryrun_records(job):
+    """The job's records, once it has ended: (records, seconds it ran,
+    seconds waited for here)."""
+    t0 = time.perf_counter()
+    try:
+        code = job["proc"].wait(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        code = None
+    waited = time.perf_counter() - t0
+    ran = time.perf_counter() - job["started"]
+    try:
+        if code != 0:
+            job["log"].flush()
+            with open(job["log"].name) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"dry-run cells failed ({code}):\n{tail}",
+                                 dict(phase="dryrun", code=code,
+                                      error=tail))
+        with open(job["out"]) as f:
+            recs = [json.loads(x) for x in f if x.strip()]
+    finally:
+        stop_dryrun_cells(job)
+    return recs, ran, waited
+
+
+def _collectives_vs_live(recs, two_ranks_row):
+    """Each ``two_ranks`` record's traced collectives against the
+    collectives that ``train_mesh_two_ranks``' step issued (same mesh and
+    placement), op by op."""
+    from repro_torch.launch.hlo_analysis import hlo_name
+    live = {(r["mesh"], r["placement"]): {hlo_name(k): v for k, v
+                                          in r["issued"].items()}
+            for r in two_ranks_row["runs"]}
+    rows = [dict(mesh=r["mesh"], placement=r["placement"],
+                 traced=r["collectives"]["per_op"],
+                 live=live.get((r["mesh"], r["placement"])),
+                 wire_bytes=r["collectives"]["total_wire_bytes"],
+                 trace_s=r["lower_s"], device=r["device"])
+            for r in recs if r["cell"] == "two_ranks"]
+    return dict(rows=rows, ok=len(rows) == len(live) and all(
+        r["traced"] == r["live"] for r in rows))
+
+
+def dryrun_collectives(dev, two_ranks_row=None):
+    """The collectives ``launch/dryrun.py`` traces for the steps of
+    ``train_mesh_two_ranks`` (its config) on fake (2, 1) and (1, 2)
+    worlds against the collectives that phase's step issued (run here
+    when its row is not given), alone: what a fault planted in the
+    dry-run must fail."""
+    if two_ranks_row is None:
+        two_ranks_row = train_mesh_two_ranks(dev)
+    if two_ranks_row.get("omitted"):
+        return dict(phase="dryrun_collectives", omitted=True)
+    recs, ran, _ = dryrun_records(start_dryrun_cells(("two_ranks",)))
+    row = dict(phase="dryrun_collectives", seconds=ran,
+               collectives=_collectives_vs_live(recs, two_ranks_row),
+               cuda_max_reserved=max(r["cuda_max_reserved"] for r in recs))
+    emit(row)
+    if not row["collectives"]["ok"] or _traces_reach_card(recs):
+        raise AssertionError("dryrun_collectives: the traced collectives "
+                             "differ from the live step's, or the traces "
+                             "reserved memory on the card", row)
+    return row
+
+
+# what the dry-run's process may reserve on the card: the caching
+# allocator's smallest segment, which holds the one real element that
+# torch's fake CUDA tensors make to start a context
+DRYRUN_CARD_BYTES = 2 << 20
+
+
+def _traces_reach_card(recs) -> bool:
+    """Whether the dry-run's process reserved more of the card than the
+    context its fake CUDA tensors start."""
+    return any(r["cuda_max_reserved"] > DRYRUN_CARD_BYTES for r in recs)
+
+
+def dryrun(dev, train_row=None, two_ranks_row=None, job=None):
+    """The port's dry-run held to live numbers on the card, from the cells
+    of ``job`` (``start_dryrun_cells``; started here when not given): the
+    ``train`` phase's cell (40 layers, 4 x 1024, (1, 1)) traced on fake
+    CUDA tensors, its FLOPs equal to ``FlopCounterMode``'s over one live
+    step of that phase (``counted_step``; the step's kernels do no
+    matmul) and its peak within ``DRYRUN_PEAK_RTOL`` of that step's
+    ``max_memory_allocated``; the collectives of ``train_mesh_two_ranks``'
+    steps (``dryrun_collectives``); and the roofline rows of
+    Granite-3-2B ``train_4k`` and ``decode_32k`` on (16, 16)."""
+    from repro_torch.launch import roofline
+    if job is None:
+        job = start_dryrun_cells()
+    try:
+        if train_row is None:
+            train_row = train_full_width(dev)
+        if two_ranks_row is None:
+            two_ranks_row = train_mesh_two_ranks(dev)
+    except BaseException:
+        stop_dryrun_cells(job)
+        raise
+    recs, ran, waited = dryrun_records(job)
+    rec = next(r for r in recs if r["cell"] == "train_phase")
+    live = train_row["counted_step"]
+    peak_rel = (abs(rec["mem"]["peak"] - live["max_memory_allocated"])
+                / live["max_memory_allocated"])
+    coll = (dict(omitted=True) if two_ranks_row.get("omitted")
+            else _collectives_vs_live(recs, two_ranks_row))
+    cells = {r["cell"]: dict(roofline.row(dict(r)),
+                             flops_per_dev=r["flops_per_dev"],
+                             hbm_bytes_per_dev=r["hbm_bytes_per_dev"],
+                             collectives=r["collectives"]["per_op"],
+                             trace_s=r["lower_s"])
+             for r in recs if r["cell"] in ("train_4k", "decode_32k")}
+    checks = {"flops_equal_live": rec["flops_per_dev"] == live["flops"],
+              "peak_within_rtol": peak_rel <= DRYRUN_PEAK_RTOL,
+              "collectives_equal_live": bool(coll.get("ok", True)),
+              "cells_fit": len(cells) == 2 and all(
+                  c["fits"] for c in cells.values()),
+              "traces_off_card": not _traces_reach_card(recs)}
+    row = dict(phase="dryrun", cell="train 40 layers 4 x 1024 (1, 1)",
+               device=rec["device"], trace_s=rec["lower_s"],
+               flops=rec["flops_per_dev"], live_flops=live["flops"],
+               peak=rec["mem"]["peak"],
+               live_peak=live["max_memory_allocated"],
+               peak_rel_err=peak_rel, peak_rtol=DRYRUN_PEAK_RTOL,
+               hbm_bytes=rec["hbm_bytes_per_dev"], opt_fused=rec["opt_fused"],
+               collectives=coll, roofline_16x16=cells,
+               cells_process_s=ran, waited_s=waited,
+               cells_cuda_max_reserved=max(r["cuda_max_reserved"]
+                                           for r in recs),
+               cells_cuda_init_at=next((r["cuda_init_at"] for r in recs
+                                        if r["cuda_init_at"]), None),
+               checks=checks)
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"dryrun failed its checks: {checks}", row)
+    return row
 
 
 def main() -> int:
@@ -5271,6 +5757,7 @@ def main() -> int:
               sources=[os.path.relpath(s, ROOT) for s in _build.sources()]))
 
     timer = Timer(dev)
+    dry_job = None
     phases = {"wqt": lambda: check_wqt(timer, dev),
               "attn": lambda: check_attn(timer, dev),
               "paged": lambda: check_paged(timer, dev),
@@ -5328,18 +5815,32 @@ def main() -> int:
               "train_zoo_card_vs_cpu": lambda: train_zoo_card_vs_cpu(dev),
               "mesh_kernels": lambda: check_mesh_kernels(timer, dev),
               "train_mesh": lambda: train_mesh(dev, out["train"]),
-              "train_mesh_two_ranks": lambda: train_mesh_two_ranks(dev)}
+              "train_mesh_two_ranks": lambda: train_mesh_two_ranks(
+                  dev, then_serve=True),
+              "serve_mesh": lambda: serve_mesh(dev, out["serve"]),
+              "serve_mesh_two_ranks": lambda: serve_mesh_two_ranks(
+                  dev, out["train_mesh_two_ranks"].get("served")),
+              "dryrun": lambda: dryrun(dev, out["train"],
+                                       out["train_mesh_two_ranks"],
+                                       dry_job)}
     out = {}
-    for name, run in phases.items():
-        t0 = time.perf_counter()
-        out[name] = run()
-        emit(dict(phase="timing", of=name, seconds=time.perf_counter() - t0))
-        if name in ("a8", "wq", "layer", "quant", "lotion_reg",
-                    "opt_step", "synth_kernels", "zoo_kernels", "moe_qt3d",
-                    "ssm_kernels", "vision_kernels", "zoo_train_kernels",
-                    "mesh_kernels"):
-            # the timer's flush buffer stays; the checks' inputs go
-            torch.cuda.empty_cache()
+    try:
+        for name, run in phases.items():
+            if name == DRYRUN_BESIDE_FROM:
+                dry_job = start_dryrun_cells()
+            t0 = time.perf_counter()
+            out[name] = run()
+            emit(dict(phase="timing", of=name,
+                      seconds=time.perf_counter() - t0))
+            if name in ("a8", "wq", "layer", "quant", "lotion_reg",
+                        "opt_step", "synth_kernels", "zoo_kernels",
+                        "moe_qt3d", "ssm_kernels", "vision_kernels",
+                        "zoo_train_kernels", "mesh_kernels"):
+                # the timer's flush buffer stays; the checks' inputs go
+                torch.cuda.empty_cache()
+    finally:
+        if dry_job is not None:
+            stop_dryrun_cells(dry_job)
 
     emit({"kernels": kernels_line(out)})
     print(smi, flush=True)
@@ -5556,7 +6057,7 @@ def kernels_line(out):
         **stats(opt, opt4, opt_lib)))
     extra = (zoo_kernel_fields(out), ssm_kernel_fields(out),
              vision_kernel_fields(out), zoo_train_kernel_fields(out),
-             mesh_kernel_fields(out))
+             mesh_kernel_fields(out), serve_mesh_kernel_fields(out))
     for line in lines:
         for fields in extra:
             line.update(fields.get(line["name"], {}))
@@ -5588,6 +6089,25 @@ def mesh_kernel_fields(out):
                 "bound_ms", "bound_by", "bitwise",
                 "matrices_given_above_own")} for r in mine],
             mesh_bitwise=all(r["bitwise"] for r in mine))
+    return fields
+
+
+def serve_mesh_kernel_fields(out):
+    """The serving kernels' launches on the mesh paths: ``serve_mesh``
+    (one NCCL rank: the static run, then the scheduler on 8 layers) and
+    ``serve_mesh_two_ranks`` (two gloo ranks on one card, rank 0's runs
+    summed)."""
+    one, two = out["serve_mesh"], out["serve_mesh_two_ranks"]
+    fields = {}
+    for kernel in SERVE_MESH_KERNELS:
+        fields[kernel] = dict(
+            serve_mesh_path="serve_mesh (1, 1) NCCL static 40 layers and "
+                            "scheduler 8 layers; serve_mesh_two_ranks "
+                            "(2, 1) and (1, 2) gloo, 2 layers",
+            serve_mesh_launches=one["launches"][kernel],
+            serve_mesh_two_ranks_launches=(
+                None if two.get("omitted") else
+                sum(r["launches"][kernel] for r in two["runs"])))
     return fields
 
 

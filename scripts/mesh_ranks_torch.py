@@ -2,7 +2,8 @@
 step of Granite-3-2B at full width (2 layers, fp32, TF32 off, batch
 4 x 1024: 2 rows per data rank), held against the same step on one rank.
 
-    PYTHONPATH=src python3 scripts/mesh_ranks_torch.py STORE RANK 2 OUT
+    PYTHONPATH=src python3 scripts/mesh_ranks_torch.py STORE RANK 2 OUT \
+        [SERVE_OUT]
 
 ``chip_smoke.py``'s phase ``train_mesh_two_ranks`` starts both ranks.
 Runs: meshes (2, 1) and (1, 2) under the decoupled and the loss-side
@@ -15,7 +16,11 @@ whose per-example CE is NaN on rank 1's rows only (the loss finite) must
 be skipped on both ranks, the state bitwise unchanged.  Rank 0 writes one
 JSON object to OUT.  ``MESH_RANKS_FAULT`` (a name in
 ``scripts/planted_faults_torch.py::MESH_FAULTS``) plants a fault in both
-ranks.  Needs CUDA.
+ranks.  Each run's row has the collectives its step issued (``issued``,
+by op), which ``chip_smoke.py``'s dry-run phase holds its trace to.
+With SERVE_OUT the ranks then run ``scripts/serve_ranks_torch.py``'s
+checks (``serve_mesh_two_ranks``) and rank 0 writes them there.  Needs
+CUDA.
 """
 
 from __future__ import annotations
@@ -124,13 +129,16 @@ def one_step(dev, placement, method, mesh=None):
                                     tree, psh))
     before = full(state["params"])
     absmax = _absmax(state["params"], psh, qcfg.policy)
+    from repro_torch.distributed import collectives
     _sync(dev)
+    collectives.reset_issued()
     t0 = time.perf_counter()
     state, m = step(state, batch)
     _sync(dev)
     secs = time.perf_counter() - t0
+    issued = collectives.issued()
     metrics = {k: float(v) for k, v in m.items()}
-    return metrics, absmax, before, full(state["params"]), secs
+    return metrics, absmax, before, full(state["params"]), secs, issued
 
 
 def _sync(dev):
@@ -212,7 +220,8 @@ def run(dev, rank):
         mesh = meshes[mesh_name]
         collectives.reset_staged()
         reset_launch_counts()
-        m, amax, before, after, secs = one_step(dev, placement, method, mesh)
+        m, amax, before, after, secs, issued = one_step(dev, placement,
+                                                        method, mesh)
         counts, staged = launch_counts(), dict(collectives.STAGED)
         if rank != 0:
             continue
@@ -221,7 +230,7 @@ def run(dev, rank):
             reset_launch_counts()
             refs[key] = one_step(dev, placement, method)
             refs[key] = refs[key] + (launch_counts(),)
-        rm, ramax, rbefore, rafter, rsecs, rcounts = refs[key]
+        rm, ramax, rbefore, rafter, rsecs, _, rcounts = refs[key]
         perr, pleaf = _param_err(after, rafter, rbefore)
         loss_rel = abs(m["loss"] - rm["loss"]) / abs(rm["loss"])
         checks = {
@@ -241,7 +250,7 @@ def run(dev, rank):
                    one_rank_penalty=rm.get("penalty"),
                    param_err=perr, param_err_leaf=pleaf,
                    step_s=secs, one_rank_step_s=rsecs, launches=counts,
-                   staged=staged, checks=checks)
+                   staged=staged, issued=issued, checks=checks)
         rows.append(row)
         if not all(checks.values()):
             failed.append((mesh_name, placement, method,
@@ -261,6 +270,7 @@ def run(dev, rank):
 def main(argv):
     import torch.distributed as dist
     store_path, rank, world, out = argv[:4]
+    serve_out = argv[4] if len(argv) > 4 else None
     rank, world = int(rank), int(world)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -281,6 +291,16 @@ def main(argv):
             with open(out, "w") as f:
                 json.dump(res, f)
         dist.barrier()
+        if serve_out:
+            import scripts.serve_ranks_torch as serving
+            t0 = time.perf_counter()
+            with serving.fault_ctx():
+                sres = serving.run(dev, rank)
+            if rank == 0:
+                sres["seconds_in_process"] = time.perf_counter() - t0
+                with open(serve_out, "w") as f:
+                    json.dump(sres, f)
+            dist.barrier()
     finally:
         dist.destroy_process_group()
 

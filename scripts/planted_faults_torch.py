@@ -158,6 +158,25 @@ fault is planted in both rank processes through ``MESH_RANKS_FAULT``):
 * ``skip_gate_per_rank``         — the skip flag is decided on each rank's
   rows alone.
 
+Sharded serving (phase ``serve_mesh_two_ranks``: two processes share the
+card over gloo, meshes (2, 1) and (1, 2), each run against one rank; the
+fault is planted in both rank processes through ``SERVE_RANKS_FAULT``):
+
+* ``blockwise_scales_not_gathered`` — a QTensor's codes are gathered, its
+  blockwise scales stay the rank's own block (the run with int4 block
+  128 scales);
+* ``int4_codes_gathered_reversed``  — int4 codes cut along their packed
+  in-dim are joined in the reverse rank order.
+
+The dry-run (phase ``dryrun_collectives``: the collectives its trace of
+``train_mesh_two_ranks``' steps issues, against that phase's live
+counts; the fault is planted in the tracing process through
+``DRYRUN_FAULT``):
+
+* ``dryrun_backward_skips_dp_sum`` — ``launch/dryrun.py`` alone installs
+  roles whose backward does no all-reduce over the data axes (the live
+  steps keep theirs; a fault in code both share would move both counts).
+
     python3 scripts/planted_faults_torch.py [--only PHASE[,PHASE...]]
 
 ``--only`` runs just the groups that hold one of the named phases.  Prints one JSON line per run of a phase with its numbers against their
@@ -481,22 +500,6 @@ def _gate_per_rank(orig):
     return all_reduce
 
 
-def _mesh_fault(name):
-    """A fault of the two-rank phase, planted in both rank processes."""
-    @contextlib.contextmanager
-    def ctx():
-        prev = os.environ.get("MESH_RANKS_FAULT")
-        os.environ["MESH_RANKS_FAULT"] = name
-        try:
-            yield
-        finally:
-            if prev is None:
-                os.environ.pop("MESH_RANKS_FAULT")
-            else:
-                os.environ["MESH_RANKS_FAULT"] = prev
-    return ctx
-
-
 def _sharding_patch(name, wrap):
     def ctx():
         from repro_torch.distributed import sharding
@@ -517,6 +520,115 @@ MESH_FAULTS = {
     "own_absmax": _sharding_patch("matrix_absmax", _own_absmax),
     "grads_not_summed_over_data": _sharding_patch("_reduce_dp", _no_dp_sum),
     "skip_gate_per_rank": _collectives_patch("all_reduce", _gate_per_rank),
+}
+
+
+def _codes_only(orig):
+    """gather_qtensor that gathers a QTensor's codes and leaves its
+    (blockwise) scales the rank's own block."""
+    def gather(qt, sh):
+        import dataclasses
+
+        from repro_torch.distributed import sharding
+        return dataclasses.replace(qt, codes=sharding.gather(qt.codes,
+                                                             sh["codes"]))
+    return gather
+
+
+def _codes_reversed(orig):
+    """gather_qtensor that joins int4 codes cut along their packed in-dim
+    in the reverse rank order."""
+    def gather(qt, sh):
+        import dataclasses
+        import math
+
+        from repro_torch.distributed import sharding
+        out = orig(qt, sh)
+        axes = sharding.dim_axes(sh["codes"].spec, qt.codes.ndim)[-1]
+        n = math.prod(sh["codes"].mesh.shape[a] for a in axes)
+        if qt.bits != 4 or n == 1:
+            return out
+        return dataclasses.replace(out, codes=torch.cat(
+            out.codes.chunk(n, dim=-1)[::-1], dim=-1))
+    return gather
+
+
+class _GatherNoDpSum(torch.autograd.Function):
+    """The whole leaf forward; backward the gradient cut to the block,
+    not summed over the data ranks."""
+
+    @staticmethod
+    def forward(ctx, x, sh):
+        from repro_torch.distributed import sharding
+        ctx.sh = sh
+        full = sharding.gather(x, sh)
+        return full.clone() if full is x else full
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.distributed import sharding
+        if not sharding.is_replicated(ctx.sh):
+            g = g[sharding.shard_slices(ctx.sh, tuple(g.shape))].contiguous()
+        return g, None
+
+
+def _roles_without_dp_sum(orig):
+    """``train.loop.model_constraints`` with gathers whose backward does no
+    all-reduce over the data axes, planted in the dry-run's process only
+    (the live steps keep theirs)."""
+    def model_constraints(shardings):
+        from repro_torch.core.policy import tree_map
+        from repro_torch.distributed import sharding
+
+        def fns(tree):
+            return tree_map(lambda s: (lambda x: _GatherNoDpSum.apply(x, s)),
+                            tree)
+        out = {"stage_params": fns(sharding.unit_shardings(
+            shardings["stage"]))}
+        out.update({k: fns(shardings[k]) for k in orig(shardings)
+                    if k != "stage_params"})
+        return out
+    return model_constraints
+
+
+def _env_fault(var, name):
+    """A fault planted in the processes a phase starts, which read its
+    name from the environment variable ``var``."""
+    @contextlib.contextmanager
+    def ctx():
+        prev = os.environ.get(var)
+        os.environ[var] = name
+        try:
+            yield
+        finally:
+            if prev is None:
+                os.environ.pop(var)
+            else:
+                os.environ[var] = prev
+    return ctx
+
+
+def _loop_patch(name, wrap):
+    def ctx():
+        from repro_torch.train import loop
+        return _patched(loop, name, wrap)
+    return ctx
+
+
+# the faults of phase dryrun_collectives, applied inside the process of
+# scripts/dryrun_cells_torch.py, which reads DRYRUN_FAULT
+DRYRUN_FAULTS = {
+    "dryrun_backward_skips_dp_sum": _loop_patch("model_constraints",
+                                                _roles_without_dp_sum),
+}
+
+# the faults of phase serve_mesh_two_ranks, applied inside each rank
+# process
+SERVE_FAULTS = {
+    "blockwise_scales_not_gathered": _sharding_patch("gather_qtensor",
+                                                     _codes_only),
+    "int4_codes_gathered_reversed": _sharding_patch("gather_qtensor",
+                                                    _codes_reversed),
 }
 
 
@@ -643,7 +755,14 @@ def main(argv=None) -> int:
             ("count_wrapped_at_2_31", lambda: _count_wrapped(opt_ops,
                                                              reg_ops))]),
         ([("train_mesh_two_ranks", cs.train_mesh_two_ranks)], [sound] + [
-            (name, _mesh_fault(name)) for name in MESH_FAULTS]),
+            (name, _env_fault("MESH_RANKS_FAULT", name))
+            for name in MESH_FAULTS]),
+        ([("serve_mesh_two_ranks", cs.serve_mesh_two_ranks)], [sound] + [
+            (name, _env_fault("SERVE_RANKS_FAULT", name))
+            for name in SERVE_FAULTS]),
+        ([("dryrun_collectives", cs.dryrun_collectives)], [sound] + [
+            (name, _env_fault("DRYRUN_FAULT", name))
+            for name in DRYRUN_FAULTS]),
     ]
     keys = ("max_rel_diff", "rtol", "penalty_max_rel_diff", "penalty_rtol",
             "late_max_rel_diff", "late_rtol", "rat_micro_rel_diff",
@@ -658,7 +777,7 @@ def main(argv=None) -> int:
             "routing", "dead_rows", "card_vs_cpu", "per_step_err",
             "held_steps", "codeqwen1.5-7b", "gemma3-12b", "zamba2-2.7b",
             "rwkv6-1.6b", "blocks", "cuts", "cross_kv_rel_err", "runs",
-            "nan_gate")
+            "nan_gate", "collectives")
     if only:
         groups = [g for g in groups if only & {name for name, _ in g[0]}]
         if not groups:

@@ -1,14 +1,19 @@
 """Run some phases of a tree's ``chip_smoke.py`` on the card, to compare
 two trees (a parent archive and the working tree) in one call.
 
-    python3 scripts/run_phases_torch.py [--root DIR] PHASE [PHASE ...]
+    python3 scripts/run_phases_torch.py [--root DIR] [--beside-dryrun]
+        PHASE [PHASE ...]
 
 Each PHASE names a module-level function of ``DIR/chip_smoke.py`` (DIR
 defaults to this repository): a ``check_*`` function that takes ``(timer,
 dev)`` gets ``chip_smoke.Timer``, any other ``(dev)``.  The tree's own
 ``src/`` is imported and its kernels built first.  Each phase prints its
 own JSON lines; this script adds one ``{"phase": "timing", ...}`` line per
-phase with the tree's root, and exits 1 if a phase raises.  Needs CUDA.
+phase with the tree's root, and exits 1 if a phase raises.  With
+``--beside-dryrun`` the dry-run's cells are traced in their background
+process (``chip_smoke.start_dryrun_cells``) while the phases run, as in a
+whole ``chip_smoke.py`` run: run the same phases with and without it to
+see what the traces cost the phases' timings.  Needs CUDA.
 """
 
 import argparse
@@ -24,6 +29,7 @@ def main(argv=None) -> int:
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=here)
+    ap.add_argument("--beside-dryrun", action="store_true")
     ap.add_argument("phases", nargs="+")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
@@ -40,8 +46,24 @@ def main(argv=None) -> int:
                           seconds=time.perf_counter() - t0)), flush=True)
     dev = torch.device("cuda")
     timer = cs.Timer(dev)
+    job = cs.start_dryrun_cells() if args.beside_dryrun else None
+    try:
+        failed = _run(cs, args.phases, root, timer, dev)
+    finally:
+        if job is not None:
+            # the traces must still be running when the last phase ends
+            print(json.dumps(dict(
+                phase="dryrun_beside", root=root,
+                running_at_end=job["proc"].poll() is None,
+                seconds=time.perf_counter() - job["started"])), flush=True)
+            cs.stop_dryrun_cells(job)
+    return int(failed)
+
+
+def _run(cs, phases, root, timer, dev) -> bool:
+    import torch
     failed = False
-    for name in args.phases:
+    for name in phases:
         fn = getattr(cs, name)
         t0 = time.perf_counter()
         try:
@@ -56,7 +78,7 @@ def main(argv=None) -> int:
         print(json.dumps(dict(phase="timing", of=name, root=root,
                               seconds=time.perf_counter() - t0)), flush=True)
         torch.cuda.empty_cache()
-    return int(failed)
+    return failed
 
 
 if __name__ == "__main__":

@@ -227,6 +227,11 @@ def _host_array(key: str, x) -> np.ndarray:
                 f"raw |V2 bytes that the JAX package's verify_dir and load "
                 f"do not read back as bfloat16; keep checkpointed leaves "
                 f"fp32 (or cast them) before saving")
+        if x.is_cuda:
+            # through pinned memory (the caching host allocator keeps the
+            # buffer for the next leaf): the copy runs at the link's rate
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            x = host.copy_(x.detach())
         x = x.detach().cpu().numpy()
     a = _contiguous(np.asarray(x))
     if a.dtype.name == "bfloat16" or a.dtype.kind == "V":
@@ -313,6 +318,16 @@ def _crc(a: np.ndarray, value: int = 0) -> int:
     return crc
 
 
+def _write_npy(f, a: np.ndarray) -> None:
+    """The bytes of ``np.lib.format.write_array(f, a)`` for a C-contiguous
+    array whose header fits format 1.0 (any leaf's): the header, then the
+    data in one write (``write_array`` copies a non-file stream's data out
+    in 16 MiB pieces first)."""
+    np.lib.format.write_array_header_1_0(
+        f, np.lib.format.header_data_from_array_1_0(a))
+    f.write(a.reshape(-1).view(np.uint8))
+
+
 def _write_payload(fpath: str, keys: List[str], leaf_of: dict,
                    pool: concurrent.futures.Executor) -> dict:
     """Write ``keys``' leaves into the npz at ``fpath`` as ``np.savez``
@@ -326,7 +341,7 @@ def _write_payload(fpath: str, keys: List[str], leaf_of: dict,
             a = _host_array(key, leaf_of[key])
             crc = pool.submit(_crc, a)
             with zf.open(key + ".npy", "w", force_zip64=True) as f:
-                np.lib.format.write_array(f, a, allow_pickle=False)
+                _write_npy(f, a)
             meta[key] = (str(a.dtype), crc.result())
             del a
     return meta
@@ -466,12 +481,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def _open_payloads(d: str, manifest: dict) -> dict:
-    """shard index -> open npz for every payload shard; raises on any
+    """shard index -> open zip for every payload shard; raises on any
     missing or unreadable shard."""
     handles = {}
     try:
         for i, fname in payload_files(manifest).items():
-            handles[i] = np.load(os.path.join(d, fname))
+            handles[i] = zipfile.ZipFile(os.path.join(d, fname))
     except Exception:
         for h in handles.values():
             h.close()
@@ -479,34 +494,92 @@ def _open_payloads(d: str, manifest: dict) -> dict:
     return handles
 
 
-def _read_leaf(d: str, payloads: dict, key: str, meta: dict) -> np.ndarray:
-    """Leaf ``key`` from its payload shard, in C order; a missing or
-    unreadable entry raises :class:`CorruptCheckpointError`."""
-    payload = payloads.get(int(meta.get("shard", 0)))
-    if payload is None:
+def _member_data(zf: zipfile.ZipFile, name: str):
+    """(shape, dtype, fortran order, offset, bytes, crc32 of the npy
+    header, the zip's crc32 of the member) of the array data of the
+    stored ``.npy`` member ``name``: its local header and its npy header
+    read from the payload file itself."""
+    info = zf.getinfo(name)
+    if info.compress_type != zipfile.ZIP_STORED:
+        raise ValueError(f"{name} is compressed")
+    fp = zf.fp
+    fp.seek(info.header_offset)
+    local = fp.read(30)
+    if local[:4] != b"PK\x03\x04":
+        raise ValueError(f"{name}: no local header")
+    start = (info.header_offset + 30
+             + int.from_bytes(local[26:28], "little")
+             + int.from_bytes(local[28:30], "little"))
+    fp.seek(start)
+    version = np.lib.format.read_magic(fp)
+    shape, fortran, dtype = (np.lib.format.read_array_header_1_0(fp)
+                             if version == (1, 0) else
+                             np.lib.format.read_array_header_2_0(fp))
+    offset = fp.tell()
+    fp.seek(start)
+    head = zlib.crc32(fp.read(offset - start))
+    return (shape, dtype, fortran, offset, info.file_size - (offset - start),
+            head, info.CRC)
+
+
+def _crc_is(a: np.ndarray, value: int, want: int) -> bool:
+    return _crc(a, value) == want
+
+
+def _read_leaf(d: str, payloads: dict, key: str, meta: dict,
+               buf: Optional[list] = None):
+    """(leaf ``key`` in C order, a function that checks the zip's crc32
+    of its member), its data read straight from its payload file: into a
+    fresh array, or into ``buf[0]`` (a uint8 array, replaced by a larger
+    one when it is too small).  A missing or unreadable entry raises
+    :class:`CorruptCheckpointError`."""
+    zf = payloads.get(int(meta.get("shard", 0)))
+    if zf is None:
         raise CorruptCheckpointError(
             f"leaf {key!r} assigned to unknown shard "
             f"{meta.get('shard')!r} in {d}")
     try:
-        a = payload[key]
+        shape, dtype, fortran, offset, size, head, member = _member_data(
+            zf, key + ".npy")
     except KeyError:
         raise CorruptCheckpointError(
             f"manifest leaf {key!r} missing from its payload shard in {d}")
     except Exception as e:
         raise CorruptCheckpointError(
             f"unreadable leaf {key!r} in {d}: {e}") from e
-    return _contiguous(a)
+    n = math.prod(shape) * dtype.itemsize
+    if dtype.hasobject or size != n:
+        raise CorruptCheckpointError(f"unreadable leaf {key!r} in {d}")
+    if buf is None:
+        raw = np.empty(n, np.uint8)
+    else:
+        if buf[0].shape[0] < n:
+            buf[0] = np.empty(n, np.uint8)
+        raw = buf[0][:n]
+    zf.fp.seek(offset)
+    if zf.fp.readinto(raw) != n:
+        raise CorruptCheckpointError(f"leaf {key!r} cut short in {d}")
+    zip_crc = functools.partial(_crc_is, raw, head, member)
+    if fortran:
+        return (np.ascontiguousarray(raw.view(dtype).reshape(shape[::-1]).T),
+                zip_crc)
+    return raw.view(dtype).reshape(shape), zip_crc
 
 
 def _stream(d: str, manifest: dict, payloads: dict, keys: List[str],
-            verify: bool):
+            verify: bool, reuse: bool = False):
     """Yield ``(key, meta, array)`` for ``keys`` in order.  The next leaf
     is read while the previous one's crc32 runs in a second thread, and
-    a leaf is yielded only after its crc32 matched the manifest (with
-    ``verify``; a mismatch raises :class:`CorruptCheckpointError`)."""
+    a leaf is yielded only after its crc32 matched the manifest's (with
+    ``verify``; else the zip's own, over the member's bytes); a mismatch
+    raises :class:`CorruptCheckpointError`.  With ``reuse`` the leaves are
+    read into two buffers in turn, so an array yielded is valid only until
+    the next one is yielded: for leaves that are copied out at once."""
+    bufs = ([np.empty(0, np.uint8)], [np.empty(0, np.uint8)]) if reuse \
+        else (None, None)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         pending = None
-        for key in list(keys) + [None]:
+        for i, key in enumerate(list(keys) + [None]):
             nxt = None
             if key is not None:
                 if key not in manifest["leaves"]:
@@ -516,11 +589,13 @@ def _stream(d: str, manifest: dict, payloads: dict, keys: List[str],
                     raise TypeError(
                         f"checkpoint leaf {key!r} is bfloat16, stored by "
                         f"numpy as raw |V2 bytes: not restorable")
-                a = _read_leaf(d, payloads, key, meta)
-                nxt = (key, meta, a, pool.submit(_crc, a) if verify else None)
+                a, zip_crc = _read_leaf(d, payloads, key, meta, bufs[i % 2])
+                nxt = (key, meta, a, pool.submit(
+                    functools.partial(_crc_is, a, 0, meta["crc32"])
+                    if verify else zip_crc))
             if pending is not None:
-                pkey, pmeta, pa, crc = pending
-                if crc is not None and crc.result() != pmeta["crc32"]:
+                pkey, pmeta, pa, crc_ok = pending
+                if not crc_ok.result():
                     raise CorruptCheckpointError(
                         f"crc mismatch for {pkey!r} — corrupt checkpoint "
                         f"in {d}")
@@ -538,7 +613,8 @@ def verify_dir(d: str) -> bool:
         payloads = _open_payloads(d, manifest)
         try:
             for _, meta, a in _stream(d, manifest, payloads,
-                                      list(manifest["leaves"]), True):
+                                      list(manifest["leaves"]), True,
+                                      reuse=True):
                 if (list(a.shape) != list(meta["shape"])
                         or str(a.dtype) != meta["dtype"]):
                     return False
@@ -646,9 +722,11 @@ def load(ckpt_dir: str, like=None, step: Optional[int] = None,
         refs.update((k, v) for k, v in _paths_and_leaves(lazy)
                     if isinstance(v, _Gathered))
     out = {}
+    keys = [k for k, _ in items]
     try:
-        for key, _, a in _stream(d, manifest, payloads,
-                                 [k for k, _ in items], verify):
+        # leaves copied into ``into`` at once come through reused buffers
+        for key, _, a in _stream(d, manifest, payloads, keys, verify,
+                                 reuse=all(k in dsts for k in keys)):
             ref = refs[key]
             if tuple(a.shape) != tuple(_leaf_shape(ref)):
                 raise ValueError(f"shape mismatch for {key!r}: "

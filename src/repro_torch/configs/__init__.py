@@ -5,12 +5,18 @@ used by the CPU tests (both copied from ``repro.configs``)."""
 from __future__ import annotations
 
 import importlib
+from typing import List
 
 from repro_torch.models.lm import LMConfig
 
 ARCHS = ["granite_3_2b", "gemma2_2b", "codeqwen1p5_7b", "gemma3_12b",
          "musicgen_medium", "dbrx_132b", "moonshot_v1_16b_a3b",
          "zamba2_2p7b", "rwkv6_1p6b", "llama3p2_vision_11b"]
+
+# the dry-run's archs, in the order of the JAX package's registry
+CELL_ARCHS = ["zamba2_2p7b", "dbrx_132b", "moonshot_v1_16b_a3b",
+              "musicgen_medium", "rwkv6_1p6b", "gemma2_2b", "codeqwen1p5_7b",
+              "granite_3_2b", "gemma3_12b", "llama3p2_vision_11b"]
 
 # the cells of the JAX package's dry-run (global batch and length)
 SHAPES = {
@@ -38,3 +44,19 @@ def get_config(arch_id: str) -> LMConfig:
 
 def get_smoke_config(arch_id: str) -> LMConfig:
     return _module(arch_id).smoke_config()
+
+
+def cells(include_skipped: bool = False) -> List[tuple]:
+    """All assigned (arch, shape) cells, in the JAX package's order,
+    excluding long_500k for pure full-attention archs (with
+    ``include_skipped`` those come as (arch, shape, "SKIP"))."""
+    out = []
+    for a in CELL_ARCHS:
+        cfg = get_config(a)
+        for s in SHAPES:
+            if s == "long_500k" and not cfg.sub_quadratic:
+                if include_skipped:
+                    out.append((a, s, "SKIP"))
+                continue
+            out.append((a, s))
+    return out

@@ -242,6 +242,41 @@ def _convertible(last: str, x: torch.Tensor, fmt, block_k: int) -> bool:
     return True
 
 
+def leaf_converter(fmt, block_size: int = -1, mode: str = "rtn",
+                   uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                   generator: Optional[torch.Generator] = None,
+                   store: bool = True):
+    """``leaf(path, x)``: what ``quantize_params`` (``store``) or
+    ``cast_params`` makes of one eligible leaf (RR draws from
+    ``generator`` on each call, so call it on the leaves in tree
+    order)."""
+    from ..kernels.quant import quant_rr, quant_rtn
+    from .modes import leaf_uniforms
+    if mode == "rr":
+        if uniforms is None and generator is None:
+            raise ValueError("RR cast needs uniforms or a generator")
+    elif mode != "rtn":
+        raise ValueError(f"mode {mode!r} not in ('rtn', 'rr')")
+    fmt = get_format(fmt) if isinstance(fmt, str) else fmt
+
+    def rr(path, x):
+        return quant_rr(x, leaf_uniforms(path, x, uniforms, generator),
+                        fmt.name, block_size)
+
+    def leaf(path, x):
+        last = path_str(path).rsplit("/", 1)[-1]
+        if store and _convertible(last, x, fmt, block_size):
+            stored = x if last in _NATURAL_LEAVES else x.transpose(-1, -2)
+            if mode == "rr":
+                stored = rr(path, stored.to(torch.float32).contiguous())
+            return quantize_qtensor(stored, fmt, block_size)
+        if mode == "rr":
+            return rr(path, x)
+        return quant_rtn(x, fmt.name, block_size)
+
+    return leaf
+
+
 def quantize_params(params, fmt, policy: Optional[QuantPolicy] = None,
                     block_size: int = -1, mode: str = "rtn",
                     uniforms: Optional[Dict[str, torch.Tensor]] = None,
@@ -257,33 +292,11 @@ def quantize_params(params, fmt, policy: Optional[QuantPolicy] = None,
     the cast is the identity.  The uniforms of a leaf have the shape the
     cast sees (stored for convertible leaves, as given otherwise): from
     ``uniforms`` (``{path_str: tensor}``) or drawn from ``generator`` leaf
-    by leaf in tree order."""
-    from ..kernels.quant import quant_rr, quant_rtn
-    from .modes import leaf_uniforms
-    if mode == "rr":
-        if uniforms is None and generator is None:
-            raise ValueError("RR cast needs uniforms or a generator")
-    elif mode != "rtn":
-        raise ValueError(f"mode {mode!r} not in ('rtn', 'rr')")
-    fmt = get_format(fmt) if isinstance(fmt, str) else fmt
+    by leaf in tree order.  A tree of blocks on a mesh:
+    ``distributed.sharding.quantize_params_on_blocks``."""
     policy = policy if policy is not None else QuantPolicy()
-
-    def rr(path, x):
-        return quant_rr(x, leaf_uniforms(path, x, uniforms, generator),
-                        fmt.name, block_size)
-
-    def leaf(path, x):
-        last = path_str(path).rsplit("/", 1)[-1]
-        if _convertible(last, x, fmt, block_size):
-            stored = x if last in _NATURAL_LEAVES else x.transpose(-1, -2)
-            if mode == "rr":
-                stored = rr(path, stored.to(torch.float32).contiguous())
-            return quantize_qtensor(stored, fmt, block_size)
-        if mode == "rr":
-            return rr(path, x)
-        return quant_rtn(x, fmt.name, block_size)
-
-    return policy.map_eligible(leaf, params)
+    return policy.map_eligible(
+        leaf_converter(fmt, block_size, mode, uniforms, generator), params)
 
 
 def dequantize_params(params):

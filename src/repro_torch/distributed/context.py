@@ -18,15 +18,37 @@ function per tensor (``sharding.gather_at_use`` bound to the leaf's
 sharding: the full leaf where it is read, its gradient back to the
 rank's block), or for a tree a tree of them.
 
-``set_cost_mode`` / ``scan_unroll`` (XLA's while-loop cost counting)
-come with the dry-run.
+Serving installs the parameter roles only (``sharding.serve_roles``:
+gathers without autograd, a QTensor's codes and scales each by its own
+sharding); ``constraints`` installs roles for a block and puts back what
+was installed before, so that a server nested in another (the
+scheduler's fallback engine) leaves its caller's roles in place.
+
+``set_cost_mode`` / ``scan_unroll`` are JAX's flag and function, kept so
+that code written against either package reads the same: XLA counts a
+while-loop body once, and the JAX dry-run unrolls its scans to count
+every trip.  The port's layer loops are Python loops, traced once per
+trip, so nothing here reads the flag to unroll, and ``scan_unroll``
+only reports what JAX would pass.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict
 
 _CONSTRAINTS: Dict[str, object] = {}
+_COST_MODE: list = [False]
+
+
+def set_cost_mode(on: bool) -> None:
+    """JAX's cost-accounting flag (see the module docstring)."""
+    _COST_MODE[0] = bool(on)
+
+
+def scan_unroll(length: int) -> int:
+    """The ``unroll=`` JAX's model scans take under cost mode."""
+    return length if _COST_MODE[0] else 1
 
 
 def set_constraints(**kwargs) -> None:
@@ -36,6 +58,19 @@ def set_constraints(**kwargs) -> None:
 
 def clear_constraints() -> None:
     _CONSTRAINTS.clear()
+
+
+@contextlib.contextmanager
+def constraints(**kwargs):
+    """``kwargs`` installed for the block; the roles installed before it
+    come back after it."""
+    saved = dict(_CONSTRAINTS)
+    set_constraints(**kwargs)
+    try:
+        yield
+    finally:
+        _CONSTRAINTS.clear()
+        _CONSTRAINTS.update(saved)
 
 
 def constrain(x, role: str):

@@ -229,11 +229,19 @@ def state_shardings(mesh, state_shapes, *, fsdp: bool = True):
     return tree_map_with_path(spec_for, state_shapes)
 
 
+def leaf_sharding(mesh, path, x, *, fsdp: bool = True) -> NamedSharding:
+    """The NamedSharding of one parameter leaf (a QTensor's child by its
+    path ``(..., "codes" | "scales")``): its rule, widened over ``pod``,
+    with the axes that do not divide a dim dropped.  int4 codes are cut
+    on their packed bytes, so a block along the in-dim starts on an even
+    element."""
+    return NamedSharding(mesh, fix_divisibility(
+        mesh, widen_dp(mesh, param_spec(path, x, fsdp=fsdp)), x.shape))
+
+
 def params_shardings(mesh, param_shapes, *, fsdp: bool = True):
     return tree_map_with_path(
-        lambda p, x: NamedSharding(mesh, fix_divisibility(
-            mesh, widen_dp(mesh, param_spec(p, x, fsdp=fsdp)), x.shape)),
-        param_shapes)
+        lambda p, x: leaf_sharding(mesh, p, x, fsdp=fsdp), param_shapes)
 
 
 # --------------------------------------------------------------------------
@@ -535,6 +543,125 @@ def check_whole_blocks(name: str, shape, sh: NamedSharding,
             f"mesh whose cuts hold whole blocks")
 
 
+# --------------------------------------------------------------------------
+# Serving on blocks: QTensors, the roles, the quantization
+# --------------------------------------------------------------------------
+
+def _is_qt_sharding(node) -> bool:
+    """A QTensor's place in a sharding tree: ``{"codes": s, "scales": s}``
+    (``tree_map_with_path`` walks a QTensor as those two children)."""
+    return (isinstance(node, dict) and set(node) == {"codes", "scales"}
+            and all(isinstance(v, NamedSharding) for v in node.values()))
+
+
+def gather_qtensor(qt: QTensor, sh: dict) -> QTensor:
+    """The whole QTensor from every rank's blocks: its codes and its
+    scales, each gathered by its own sharding."""
+    return dataclasses.replace(qt, codes=gather(qt.codes, sh["codes"]),
+                               scales=gather(qt.scales, sh["scales"]))
+
+
+def _gather_fn(sh):
+    if _is_qt_sharding(sh):
+        return lambda q: gather_qtensor(q, sh)
+    return lambda x: gather(x, sh)
+
+
+def _role_fns(tree):
+    """A tree of gathers (no autograd) congruent with a sharding tree, a
+    QTensor's pair of shardings one function."""
+    if isinstance(tree, NamedSharding) or _is_qt_sharding(tree):
+        return _gather_fn(tree)
+    return {k: _role_fns(v) for k, v in tree.items()}
+
+
+# the unstacked leaves the model reads through a role of their own name
+LEAF_ROLES = ("embed", "lm_head", "final_norm_scale", "vision_proj",
+              "shared")
+
+
+def serve_roles(shardings) -> dict:
+    """The roles a server installs (``distributed/context.py``) for a
+    parameter tree of blocks placed by ``shardings``: every leaf gathered
+    whole where the model reads it, one unit's stage leaves at a time."""
+    unit = tree_map_with_path(lambda p, s: NamedSharding(s.mesh, s.spec[1:]),
+                              shardings["stage"])
+    roles = {"stage_params": _role_fns(unit)}
+    for key in LEAF_ROLES:
+        if key in shardings:
+            roles[key] = _role_fns(shardings[key])
+    return roles
+
+
+def quantize_params_on_blocks(params, shardings, fmt, policy=None,
+                              block_size: int = -1, mode: str = "rtn",
+                              uniforms=None, generator=None,
+                              store: bool = True):
+    """``core.quantize_params`` (or with ``store=False`` ``cast_params``)
+    of a tree of blocks: returns ``(blocks, shardings)``, each rank's
+    blocks of the codes and scales the one-device call gives on the whole
+    tree, bitwise, and their shardings.
+
+    Each eligible leaf is gathered whole, converted by the one-device
+    leaf function, cut by its children's shardings and freed before the
+    next, in the one-device order (RR's uniforms are drawn whole, leaf by
+    leaf, from ``generator``): a rank holds its blocks and one whole leaf
+    at a time."""
+    from ..core.policy import QuantPolicy
+    from ..core.qtensor import leaf_converter
+    policy = policy if policy is not None else QuantPolicy()
+    convert = leaf_converter(fmt, block_size, mode, uniforms, generator,
+                             store=store)
+    mesh = mesh_of(shardings)
+
+    def one(path, x, sh):
+        if not policy.eligible(path, full_view(x, sh)):
+            return x, sh
+        full = gather(x, sh)
+        q = convert(path, full)
+        del full
+        if isinstance(q, QTensor):
+            qsh = {"codes": leaf_sharding(mesh, path + ("codes",), q.codes),
+                   "scales": leaf_sharding(mesh, path + ("scales",),
+                                           q.scales)}
+            return dataclasses.replace(
+                q, codes=shard(q.codes, qsh["codes"]),
+                scales=shard(q.scales, qsh["scales"])), qsh
+        return shard(q, sh), sh
+
+    def walk(tree, shs, path=()):
+        if isinstance(tree, dict):
+            out, osh = {}, {}
+            for k, v in tree.items():
+                out[k], osh[k] = walk(v, shs[k], path + (k,))
+            return out, osh
+        return one(path, tree, shs)
+
+    return walk(params, shardings)
+
+
+def rows_sharding(mesh, cfg, batch: int, seq: int):
+    """How a static batch of ``batch`` rows is cut on ``mesh``: the rows
+    over the data axes where ``data_batch_spec`` cuts them, else None
+    (every rank decodes every row).  A MoE config is cut only where each
+    rank's rows are whole dispatch groups of the global batch's, at the
+    prefill's ``seq`` and at a decode step's one token."""
+    if mesh is None:
+        return None
+    spec = data_batch_spec(mesh, batch)
+    if spec[0] is None:
+        return None
+    n = _axsize(mesh, spec[0] if isinstance(spec[0], tuple) else (spec[0],))
+    if cfg.ffn == "moe":
+        from ..models.layers import moe_groups
+        ms = cfg.moe_spec()
+        for length in (seq, 1):
+            if moe_groups(ms, batch // n, length) != moe_groups(
+                    ms, batch, length):
+                return None
+    return NamedSharding(mesh, spec)
+
+
 def sharded_batch(batch: dict, shardings) -> dict:
     """This rank's rows of a global batch."""
     return {k: shard(v, shardings.get(k)) for k, v in batch.items()}
@@ -573,4 +700,6 @@ __all__ = ["P", "NamedSharding", "param_spec", "widen_dp", "fix_divisibility",
            "owns", "local_shape", "shard_slices", "check_whole_blocks",
            "global_shape", "full_view", "leaf_absmax",
            "sharded_batch", "mesh_of", "dp_size", "unit_shardings",
-           "apply_tree", "tree_map_with_path", "tree_leaves_with_path"]
+           "apply_tree", "tree_map_with_path", "tree_leaves_with_path",
+           "leaf_sharding", "gather_qtensor", "serve_roles",
+           "quantize_params_on_blocks", "rows_sharding", "LEAF_ROLES"]

@@ -24,6 +24,19 @@ from typing import List, Optional, Tuple
 
 import torch
 
+
+def is_fake(x: torch.Tensor) -> bool:
+    """``x`` is a fake tensor (``launch/dryrun.py`` traces a step on fake
+    tensors, which hold no data and launch nothing)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(x, FakeTensor)
+
+
+def plain(x: torch.Tensor) -> bool:
+    """Whether a wrapper takes its kernel's plain version for ``x``: a CPU
+    tensor, or a fake one."""
+    return x.device.type == "cpu" or is_fake(x)
+
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import _build
 from .ref import decode_attn_paged_ref, decode_attn_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -187,12 +188,11 @@ def decode_attn(q: torch.Tensor, k_codes: torch.Tensor, k_scale: torch.Tensor,
     _check_kv(q, k_codes, k_scale, v_codes, v_scale, (b, L), bits)
     if tuple(pos.shape) != (b,):
         raise ValueError(f"pos must be ({b},), got {tuple(pos.shape)}")
-    if q.device.type == "cpu":
+    if _build.plain(q):
         return decode_attn_ref(q, k_codes, k_scale, v_codes, v_scale, pos,
                                bits=bits, window=window, softcap=softcap)
     _check_cuda(q, (q, k_codes, k_scale, v_codes, v_scale, pos), window,
                 softcap)
-    from repro_torch.kernels import _build
     lib = _build.lib()
     pos32 = pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -232,13 +232,12 @@ def decode_attn_paged(q: torch.Tensor, k_codes: torch.Tensor,
                          f"{tuple(block_tables.shape)}")
     if tuple(pos.shape) != (b,):
         raise ValueError(f"pos must be ({b},), got {tuple(pos.shape)}")
-    if q.device.type == "cpu":
+    if _build.plain(q):
         return decode_attn_paged_ref(q, k_codes, k_scale, v_codes, v_scale,
                                      block_tables, pos, bits=bits,
                                      window=window, softcap=softcap)
     _check_cuda(q, (q, k_codes, k_scale, v_codes, v_scale, block_tables, pos),
                 window, softcap)
-    from repro_torch.kernels import _build
     lib = _build.lib()
     bps = block_tables.shape[1]
     bt32 = block_tables.to(torch.int32).contiguous()

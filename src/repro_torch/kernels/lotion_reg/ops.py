@@ -149,7 +149,7 @@ def lotion_penalty_fused_vg(w: torch.Tensor, fisher: torch.Tensor,
         raise ValueError("lotion_reg: a given absmax is for per-matrix "
                          f"scales, got block_size={block_size}")
     w, fisher = w.detach(), fisher.detach()
-    if w.device.type == "cpu":
+    if _build.plain(w):
         return reg_ref(w, fisher, fmt_name, block_size, lam, absmax)
     if w.device.type != "cuda":
         raise ValueError(f"lotion_reg runs on cuda or cpu, got {w.device}")

@@ -32,6 +32,9 @@ _CORES = {"adamw": 0, "sgd": 1}
 # matrix at a time took 1.7x as long on a shared 8-core host, a whole
 # full-width leaf about 3x that
 CPU_PART = 1 << 19
+# elements of one part on fake tensors (a dry-run's trace: no data, and
+# the fewer the ops the faster the trace)
+FAKE_PART = 1 << 24
 
 
 def step_scalars(lr, bc1, bc2, clip_scale, ok, device) -> torch.Tensor:
@@ -67,7 +70,8 @@ def launch_plan(w: torch.Tensor, *, lam: float, fmt_name: str,
         _co_resident(w, mode, core, fp4, fisher_decay, momentum))
 
 
-def _plain_in_parts(w, g, mu, nu, mode: str, **kw) -> Tuple:
+def _plain_in_parts(w, g, mu, nu, mode: str, in_place: bool = False,
+                    **kw) -> Tuple:
     """``opt_step_ref`` over parts of the leaf of at most about
     ``CPU_PART`` elements: with per-matrix scales, runs of rows of one
     matrix at a time, each given its matrix's absmax (taken first, in one
@@ -75,11 +79,15 @@ def _plain_in_parts(w, g, mu, nu, mode: str, **kw) -> Tuple:
     elements (blockwise scales take one call).  Every output element
     depends only on its own inputs and its matrix's scale, so w', mu' and
     nu' are those of one call, bit for bit; the penalty is the float64
-    sum of the parts'."""
+    sum of the parts'.  ``in_place`` (a dry-run's fake tensors) writes
+    each part into w, mu and nu, as the kernel does, in parts of
+    ``FAKE_PART`` elements: the trace then holds the kernel's memory and
+    few ops."""
+    part = FAKE_PART if in_place else CPU_PART
     if mode == "none":
         parts = [t.reshape(-1) for t in (w, g, mu, nu)]
-        cuts = [(slice(i, i + CPU_PART),)
-                for i in range(0, parts[0].shape[0], CPU_PART)]
+        cuts = [(slice(i, i + part),)
+                for i in range(0, parts[0].shape[0], part)]
         given = [None] * len(cuts)
     elif mode == "matrix" and w.ndim >= 2:
         absmax = kw.pop("absmax", None)
@@ -88,24 +96,33 @@ def _plain_in_parts(w, g, mu, nu, mode: str, **kw) -> Tuple:
                 w, float("inf"), dim=(-2, -1)).reshape(-1)
         r, c = w.shape[-2:]
         parts = [t.reshape(-1, r, c) for t in (w, g, mu, nu)]
-        rows = max(1, CPU_PART // c)
         cuts, given = [], []
-        for m in range(parts[0].shape[0]):
-            for i in range(0, r, rows):
-                cuts.append((m, slice(i, i + rows)))
-                given.append(absmax[m:m + 1])
+        if in_place:       # whole matrices, as many as fit a part
+            k = max(1, part // (r * c))
+            for m in range(0, parts[0].shape[0], k):
+                cuts.append((slice(m, m + k),))
+                given.append(absmax[m:m + k])
+        else:
+            rows = max(1, part // c)
+            for m in range(parts[0].shape[0]):
+                for i in range(0, r, rows):
+                    cuts.append((m, slice(i, i + rows)))
+                    given.append(absmax[m:m + 1])
     else:
         return opt_step_ref(w, g, mu, nu, **kw)
-    if len(cuts) == 1 and mode == "none":
+    if len(cuts) == 1 and mode == "none" and not in_place:
         return opt_step_ref(w, g, mu, nu, **kw)
-    outs = [torch.empty_like(t) for t in parts[:1] + parts[2:]]
-    pen = torch.zeros((), dtype=torch.float64)
+    outs = (parts[:1] + parts[2:] if in_place else
+            [torch.empty_like(t) for t in parts[:1] + parts[2:]])
+    pen = torch.zeros((), dtype=torch.float64, device=w.device)
     for cut, a in zip(cuts, given):
         got = opt_step_ref(*(t[cut] for t in parts), **kw,
                            **({} if a is None else {"absmax": a}))
         for o, x in zip(outs, got[:3]):
             o[cut] = x
         pen += got[3].to(torch.float64)
+    if in_place:
+        return w, mu, nu, pen.to(torch.float32)
     return tuple(o.reshape(w.shape) for o in outs) + (pen.to(torch.float32),)
 
 
@@ -136,8 +153,9 @@ def fused_opt_step_leaf(w, g, mu, nu, *, lr, bc1, bc2, clip_scale,
         raise ValueError(f"core must be 'adamw' or 'sgd', got {core!r}")
     if lam != 0.0 and (block_size == 0 or block_size < -1):
         raise ValueError(f"block_size must be -1 or positive, got {block_size}")
-    if w.device.type == "cpu":
-        return _plain_in_parts(w, g, mu, nu, _mode(lam, block_size), lr=lr,
+    if _build.plain(w):
+        return _plain_in_parts(w, g, mu, nu, _mode(lam, block_size),
+                               in_place=_build.is_fake(w), lr=lr,
                                bc1=bc1, bc2=bc2, clip_scale=clip_scale,
                                lam=lam, fmt_name=fmt_name,
                                block_size=block_size, b1=b1, b2=b2, eps=eps,

@@ -186,7 +186,7 @@ def quant_rtn(w: torch.Tensor, fmt_name: str = "int4",
     dtype (fp32, or bf16 for the per-matrix INT cast).  ``absmax``
     ((n_matrices,) fp32, per-matrix scales only) gives each matrix's
     absmax: a sharded leaf's block casts with its whole matrix's."""
-    if w.device.type == "cpu":
+    if _build.plain(w):
         return rtn_ref(w, fmt_name, block_size, absmax)
     out = _launch("quant_rtn", w, None, fmt_name, block_size, absmax)
     quant_rtn.launches += 1
@@ -202,7 +202,7 @@ def quant_rr(w: torch.Tensor, uniforms: torch.Tensor, fmt_name: str = "int4",
     if uniforms.shape != w.shape:
         raise ValueError(f"uniforms {tuple(uniforms.shape)} must have w's "
                          f"shape {tuple(w.shape)}")
-    if w.device.type == "cpu":
+    if _build.plain(w):
         return rr_ref(w, uniforms, fmt_name, block_size, absmax)
     out = _launch("quant_rr", w, uniforms, fmt_name, block_size, absmax)
     quant_rr.launches += 1

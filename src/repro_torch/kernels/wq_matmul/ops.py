@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import _build
 from .ref import (quantize_weights_ref, wq_matmul_ref, wqt_matmul_a8_ref,
                   wqt_matmul_a8_x_ref, wqt_matmul_ref)
 
@@ -201,7 +202,6 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 def _launch(name: str, x, codes, scales, block_k: int, bits: int,
             kmajor: bool) -> torch.Tensor:
     """Launch ``wqt_matmul.cu``'s entry point for one layout."""
-    from repro_torch.kernels import _build
     lib = _build.lib()
     M, K = x.shape
     N = codes.shape[1] if kmajor else codes.shape[0]
@@ -236,7 +236,7 @@ def wqt_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     blockwise scales along K.  int4 codes are packed two per byte, the even
     k in the low nibble."""
     M, N, K = _check(x, codes, scales, block_k, bits)
-    if x.device.type == "cpu":
+    if _build.plain(x):
         return wqt_matmul_ref(x, codes, scales, block_k, bits == 4)
     _check_cuda("wqt_matmul", x=x, codes=codes, scales=scales)
     if x.dtype not in _DTYPES:
@@ -340,7 +340,6 @@ def a8_plan(M: int, N: int, K: int, block_k: int, bits: int,
 
 def _launch_a8(name: str, x, xs, codes, scales, block_k: int, bits: int,
                out_dtype: torch.dtype) -> torch.Tensor:
-    from repro_torch.kernels import _build
     lib = _build.lib()
     M, K = x.shape
     N = codes.shape[0]
@@ -376,7 +375,7 @@ def wqt_matmul_a8(xq: torch.Tensor, xs: torch.Tensor, codes: torch.Tensor,
     if tuple(xs.shape) != (M, 1) or xs.dtype != torch.float32:
         raise ValueError(f"xs must be float32 ({M}, 1), got {xs.dtype} "
                          f"{tuple(xs.shape)}")
-    if xq.device.type == "cpu":
+    if _build.plain(xq):
         return wqt_matmul_a8_ref(xq, xs, codes, scales, block_k, bits == 4)
     _check_cuda("wqt_matmul_a8", xq=xq, xs=xs, codes=codes, scales=scales)
     out = _launch_a8("wqt_matmul_a8", xq, xs, codes, scales, block_k, bits,
@@ -399,7 +398,7 @@ def wqt_matmul_a8_x(x: torch.Tensor, codes: torch.Tensor,
     M, N, K = _check(x, codes, scales, block_k, bits)
     if x.dtype not in _DTYPES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if x.device.type == "cpu":
+    if _build.plain(x):
         return wqt_matmul_a8_x_ref(x, codes, scales, block_k, bits == 4)
     _check_cuda("wqt_matmul_a8_x", x=x, codes=codes, scales=scales)
     out = _launch_a8("wqt_matmul_a8_x", x, None, codes, scales, block_k,
@@ -437,7 +436,7 @@ def wq_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
             scales.dtype != torch.float32:
         raise ValueError(f"scales must be float32 {(K // block_k, N)}, got "
                          f"{scales.dtype} {tuple(scales.shape)}")
-    if x.device.type == "cpu":
+    if _build.plain(x):
         return wq_matmul_ref(x, codes, scales, block_k, bits == 4)
     _check_cuda("wq_matmul", x=x, codes=codes, scales=scales)
     if x.dtype not in _DTYPES:

@@ -16,7 +16,12 @@ per-axis groups the collectives use.  ``Mesh(shape, axes)`` without a
 device mesh is an abstract mesh for the rules alone (tests, the specs at
 full size).
 
-``make_production_mesh`` (the dry-run's meshes) comes with the dry-run.
+``make_production_mesh`` gives the dry-run's meshes, JAX's shapes:
+(16, 16) ``(data, model)`` and (2, 16, 16) ``(pod, data, model)``;
+abstract, or with ``live=True`` live in this one process through torch's
+fake process group at the mesh's world size, as rank 0
+(``make_fake_mesh``): its collectives move nothing, and
+``launch/dryrun.py`` traces one rank's step on fake tensors there.
 """
 
 from __future__ import annotations
@@ -131,6 +136,41 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device="cuda", *,
                           tuple(int(s) for s in shape),
                           mesh_dim_names=tuple(axes))
     return Mesh(shape, axes, device_mesh=dm, device=dev, backend=backend)
+
+
+def make_fake_mesh(shape: Sequence[int], axes: Sequence[str],
+                   device=None) -> Mesh:
+    """A live mesh of ``shape`` in this process alone: torch's fake
+    process group (``FakeStore``, backend ``"fake"``) at the mesh's world
+    size, this process as rank 0.  ``device`` is where its tensors live
+    (the dry-run's fake tensors; default the card where there is one)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group exists already: a fake mesh "
+                           "needs a process of its own")
+    size = math.prod(int(s) for s in shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=size)
+    dm = init_device_mesh("cpu", tuple(int(s) for s in shape),
+                          mesh_dim_names=tuple(axes))
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return Mesh(shape, axes, device_mesh=dm, device=torch.device(device),
+                backend="fake")
+
+
+def make_production_mesh(*, multi_pod: bool = False, live: bool = False,
+                         device=None) -> Mesh:
+    """JAX's production meshes: (16, 16) ``(data, model)``, or with
+    ``multi_pod`` (2, 16, 16) ``(pod, data, model)``; abstract, or with
+    ``live`` a fake mesh of this process (``make_fake_mesh``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if live:
+        return make_fake_mesh(shape, axes, device)
+    return Mesh(shape, axes)
 
 
 def close_mesh() -> None:

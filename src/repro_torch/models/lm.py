@@ -732,7 +732,10 @@ def lm_prefill(params, cfg: LMConfig, tokens: torch.Tensor,
     per_layer = {f"b{i}_{kind}": [] for i, kind in enumerate(cfg.pattern)}
     shared = []
     for r in range(cfg.n_repeats):
-        unit_p = layer_params(params["stage"], r)
+        # the roles JAX's prefill applies at the top of its unit body
+        x = constrain(x, "residual")
+        unit_p = constrain_tree(layer_params(params["stage"], r),
+                                "stage_params")
         for i, kind in enumerate(cfg.pattern):
             name = f"b{i}_{kind}"
             p = unit_p[name]
@@ -764,7 +767,7 @@ def lm_prefill(params, cfg: LMConfig, tokens: torch.Tensor,
                 o = xattn_gate(p, x.dtype) * o
             x = _apply_ffn(p, cfg, x, o)
         if cfg.shared_attn_every:
-            sp = params["shared"]
+            sp = constrain_tree(params["shared"], "shared")
             o, (k, v) = attn_apply(sp["attn"], cfg.attn_spec("attn"),
                                    rms_norm(x, sp["pre_norm_scale"]),
                                    positions, chunk=attn_chunk,
@@ -882,7 +885,9 @@ def lm_prefill_chunk(params, cfg: LMConfig, cache, tokens: torch.Tensor,
     positions = start_pos[:, None] + torch.arange(cw, device=dev)[None, :]
     x = _embed(params, cfg, tokens)
     for r in range(cfg.n_repeats):
-        unit_p = layer_params(params["stage"], r)
+        # each leaf whole where it is read (a no-op with nothing installed)
+        unit_p = constrain_tree(layer_params(params["stage"], r),
+                                "stage_params")
         for i, kind in enumerate(cfg.pattern):
             name = f"b{i}_{kind}"
             p = unit_p[name]
@@ -937,7 +942,9 @@ def lm_decode(params, cfg: LMConfig, cache, tokens: torch.Tensor,
                              f"{block_size}")
     x = _embed(params, cfg, tokens)
     for r in range(cfg.n_repeats):
-        unit_p = layer_params(params["stage"], r)
+        # each leaf whole where it is read (a no-op with nothing installed)
+        unit_p = constrain_tree(layer_params(params["stage"], r),
+                                "stage_params")
         for i, kind in enumerate(cfg.pattern):
             name = f"b{i}_{kind}"
             p = unit_p[name]
@@ -975,7 +982,7 @@ def lm_decode(params, cfg: LMConfig, cache, tokens: torch.Tensor,
                                       ck, cv)
             x = _apply_ffn(p, cfg, x, o, token_mask=token_mask)
         if cfg.shared_attn_every:
-            sp, c = params["shared"], cache["shared"]
+            sp, c = constrain_tree(params["shared"], "shared"), cache["shared"]
             o, _, _ = attn_decode(sp["attn"], cfg.attn_spec("attn"),
                                   rms_norm(x, sp["pre_norm_scale"]), pos,
                                   _layer_cache(c["k"], r),

@@ -23,6 +23,15 @@ power of two.
 RR draws come from a generator seeded with ``ServeConfig.seed`` (not
 JAX's bits), or from explicit uniforms keyed by path.  The
 continuous-batching scheduler is ``serve/scheduler.py``.
+
+On a device mesh (``shardings``: the NamedShardings of ``params``, each
+rank's blocks, as ``launch/serve.py --mesh`` places and quantizes them
+with ``distributed.sharding.quantize_params_on_blocks``) the engine keeps
+the blocks and installs ``sharding.serve_roles`` around each generation,
+so the model gathers every leaf whole where it reads it.  The batch is
+cut over the data axes where ``sharding.rows_sharding`` allows (each
+rank decodes its rows of the globally left-padded batch) and the tokens
+are gathered back; otherwise every rank decodes every row.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from ..core import QuantPolicy, cast_params, quantize_params
 from ..core.formats import IntFormat, get_format
 from ..core.qtensor import QTensor, _check_act_fmt, qtensor_act_fmt
 from ..core.policy import tree_map_with_path
+from ..distributed import sharding as shd
+from ..distributed.context import constraints
 from ..models.lm import ATTN_KINDS, LMConfig, lm_decode, lm_prefill
 from .slots import RejectedError, request_problem
 
@@ -177,12 +188,23 @@ def truncate_output(tokens: Sequence[int], mnt: int,
     return out
 
 
+def check_placed(scfg: ServeConfig, shardings, who: str) -> None:
+    """Blocks on a mesh arrive weight-prepared (``weights="fp32"`` keeps
+    them as they are): a cast there would read each block as a leaf."""
+    if shardings is not None and scfg.weights != "fp32":
+        raise ValueError(
+            f"{who} on a mesh takes parameters already cast on their blocks "
+            f"(distributed.sharding.quantize_params_on_blocks) and "
+            f"weights='fp32', got weights={scfg.weights!r}")
+
+
 class Engine:
     def __init__(self, cfg: LMConfig, params, scfg: ServeConfig,
-                 device=None):
+                 device=None, shardings=None):
         refuse_images(cfg, "Engine")
         self.device = resolve_device(device)
         _check_scfg(scfg, self.device)
+        check_placed(scfg, shardings, "Engine")
         # the JAX reference contracts in fp32: keep fp32 matmuls and
         # convolutions out of TF32 on the card
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -191,6 +213,12 @@ class Engine:
         self.scfg = scfg
         self.params = prepare_params(params, scfg, self.device)
         self._mask_pads = attn_only(cfg)
+        self.shardings = shardings
+        self.mesh = shd.mesh_of(shardings)
+        self._roles = (shd.serve_roles(shardings) if shardings is not None
+                       else {})
+        # the last decode step's logits (b, 1, vocab), every row
+        self.last_logits: Optional[torch.Tensor] = None
 
     @torch.inference_mode()
     def generate(self, prompts: Sequence[Sequence[int]],
@@ -217,12 +245,23 @@ class Engine:
             toks[i, max_len - len(p):] = p
         lens = (torch.tensor([len(p) for p in prompts], dtype=torch.int64,
                              device=dev) if self._mask_pads else None)
-        with qtensor_act_fmt(self.scfg.act_fmt):
-            return self._generate(prompts, toks, lens, cache_len, mnt, mnts,
-                                  eoss)
+        rows = shd.rows_sharding(self.mesh, self.cfg, b, max_len)
+        if rows is not None:
+            # this rank's rows of the globally left-padded batch
+            toks = shd.shard(toks, rows)
+            prompts = list(prompts)[shd.shard_slices(rows, (b,))[0]]
+            lens = shd.shard(lens, rows) if lens is not None else None
+        with qtensor_act_fmt(self.scfg.act_fmt), constraints(**self._roles):
+            out = self._generate(prompts, toks, lens, cache_len, mnt)
+        if rows is not None:
+            out = shd.gather(out, rows)
+            self.last_logits = shd.gather(self.last_logits, rows)
+        out = out.cpu().numpy()                           # one transfer
+        return [truncate_output(row.tolist(), m, e)
+                for row, m, e in zip(out, mnts, eoss)]
 
-    def _generate(self, prompts, toks, lens, cache_len: int, mnt: int,
-                  mnts, eoss) -> List[List[int]]:
+    def _generate(self, prompts, toks, lens, cache_len: int,
+                  mnt: int) -> torch.Tensor:
         dev = self.device
         b, max_len = toks.shape
         logits, cache = lm_prefill(self.params, self.cfg,
@@ -246,6 +285,5 @@ class Engine:
                                       tok[:, None].long(), pos)
             tok = sample_token(logits[:, 0], gen, self.scfg.temperature)
             steps.append(tok)
-        out = torch.stack(steps, dim=1).cpu().numpy()  # one transfer
-        return [truncate_output(row.tolist(), m, e)
-                for row, m, e in zip(out, mnts, eoss)]
+        self.last_logits = logits
+        return torch.stack(steps, dim=1)

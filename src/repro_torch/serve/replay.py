@@ -15,6 +15,9 @@ the batch-max token budget), repeat.  Continuous discipline:
 finished requests retire mid-flight.
 
 Used by ``repro_torch.launch.serve --scheduler`` and ``chip_smoke.py``.
+On a device mesh every rank replays the whole stream: each step's wall
+time is the largest rank's, so every rank's clock reads the same, and a
+chaos audit violation on any rank fails the replay on every rank.
 
 The port's copy of ``repro.serve.replay`` (plain Python, no JAX in either),
 kept line for line so that the two packages' bookkeeping stays
@@ -29,6 +32,7 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -139,6 +143,17 @@ def _metrics(latency: Dict[int, float], tokens: Dict[int, List[int]],
     }
 
 
+def _agreed(server, seconds: float) -> float:
+    """A step's wall time as every rank of the server's mesh charges it to
+    the clock: the largest rank's (one collective), so that arrivals,
+    barrier groups and deadlines fall on the same step everywhere."""
+    if getattr(server, "mesh", None) is None:
+        return seconds
+    from ..distributed.collectives import world_gather
+    return float(world_gather(torch.tensor([seconds],
+                                           dtype=torch.float64)).max())
+
+
 def replay_static(engine, workload: List[ReplayRequest],
                   n_slots: int) -> dict:
     """Barrier server: groups of <= n_slots arrived requests, one static
@@ -156,7 +171,7 @@ def replay_static(engine, workload: List[ReplayRequest],
         outs = engine.generate([workload[i].prompt for i in group],
                                max_new_tokens=[workload[i].max_new_tokens
                                                for i in group])
-        dt = time.perf_counter() - t0
+        dt = _agreed(engine, time.perf_counter() - t0)
         # the whole batch completes at the barrier
         clock += dt
         n_launches += 1 + max(w.max_new_tokens
@@ -191,7 +206,7 @@ def replay_continuous(scheduler, workload: List[ReplayRequest]) -> dict:
             clock = max(clock, nxt)
         t0 = time.perf_counter()
         completed = scheduler.step(now=clock)
-        clock += time.perf_counter() - t0
+        clock += _agreed(scheduler, time.perf_counter() - t0)
         stall_ticks.append(scheduler.stall_log[-1])
         for req in completed:
             done_at[rid_of[req.rid]] = clock
@@ -296,6 +311,14 @@ def replay_chaos(scheduler, workload: List[ReplayRequest],
                        for v in check_invariants(scheduler)]
         tick += 1
     violations += [f"drain: {v}" for v in check_drained(scheduler)]
+    if getattr(scheduler, "mesh", None) is not None:
+        # a violation on any rank fails the run on every rank
+        from ..distributed.collectives import world_gather
+        per_rank = world_gather(torch.tensor([len(violations)]))
+        me = scheduler.mesh.rank
+        violations += [f"rank {r}: {int(n)} invariant violations"
+                       for r, n in enumerate(per_rank.reshape(-1).tolist())
+                       if n and r != me]
 
     # terminal-state accounting over the WORKLOAD's requests (the plan's
     # own malformed/burst submissions are counted separately)

@@ -44,12 +44,23 @@ Departures from JAX:
   kernels.  The retry is counted in ``counters["nan_retries"]``.
 * Temperature sampling draws from ``torch.Generator``s, not
   ``jax.random``: greedy generations are what match JAX.
+
+On a device mesh (``shardings``: the parameters are each rank's blocks,
+as ``Engine`` takes them) every rank runs the whole scheduler: the queue,
+the slots, the prefix trie and the paged pool are whole and identical on
+every rank, and every rank makes the same decisions from the same clock
+(the replays agree on it).  The model calls run under
+``sharding.serve_roles``.  After every step the ranks exchange a digest
+of the tokens emitted so far and of the lifecycle counters, one
+collective, and every rank raises ``RanksDiverged`` if two differ.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import zlib
 from typing import Any, Dict, List, Optional, Sequence, Set, Union
 
 import numpy as np
@@ -58,12 +69,16 @@ import torch
 from .. import resolve_device
 from ..core.policy import tree_leaves, tree_map_with_path
 from ..core.qtensor import qtensor_act_fmt
+from ..distributed import collectives
+from ..distributed import sharding as shd
+from ..distributed.context import constraints
 from ..models.lm import (LMConfig, cache_insert, cache_insert_paged,
                          init_cache, lm_decode, lm_prefill,
                          lm_prefill_chunk, quantize_cache)
 from .block_pool import BlockPool
 from .engine import (Engine, ServeConfig, _check_scfg, _per_request,
-                     attn_only, bucket_cache_len, full_ring, prepare_params,
+                     attn_only, bucket_cache_len, check_placed, full_ring,
+                     prepare_params,
                      refuse_images, sample_token)
 from .prefix_cache import PrefixCache
 from .slots import (COMPLETED, DECODING, FAILED, PREEMPTED, PREFILLING,
@@ -137,19 +152,32 @@ def _chunk_copy(a: torch.Tensor, i: int, c: int) -> torch.Tensor:
     return a[:, :, i * c:(i + 1) * c].clone()
 
 
+class RanksDiverged(RuntimeError):
+    """Two ranks of a mesh's scheduler emitted different tokens or reached
+    different lifecycle states."""
+
+
 class Scheduler:
     """Continuous-batching server over a fixed pool of decode slots, on
     ``device`` (default ``"cuda"``)."""
 
     def __init__(self, cfg: LMConfig, params, scfg: Optional[ServeConfig]
                  = None, sched: Optional[SchedulerConfig] = None,
-                 device=None):
+                 device=None, shardings=None):
         refuse_images(cfg, "Scheduler")
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.scfg = scfg = scfg if scfg is not None else ServeConfig()
         self.sched = sched = sched if sched is not None else SchedulerConfig()
         _check_scfg(scfg, dev)
+        check_placed(scfg, shardings, "Scheduler")
+        self.shardings = shardings
+        self.mesh = shd.mesh_of(shardings)
+        self._roles = (shd.serve_roles(shardings) if shardings is not None
+                       else {})
+        # crc32 of every emitted-token block, in tick order (the digest
+        # the ranks of a mesh compare)
+        self._token_crc = 0
         # the JAX reference contracts in fp32: keep fp32 matmuls out of TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -300,15 +328,22 @@ class Scheduler:
         st["eos"][slot] = eos
         st["active"][slot] = True
 
+    @contextlib.contextmanager
+    def _model(self):
+        """The model calls' settings: the activation format and, on a
+        mesh, the serving roles."""
+        with qtensor_act_fmt(self.scfg.act_fmt), constraints(**self._roles):
+            yield
+
     def _prefill(self, toks: torch.Tensor, lens: Optional[torch.Tensor]):
-        with qtensor_act_fmt(self.scfg.act_fmt):
+        with self._model():
             logits, row_cache = lm_prefill(
                 self.params, self.cfg, toks, cache_len=self.sched.cache_len,
                 kv_quant=self.scfg.kv_quant, prompt_lens=lens)
         return self._sample(logits[:, 0], self._gen), row_cache
 
     def _chunk(self, row_cache, toks, start, lens):
-        with qtensor_act_fmt(self.scfg.act_fmt):
+        with self._model():
             logits, row_cache = lm_prefill_chunk(self.params, self.cfg,
                                                  row_cache, toks, start, lens)
         return self._sample(logits[:, 0], self._gen), row_cache
@@ -349,7 +384,7 @@ class Scheduler:
                      block_size=self.sched.block_size) if self.paged else {}
         cache = self._pool_cache if self.paged else self._cache
         em, bad_all = [], []
-        with qtensor_act_fmt(self.scfg.act_fmt):
+        with self._model():
             for _ in range(self.sched.steps_per_tick):
                 pos2 = torch.where(active, pos + 1, pos)
                 logits, _ = lm_decode(self.params, self.cfg, cache,
@@ -473,7 +508,29 @@ class Scheduler:
             terminal += self._prefill_tick()
         terminal += self._do_tick()
         self.stall_log.append(self._stall_tokens)
+        if self.mesh is not None:
+            self._check_ranks_agree()
         return terminal
+
+    def _digest(self) -> List[int]:
+        """What the ranks of a mesh must agree on after every step: the
+        emitted tokens (a crc32 of every tick's block), the lifecycle
+        counters, the ticks, the queue and the occupied slots."""
+        state = repr((sorted(self.counters.items()), self.n_ticks,
+                      self.n_prefills, len(self.queue),
+                      self.pool.occupied())).encode()
+        return [self._token_crc, zlib.crc32(state), self.n_ticks]
+
+    def _check_ranks_agree(self) -> None:
+        mine = torch.tensor(self._digest(), dtype=torch.int64)
+        every = collectives.world_gather(mine)
+        differ = [r for r in range(every.shape[0])
+                  if not torch.equal(every[r], every[0])]
+        if differ:
+            raise RanksDiverged(
+                f"scheduler ranks diverged at tick {self.n_ticks}: ranks "
+                f"{differ} differ from rank 0 (tokens crc, state crc, "
+                f"ticks: {every.tolist()})")
 
     def run(self) -> Dict[int, List[int]]:
         """Drain the queue and all active slots; {rid: tokens} of the
@@ -518,7 +575,8 @@ class Scheduler:
         if self._fallback is None:
             fcfg = dataclasses.replace(self.scfg, weights="fp32")
             self._fallback = Engine(self.cfg, self.params, fcfg,
-                                    device=self.device)
+                                    device=self.device,
+                                    shardings=self.shardings)
         return self._fallback
 
     # ------------------------------------------------------------------
@@ -1139,6 +1197,8 @@ class Scheduler:
                                            device=self.device)
             self._tables_dirty = False
         em, bad = self._tick()
+        self._token_crc = zlib.crc32(np.ascontiguousarray(em).tobytes(),
+                                     self._token_crc)
         injected = self._inject_bad_slots
         self._inject_bad_slots = set()
         terminal = []

@@ -35,8 +35,8 @@ from ..core.modes import (PENALTY_PLACEMENTS, QuantConfig, cast_params,
 from ..core.policy import tree_leaves, tree_map
 from ..distributed import collectives
 from ..distributed.context import clear_constraints, set_constraints
-from ..distributed.sharding import (dp_size, gather_at_use, mesh_of,
-                                    unit_shardings)
+from ..distributed.sharding import (LEAF_ROLES, dp_size, gather_at_use,
+                                    mesh_of, unit_shardings)
 from ..launch.mesh import dp_axes
 from ..models.lm import LMConfig, lm_forward
 from ..numerics import div_scalar
@@ -241,8 +241,7 @@ def model_constraints(shardings) -> Dict[str, Any]:
         return tree_map(lambda s: (lambda x: gather_at_use(x, s)), tree)
 
     roles = {"stage_params": fns(unit_shardings(shardings["stage"]))}
-    for key in ("embed", "lm_head", "final_norm_scale", "vision_proj",
-                "shared"):
+    for key in LEAF_ROLES:
         if key in shardings:
             roles[key] = fns(shardings[key])
     return roles

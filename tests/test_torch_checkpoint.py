@@ -370,6 +370,34 @@ def test_bfloat16_leaves_are_refused_by_name(tmp_path):
         ckpt.save(str(tmp_path / "t"), 1, like)
 
 
+def test_bfloat16_leaves_are_refused_by_name_on_load_into(tmp_path):
+    """``load(into=)`` reads through the same path as ``load(like)`` and
+    refuses a JAX bf16 leaf by name, before it writes into any leaf."""
+    jio.save(str(tmp_path / "j"), 1, {"a": jnp.ones((3,), jnp.bfloat16),
+                                      "b": jnp.zeros((2,))})
+    into = {"a": torch.full((3,), 2.0, dtype=torch.bfloat16),
+            "b": torch.full((2,), 2.0)}
+    with pytest.raises(TypeError, match="'a' is bfloat16"):
+        ckpt.load(str(tmp_path / "j"), into=into)
+    assert torch.equal(into["b"], torch.full((2,), 2.0))
+
+
+def test_fortran_ordered_leaf_reads_back_in_c_order(tmp_path):
+    """A payload member stored in Fortran order (as ``np.save`` writes a
+    Fortran-contiguous array) loads and verifies as its C-order array: the
+    manifest's crc32 is over the C-order bytes."""
+    a = np.arange(12, dtype=np.float32).reshape(3, 4)
+    ckpt.save(str(tmp_path), 1, {"w": torch.from_numpy(a)})
+    d = str(tmp_path / "step_0000000001")
+    np.savez(os.path.join(d, ckpt_io.PAYLOAD), w=np.asfortranarray(a))
+    assert ckpt.verify_dir(d)
+    for into in (None, {"w": torch.zeros(3, 4)}):
+        got, _ = ckpt.load(str(tmp_path), {"w": torch.zeros(3, 4)},
+                           into=into)
+        assert got["w"].is_contiguous()
+        assert np.array_equal(got["w"].numpy(), a)
+
+
 def test_leaf_keys_follow_jax_flattening():
     """Keys as JAX's tree_flatten_with_path spells them: sorted dict keys,
     tuple positions, case kept, no leaf for None or an empty tuple, and a
