@@ -83,8 +83,15 @@ checked:
   launcher's mesh path on a one-rank NCCL mesh, its losses and the
   fingerprint of its final state bitwise equal to ``train``'s
   (``train_mesh``); two processes sharing the card over gloo, meshes
-  (2, 1) and (1, 2), each step against one rank, and a NaN on one
-  rank's rows skipping the step on both (``train_mesh_two_ranks``);
+  (2, 1) and (1, 2), each step against one rank, a NaN on one rank's
+  rows skipping the step on both, and one EF step on each mesh, its int8
+  codes and error bitwise with one device's compression of the same
+  gradients (``train_mesh_two_ranks``; its processes run beside the
+  vision and zoo training phases);
+* the mesh chaos tier: ``train_chaos``'s two-host run through the
+  launcher's ``mesh_chaos`` on (2, 1) in those two processes, every tier
+  fired, the counters equal on both ranks and to the one-device run's,
+  the full-state fingerprint equal on both ranks (``train_mesh_chaos``);
 * sharded serving: the ``serve`` run through the launcher's mesh path
   (blocks drawn and cast on blocks) on a one-rank NCCL mesh, tokens,
   last logits and launches equal to ``serve``'s, the W4A8 scheduler on 8
@@ -138,7 +145,16 @@ FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 PENALTY_RTOL = 1e-6
 
 
+# the two-rank jobs whose processes are running (start_two_ranks to
+# stop_two_ranks); while one is, each phase's row says ranks_beside: in a
+# whole run those processes load the host and share the card beside the
+# phase, so its times are not comparable with a run without them
+_LIVE_RANK_JOBS = set()
+
+
 def emit(obj) -> None:
+    if _LIVE_RANK_JOBS and isinstance(obj, dict) and "phase" in obj:
+        obj = dict(obj, ranks_beside=True)
     print(json.dumps(obj), flush=True)
 
 
@@ -2760,7 +2776,8 @@ def _timed_calls():
     targets = [(ckpt_io, "save", "saves"), (ckpt_io, "load", "loads"),
                (ckpt_io, "latest_valid", "verifies"),
                (distributed, "tree_fingerprint", "audits"),
-               (distributed, "replica_divergence", "audits")]
+               (distributed, "replica_divergence", "audits"),
+               (distributed, "BlockDigests", "audits")]
     saved = [(m, n, getattr(m, n)) for m, n, _ in targets]
     try:
         for m, n, key in targets:
@@ -2771,81 +2788,31 @@ def _timed_calls():
             setattr(m, n, fn)
 
 
-# the chaos phase's peak learning rate: at 3e-3 the random 2-layer model's
-# own loss jumps by 1.5 nats at the end of warmup (see train_resume's
-# losses), which the spike monitor takes for a spike; the injected faults
-# alone should decide which recovery tiers fire
-CHAOS_LR = 3e-4
-# fingerprint (heartbeat) every other step: a full-width 2-layer state is
-# 2.67 GB to bring to the host and crc32 per round, and every host-level
-# fault of the two plans is still seen (at every third step it is not)
-CHAOS_AUDIT_EVERY = 2
+CHAOS_KEYS = ("violations", "segments", "crashes", "resumes", "rollbacks",
+              "skipped", "replayed_steps", "steps_seen", "saves",
+              "corrupted_saves", "quarantined", "host_kills", "straggles",
+              "host_kill_timeouts", "straggler_timeouts",
+              "divergence_checks", "coord_rounds", "data_windows_skipped",
+              "final_loss")
+# train_chaos's two-host run by depth: train_mesh_chaos's reference
+_CHAOS_REF = {}
 
 
-def train_chaos(dev, n_layers=1, n_steps=18):
-    """The training chaos harness (``train/faults.py``) on 1 full-width
-    layer (bf16, batch 4 x 1024, LOTION decoupled, the poison seam in
-    the loss; cut from 2 to keep the script inside its time limit: the
-    phase is mostly checkpoint I/O: 314-344 s at 2 layers, 231 s at 1).  First the skip gate alone: after a clean step, a
-    NaN-poisoned batch goes through loss, backward, clip and
-    ``opt_step`` (launched, with its ok operand 0) and leaves every leaf
-    of the state bitwise unchanged.  Then ``run_chaos`` on one host
-    (``chaos_train_plan(1, 18)`` with the spike burst pinned at fetch 24,
-    as the JAX tests pin it) and on two simulated hosts (the launcher's
-    two-host plan, 2 payload shards): no audit violation, every tier
-    fired (skips through the gate, a rollback, a quarantine, a resume,
-    with two hosts a host kill and a straggler timeout), and exactly 11
-    ``opt_step`` launches per train step run, skipped steps included.
-    Last, the fault-free chaos replay bitwise equal to a plain run."""
-    from repro_torch.data import DataPipeline, lm_batch, permutation_table
+def _chaos_runs(dev, train_step, make_state, batch_fn, n_leaves, nbytes,
+                n_steps, hosts_list):
+    """``run_chaos`` on each number of simulated hosts: on one,
+    ``chaos_train_plan(1, n_steps)`` with the spike burst pinned at fetch
+    24, as the JAX tests pin it; on several, the launcher's plan
+    (``chaos_plan``) with one payload shard per host.  Per run its
+    counters, tiers, launches, seconds by what took them, ``chaos_ok``
+    and the final state's fingerprint (params and opt)."""
+    from repro_torch.distributed import tree_fingerprint
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.train import chaos_ok, chaos_plan
-    from repro_torch.models.lm import lm_init
-    from repro_torch.train import (NonFiniteBudgetError, RollbackBudgetError,
-                                   init_state, run_loop)
+    from repro_torch.train import NonFiniteBudgetError, RollbackBudgetError
     from repro_torch.train import faults as tfaults
-    torch.cuda.empty_cache()
-    cfg, train_step, _, state = granite_trainer(dev, n_layers=n_layers,
-                                                chaos=True, lr=CHAOS_LR)
-    n_leaves = len(tree_leaves(state["params"]))
-    nbytes = _state_bytes(state)
-    perm = permutation_table(0, cfg.vocab)
-
-    def batch_fn(s, poison=1.0):
-        b = lm_batch(0, s, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, perm)
-        b["poison"] = torch.tensor(poison, dtype=torch.float32)
-        return b
-
-    def on_card(b):
-        return {k: v.to(dev) for k, v in b.items()}
-
-    def make_state():
-        return init_state(lm_init(cfg, seed=0, device=dev),
-                          train_step.optimizer, lr_scale=True)
-
-    reset_launch_counts()
-    state, _ = train_step(state, on_card(batch_fn(0)))
-    core = {"params": state["params"], "opt": state["opt"]}
-    before = [(k, x.clone()) for k, x in _state_leaves(core)]
-    state, m = train_step(state, on_card(batch_fn(1, float("nan"))))
-    gate = dict(skipped=bool(m["skipped"]),
-                loss_finite=math.isfinite(float(m["loss"])),
-                differing_leaves=_differing(before, _state_leaves(
-                    {"params": state["params"], "opt": state["opt"]})),
-                opt_step_launches=launch_counts()["opt_step"])
-    del state, core, before
-    torch.cuda.empty_cache()
-    checks = {"gate_skipped": gate["skipped"],
-              "gate_bitwise": not gate["differing_leaves"],
-              "gate_launched": gate["opt_step_launches"] == 2 * n_leaves}
-
-    keys = ("violations", "segments", "crashes", "resumes", "rollbacks",
-            "skipped", "replayed_steps", "steps_seen", "saves",
-            "corrupted_saves", "quarantined", "host_kills", "straggles",
-            "host_kill_timeouts", "straggler_timeouts", "divergence_checks",
-            "coord_rounds", "data_windows_skipped", "final_loss")
     runs = {}
-    for hosts in (1, 2):
+    for hosts in hosts_list:
         plan = (tfaults.chaos_train_plan(1, n_steps=n_steps, spike_at=24,
                                          spike_len=3, n_crashes=1)
                 if hosts == 1 else chaos_plan(1, n_steps, hosts))
@@ -2864,8 +2831,7 @@ def train_chaos(dev, n_layers=1, n_steps=18):
         except (NonFiniteBudgetError, RollbackBudgetError) as e:
             raise AssertionError(
                 f"chaos run on {hosts} host(s) aborted: {e}",
-                dict(phase="train_chaos", hosts=hosts, error=str(e),
-                     gate=gate))
+                dict(phase="train_chaos", hosts=hosts, error=str(e)))
         finally:
             shutil.rmtree(d, ignore_errors=True)
         seconds = time.perf_counter() - t0
@@ -2878,16 +2844,119 @@ def train_chaos(dev, n_layers=1, n_steps=18):
         if hosts > 1:
             tiers.update(host_kill=s["host_kill_timeouts"] >= 1,
                          straggler=s["straggler_timeouts"] >= 1)
+        fingerprint = tree_fingerprint({"params": s["state"]["params"],
+                                        "opt": s["state"]["opt"]})
         runs[hosts] = dict(plan=plan.describe(), seconds=seconds,
                            split_s=split.split(seconds), ckpt_dir_ram=d
                            .startswith(RAM_DIR),
                            train_steps_run=step.calls, launches=counts,
                            expected_launches=want, tiers=tiers,
-                           **{k: s[k] for k in keys})
-        checks[f"{hosts}h_ok"] = chaos_ok(s, hosts)
-        checks[f"{hosts}h_tiers"] = all(tiers.values())
-        checks[f"{hosts}h_counts"] = counts == want
+                           fingerprint=fingerprint, ok=chaos_ok(s, hosts),
+                           **{k: s[k] for k in CHAOS_KEYS})
         del s
+    return runs
+
+
+# the chaos phase's peak learning rate: at 3e-3 the random 2-layer model's
+# own loss jumps by 1.5 nats at the end of warmup (see train_resume's
+# losses), which the spike monitor takes for a spike; the injected faults
+# alone should decide which recovery tiers fire
+CHAOS_LR = 3e-4
+# fingerprint (heartbeat) every other step: a full-width 2-layer state is
+# 2.67 GB to bring to the host and crc32 per round, and every host-level
+# fault of the two plans is still seen (at every third step it is not)
+CHAOS_AUDIT_EVERY = 2
+
+
+def _chaos_setup(dev, n_layers):
+    """train_chaos's (train_step, state, batch_fn, make_state): Granite at
+    full width, ``n_layers`` layers, bf16, LOTION decoupled at lam 1e3,
+    ``CHAOS_LR``, the poison seam; ``batch_fn(s, poison=1.0)`` of 4 x
+    ``TRAIN_SEQ``."""
+    from repro_torch.data import lm_batch, permutation_table
+    from repro_torch.models.lm import lm_init
+    from repro_torch.train import init_state
+    torch.cuda.empty_cache()
+    cfg, train_step, _, state = granite_trainer(dev, n_layers=n_layers,
+                                                chaos=True, lr=CHAOS_LR)
+    perm = permutation_table(0, cfg.vocab)
+
+    def batch_fn(s, poison=1.0):
+        b = lm_batch(0, s, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, perm)
+        b["poison"] = torch.tensor(poison, dtype=torch.float32)
+        return b
+
+    def make_state():
+        return init_state(lm_init(cfg, seed=0, device=dev),
+                          train_step.optimizer, lr_scale=True)
+
+    return train_step, state, batch_fn, make_state
+
+
+def chaos_reference(dev, n_layers=1, n_steps=18):
+    """train_chaos's two-host run (from that phase when it ran in this
+    process, else run here)."""
+    if n_layers not in _CHAOS_REF:
+        train_step, state, batch_fn, make_state = _chaos_setup(dev, n_layers)
+        n_leaves = len(tree_leaves(state["params"]))
+        nbytes = _state_bytes(state)
+        del state
+        runs = _chaos_runs(dev, train_step, make_state, batch_fn, n_leaves,
+                           nbytes, n_steps, (2,))
+        runs[2].pop("ok")
+        _CHAOS_REF[n_layers] = runs[2]
+    return _CHAOS_REF[n_layers]
+
+
+def train_chaos(dev, n_layers=1, n_steps=18):
+    """The training chaos harness (``train/faults.py``) on 1 full-width
+    layer (bf16, batch 4 x 1024, LOTION decoupled, the poison seam in
+    the loss; cut from 2 to keep the script inside its time limit: the
+    phase is mostly checkpoint I/O: 314-344 s at 2 layers, 231 s at 1).
+    First the skip gate alone: after a clean step, a NaN-poisoned batch goes through loss, backward, clip and
+    ``opt_step`` (launched, with its ok operand 0) and leaves every leaf
+    of the state bitwise unchanged.  Then ``run_chaos`` on one host
+    (``chaos_train_plan(1, 18)`` with the spike burst pinned at fetch 24,
+    as the JAX tests pin it) and on two simulated hosts (the launcher's
+    two-host plan, 2 payload shards): no audit violation, every tier
+    fired (skips through the gate, a rollback, a quarantine, a resume,
+    with two hosts a host kill and a straggler timeout), and exactly 11
+    ``opt_step`` launches per train step run, skipped steps included.
+    Last, the fault-free chaos replay bitwise equal to a plain run."""
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train import run_loop
+    from repro_torch.train import faults as tfaults
+    train_step, state, batch_fn, make_state = _chaos_setup(dev, n_layers)
+    n_leaves = len(tree_leaves(state["params"]))
+    nbytes = _state_bytes(state)
+
+    def on_card(b):
+        return {k: v.to(dev) for k, v in b.items()}
+
+    reset_launch_counts()
+    state, _ = train_step(state, on_card(batch_fn(0)))
+    core = {"params": state["params"], "opt": state["opt"]}
+    before = [(k, x.clone()) for k, x in _state_leaves(core)]
+    state, m = train_step(state, on_card(batch_fn(1, float("nan"))))
+    gate = dict(skipped=bool(m["skipped"]),
+                loss_finite=math.isfinite(float(m["loss"])),
+                differing_leaves=_differing(before, _state_leaves(
+                    {"params": state["params"], "opt": state["opt"]})),
+                opt_step_launches=launch_counts()["opt_step"])
+    del state, core, before
+    torch.cuda.empty_cache()
+    checks = {"gate_skipped": gate["skipped"],
+              "gate_bitwise": not gate["differing_leaves"],
+              "gate_launched": gate["opt_step_launches"] == 2 * n_leaves}
+
+    runs = _chaos_runs(dev, train_step, make_state, batch_fn, n_leaves,
+                       nbytes, n_steps, (1, 2))
+    for hosts, r in runs.items():
+        checks[f"{hosts}h_ok"] = r.pop("ok")
+        checks[f"{hosts}h_tiers"] = all(r["tiers"].values())
+        checks[f"{hosts}h_counts"] = r["launches"] == r["expected_launches"]
+    _CHAOS_REF[n_layers] = runs[2]
 
     plain_pipe = DataPipeline(batch_fn, device=dev, prefetch=0)
     try:
@@ -5131,8 +5200,15 @@ MESH_LEAVES = [("w_up (2, 1): dim 1 over data", (40, 2048, 8192), 1, 2),
 # once): quant RTN w, out; RR also u; lotion_reg w, f, grad; opt_step
 # w, g, mu, nu in, w, mu, nu out
 MESH_BYTES = {"quant": 8, "quant_rr": 12, "lotion_reg": 12, "opt_step": 28}
-# the two-rank phase: seconds allowed to each rank process
-TWO_RANKS_TIMEOUT_S = 420
+# the two-rank processes: seconds allowed to each rank process, summed
+# over the parts it runs (scripts/mesh_ranks_torch.py)
+TWO_RANKS_TIMEOUT_S = {"train": 300, "chaos": 420, "serve": 180}
+# in a whole run the two-rank processes (train, chaos and serve parts:
+# about 250 s, most of it gloo transfers staged through the host) start
+# before this phase and run beside it and the vision and zoo training
+# phases after it, whose GPU use leaves room; their figures are taken
+# with the ranks beside, and their rows say so (ranks_beside)
+TWO_RANKS_BESIDE_FROM = "serve_vision"
 
 
 def check_mesh_one(timer, gen, dev, label, full_shape, dim, n_blocks):
@@ -5318,31 +5394,138 @@ def _compute_mode() -> str:
                           text=True, check=True).stdout.strip()
 
 
-def train_mesh_two_ranks(dev, then_serve=False):
+def train_mesh_two_ranks(dev, then_serve=False, then_chaos=False,
+                         job=None):
     """Two processes share the card over gloo
     (``scripts/mesh_ranks_torch.py``): Granite at full width, 2 layers,
     fp32, 4 x 1024, one step from seeded second moments on meshes (2, 1)
     and (1, 2) under both penalty placements, each held against the same
-    step on one rank; a step whose per-example CE is NaN
-    on rank 1's rows only is skipped on both ranks.  Each process is
-    joined with a timeout, then killed.  With ``then_serve`` the same
-    processes then run ``serve_mesh_two_ranks``' checks for that phase
-    (one start of two processes fewer)."""
-    res, mode, served = _two_ranks("train_mesh_two_ranks",
-                                   "mesh_ranks_torch.py", then_serve)
+    step on one rank; a step whose per-example CE is NaN on rank 1's rows
+    only is skipped on both ranks; one EF step on each mesh, its int8
+    codes and new error bitwise the one-device compression of the same
+    gradients and error and the plain cast, one ``quant`` launch per
+    gradient leaf, and a leaf whose cut splits quant blocks through the
+    gathered path.  Each process is joined with a timeout, then killed.
+    With ``then_chaos`` and ``then_serve`` the same processes then run
+    ``train_mesh_chaos``' and ``serve_mesh_two_ranks``' parts (two
+    process starts fewer).  ``job`` is those processes, started earlier
+    (``start_two_ranks``; a whole run starts them before the phases they
+    run beside, ``TWO_RANKS_BESIDE_FROM``)."""
+    if job is None:
+        parts = (["train"] + (["chaos"] if then_chaos else [])
+                 + (["serve"] if then_serve else []))
+        job = start_two_ranks("train_mesh_two_ranks", "mesh_ranks_torch.py",
+                              parts)
+    res, mode = join_two_ranks(job)
     if res is None:
         row = dict(phase="train_mesh_two_ranks", omitted=True,
                    compute_mode=mode)
         emit(row)
         return row
-    row = dict(phase="train_mesh_two_ranks", compute_mode=mode, **res)
+    row = dict(phase="train_mesh_two_ranks", compute_mode=mode,
+               **res["train"])
     emit(row)
-    if not res["ok"]:
+    if not res["train"]["ok"]:
         raise AssertionError(f"train_mesh_two_ranks failed: "
-                             f"{res['failed']}", row)
-    row["served"] = served      # for serve_mesh_two_ranks, not printed
+                             f"{res['train']['failed']}", row)
+    # for train_mesh_chaos and serve_mesh_two_ranks, not printed
+    row["chaos"], row["served"] = res.get("chaos"), res.get("serve")
     return row
 
+
+# train_mesh_chaos: the final loss of the two ranks' run against the
+# one-device two-host run's (|a - b| / |b|); about five times the card's
+# readings (3.17e-5 at 4 x 1024, 4.18e-5 at 4 x 512, the same in five
+# runs on an NVIDIA H100 80GB HBM3 at 700 W)
+CHAOS_MESH_LOSS_RTOL = 2e-4
+CHAOS_MESH_COUNTERS = ("segments", "crashes", "resumes", "rollbacks",
+                       "skipped", "saves", "quarantined",
+                       "host_kill_timeouts", "straggler_timeouts")
+
+
+def train_mesh_chaos(dev, chaos=None, ref=None):
+    """The mesh chaos tier on the card: ``train_chaos``'s two-host run
+    (Granite full width, 1 layer, bf16, 4 x ``TRAIN_SEQ``, ``chaos_plan(1,
+    18, 2)``, checkpoints on ``/dev/shm``) through the launcher's
+    ``mesh_chaos`` on mesh (2, 1), two gloo processes sharing the card,
+    each rank one simulated host (``scripts/mesh_ranks_torch.py``'s chaos
+    part; in a whole run ``train_mesh_two_ranks``' processes have run it,
+    ``chaos``).  Held to the one-device two-host run (``ref``, from
+    ``train_chaos``): ``chaos_ok`` and no violation on every rank; every
+    tier fired; the counters equal on both ranks and equal to the
+    reference's; exactly one ``opt_step`` launch per leaf per train step
+    run on each rank, nothing else; the final loss within
+    ``CHAOS_MESH_LOSS_RTOL`` of the reference's; the final state's
+    fingerprint equal on both ranks, and equal to the one-device digest
+    of the state gathered whole."""
+    mode = "as train_mesh_two_ranks"
+    if chaos is None:
+        res, mode = _two_ranks("train_mesh_chaos", "mesh_ranks_torch.py",
+                               ["chaos"])
+        chaos = None if res is None else res["chaos"]
+    if chaos is None:
+        row = dict(phase="train_mesh_chaos", omitted=True, compute_mode=mode)
+        emit(row)
+        return row
+    ref = ref if ref is not None else chaos_reference(dev)
+    ranks = chaos["ranks"]
+    r0 = ranks[0]
+    c = r0["counters"]
+    want_counts = [dict(dict.fromkeys(r["launches"], 0),
+                        opt_step=r["n_leaves"] * r["train_steps_run"])
+                   for r in ranks]
+    loss_rel = abs(r0["final_loss"] - ref["final_loss"]) / abs(
+        ref["final_loss"])
+    tiers = {"skip": c["skipped"] >= 1, "rollback": c["rollbacks"] >= 1,
+             "quarantine": c["quarantined"] >= 1,
+             "resume": c["resumes"] >= 1,
+             "host_kill": c["host_kill_timeouts"] >= 1,
+             "straggler": c["straggler_timeouts"] >= 1,
+             "divergence_checks": c["divergence_checks"] >= 1}
+    checks = {
+        "ok_every_rank": all(r["ok"] and not r["violations"] for r in ranks),
+        "tiers": all(tiers.values()),
+        "counters_equal_across_ranks": all(r["counters"] == c
+                                           for r in ranks),
+        "counters_equal_one_device": all(
+            c[k] == ref[k] for k in CHAOS_MESH_COUNTERS),
+        "launches": all(r["launches"] == w
+                        for r, w in zip(ranks, want_counts)),
+        "final_loss": loss_rel <= CHAOS_MESH_LOSS_RTOL,
+        "fingerprint_equal_across_ranks": all(
+            r["fingerprint"] == r0["fingerprint"] for r in ranks),
+        "fingerprint_is_gathered_state": all(
+            r["gathered_fingerprint"] == r0["fingerprint"] for r in ranks)}
+    row = dict(phase="train_mesh_chaos", compute_mode=mode,
+               mesh=chaos["mesh"], n_layers=chaos["n_layers"],
+               n_steps=chaos["n_steps"], dtype=chaos["dtype"],
+               batch=chaos["batch"], seq=chaos["seq"], tiers=tiers,
+               counters=[r["counters"] for r in ranks],
+               one_device_counters={k: ref[k] for k in CHAOS_MESH_COUNTERS},
+               final_loss=[r["final_loss"] for r in ranks],
+               one_device_final_loss=ref["final_loss"],
+               final_loss_rel_err=loss_rel,
+               final_loss_rtol=CHAOS_MESH_LOSS_RTOL,
+               violations=[r["violations"] for r in ranks],
+               train_steps_run=[r["train_steps_run"] for r in ranks],
+               launches=[r["launches"] for r in ranks],
+               expected_launches=want_counts,
+               seconds=[r["seconds"] for r in ranks],
+               split_s=[r["split_s"] for r in ranks],
+               one_device_seconds=ref["seconds"],
+               one_device_split_s=ref["split_s"],
+               seconds_in_process=chaos.get("seconds_in_process"),
+               fingerprint=[r["fingerprint"] for r in ranks],
+               fingerprint_s=[r["fingerprint_s"] for r in ranks],
+               gathered_fingerprint=[r["gathered_fingerprint"]
+                                     for r in ranks],
+               one_device_fingerprint=ref["fingerprint"], checks=checks)
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"train_mesh_chaos failed: "
+                             f"{[k for k, v in checks.items() if not v]}",
+                             row)
+    return row
 
 
 # the scheduler half of serve_mesh runs at this depth (40 layers would
@@ -5480,53 +5663,92 @@ def serve_mesh(dev, serve_row=None):
     return row
 
 
-def _two_ranks(phase, script, then_serve=False):
-    """Two processes of ``scripts/<script>`` sharing the card over gloo,
-    each joined with a timeout, then killed; returns (rank 0's JSON
-    result with the seconds it took, the compute mode, the serving
-    checks' result), or (None, mode, None) where the card's compute mode
-    refuses a second process.  With ``then_serve`` the processes go on
-    to ``serve_mesh_two_ranks``' checks."""
+def _mesh_chaos_state_bytes() -> int:
+    """Bytes of the mesh chaos run's whole state (the one-device state)."""
+    from repro_torch.launch import specs
+    cfg, _, tcfg, _ = granite_setup(n_layers=1, lr=CHAOS_LR)
+    return _state_bytes(specs.state_specs(cfg, tcfg))
+
+
+def start_two_ranks(phase, script, parts):
+    """Start two processes of ``scripts/<script>`` sharing the card over
+    gloo, to run ``parts`` in turn; returns the job for
+    ``join_two_ranks``, or None where the card's compute mode refuses a
+    second process.  The chaos part checkpoints to a directory on
+    ``/dev/shm`` made here and removed at the join."""
     mode = _compute_mode()
+    job = dict(phase=phase, parts=list(parts), mode=mode, procs=[])
     if mode.startswith("Exclusive"):
-        return None, mode, None
+        return job
     tmp = tempfile.mkdtemp(prefix="mesh_ranks_")
-    out = os.path.join(tmp, "result.json")
-    serve_out = os.path.join(tmp, "serve.json")
+    outs = {p: os.path.join(tmp, f"{p}.json") for p in parts}
+    args = [f"{p}={path}" for p, path in outs.items()]
+    ckpt = None
+    if "chaos" in parts:
+        ckpt, _ = _ckpt_dir(5 * _mesh_chaos_state_bytes(), ram=True)
+        args.append(f"ckpt={ckpt}")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     path = os.path.join(ROOT, "scripts", script)
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, path, os.path.join(tmp, "store"), str(r), "2",
-         out] + ([serve_out] if then_serve else []), env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+    job.update(tmp=tmp, outs=outs, ckpt=ckpt, t0=time.perf_counter(),
+               timeout=sum(TWO_RANKS_TIMEOUT_S[p] for p in parts))
+    job["procs"] = [subprocess.Popen(
+        [sys.executable, path, os.path.join(tmp, "store"), str(r), "2"]
+        + args, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(2)]
+    _LIVE_RANK_JOBS.add(id(job))
+    return job
+
+
+def join_two_ranks(job):
+    """Wait for the job's processes (each within the parts'
+    ``TWO_RANKS_TIMEOUT_S`` summed, from their start), then kill any
+    left; returns ({part: rank 0's JSON result}, the compute mode), or
+    (None, mode) for a job the compute mode refused."""
+    if not job["procs"]:
+        return None, job["mode"]
+    phase, procs, outs = job["phase"], job["procs"], job["outs"]
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=TWO_RANKS_TIMEOUT_S)[0])
+            logs.append(p.communicate(timeout=max(
+                job["timeout"] - (time.perf_counter() - job["t0"]), 1))[0])
+    except subprocess.TimeoutExpired:
+        logs.append(f"a rank did not finish in {job['timeout']} s")
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    seconds = time.perf_counter() - t0
+        stop_two_ranks(job)
+    seconds = time.perf_counter() - job["t0"]
     codes = [p.returncode for p in procs]
-    if any(codes) or not os.path.exists(out):
-        shutil.rmtree(tmp, ignore_errors=True)
-        raise AssertionError(f"{phase}: rank processes failed {codes}:\n"
-                             + "\n".join(x[-3000:] for x in logs),
-                             dict(phase=phase, codes=codes,
-                                  error=logs[0][-2000:]))
-    with open(out) as f:
-        res = json.load(f)
-    served = None
-    if then_serve:
-        with open(serve_out) as f:
-            served = json.load(f)
-    shutil.rmtree(tmp, ignore_errors=True)
-    res["seconds"] = seconds
-    return res, mode, served
+    try:
+        if any(codes) or not all(os.path.exists(o) for o in outs.values()):
+            raise AssertionError(f"{phase}: rank processes failed {codes}:\n"
+                                 + "\n".join(x[-3000:] for x in logs),
+                                 dict(phase=phase, codes=codes,
+                                      error=logs[0][-2000:]))
+        res = {}
+        for p, o in outs.items():
+            with open(o) as f:
+                res[p] = json.load(f)
+    finally:
+        shutil.rmtree(job["tmp"], ignore_errors=True)
+    res[job["parts"][0]]["seconds"] = seconds
+    return res, job["mode"]
+
+
+def stop_two_ranks(job) -> None:
+    """Kill the job's processes that are still running and remove its
+    checkpoint directory."""
+    for p in job["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    _LIVE_RANK_JOBS.discard(id(job))
+    if job.get("ckpt"):
+        shutil.rmtree(job["ckpt"], ignore_errors=True)
+
+
+def _two_ranks(phase, script, parts):
+    """``start_two_ranks`` then ``join_two_ranks``."""
+    return join_two_ranks(start_two_ranks(phase, script, parts))
 
 
 def serve_mesh_two_ranks(dev, served=None):
@@ -5539,8 +5761,9 @@ def serve_mesh_two_ranks(dev, served=None):
     (``served``); alone, this phase starts its own."""
     res, mode = served, "as train_mesh_two_ranks"
     if res is None:
-        res, mode, _ = _two_ranks("serve_mesh_two_ranks",
-                                  "serve_ranks_torch.py")
+        res, mode = _two_ranks("serve_mesh_two_ranks",
+                               "serve_ranks_torch.py", ["serve"])
+        res = None if res is None else res["serve"]
     if res is None:
         row = dict(phase="serve_mesh_two_ranks", omitted=True,
                    compute_mode=mode)
@@ -5806,17 +6029,20 @@ def main() -> int:
               "ssm_card_vs_cpu": lambda: ssm_card_vs_cpu(dev),
               "ssm_chunked_vs_exact": lambda: ssm_chunked_vs_exact(dev),
               "vision_kernels": lambda: check_vision_kernels(timer, dev),
+              "zoo_train_kernels": lambda: check_zoo_train_kernels(timer,
+                                                                   dev),
+              "mesh_kernels": lambda: check_mesh_kernels(timer, dev),
               "serve_vision": lambda: serve_vision(dev),
               "vision_card_vs_cpu": lambda: vision_card_vs_cpu(dev),
               "train_vision": lambda: train_vision(dev),
-              "zoo_train_kernels": lambda: check_zoo_train_kernels(timer,
-                                                                   dev),
               "train_zoo": lambda: train_zoo(dev),
               "train_zoo_card_vs_cpu": lambda: train_zoo_card_vs_cpu(dev),
-              "mesh_kernels": lambda: check_mesh_kernels(timer, dev),
               "train_mesh": lambda: train_mesh(dev, out["train"]),
               "train_mesh_two_ranks": lambda: train_mesh_two_ranks(
-                  dev, then_serve=True),
+                  dev, job=ranks_job),
+              "train_mesh_chaos": lambda: train_mesh_chaos(
+                  dev, out["train_mesh_two_ranks"].get("chaos"),
+                  out["train_chaos"]["runs"][2]),
               "serve_mesh": lambda: serve_mesh(dev, out["serve"]),
               "serve_mesh_two_ranks": lambda: serve_mesh_two_ranks(
                   dev, out["train_mesh_two_ranks"].get("served")),
@@ -5824,10 +6050,15 @@ def main() -> int:
                                        out["train_mesh_two_ranks"],
                                        dry_job)}
     out = {}
+    ranks_job = None
     try:
         for name, run in phases.items():
             if name == DRYRUN_BESIDE_FROM:
                 dry_job = start_dryrun_cells()
+            if name == TWO_RANKS_BESIDE_FROM:
+                ranks_job = start_two_ranks(
+                    "train_mesh_two_ranks", "mesh_ranks_torch.py",
+                    ["train", "chaos", "serve"])
             t0 = time.perf_counter()
             out[name] = run()
             emit(dict(phase="timing", of=name,
@@ -5841,6 +6072,8 @@ def main() -> int:
     finally:
         if dry_job is not None:
             stop_dryrun_cells(dry_job)
+        if ranks_job is not None:
+            stop_two_ranks(ranks_job)
 
     emit({"kernels": kernels_line(out)})
     print(smi, flush=True)
@@ -6069,21 +6302,28 @@ def mesh_kernel_fields(out):
     (block of a Granite leaf, given the whole matrices' absmax) with its
     unsharded call's time, and the launches of the mesh paths
     (``train_mesh``: one NCCL rank; ``train_mesh_two_ranks``: two gloo
-    ranks on one card, the runs' sum over rank 0)."""
+    ranks on one card, the runs' sum over rank 0, and its EF steps';
+    ``train_mesh_chaos``: rank 0's chaos run)."""
     rows, two = out["mesh_kernels"], out["train_mesh_two_ranks"]
+    chaos = out["train_mesh_chaos"]
 
-    def runs_sum(kernel):
+    def runs_sum(kernel, runs="runs"):
         return (None if two.get("omitted") else
-                sum(r["launches"][kernel] for r in two["runs"]))
+                sum(r["launches"][kernel] for r in two[runs]))
 
     fields = {}
     for kernel in ("quant", "lotion_reg", "opt_step"):
         mine = [r for r in rows if r["kernel"] == kernel]
         fields[kernel] = dict(
             mesh_path="train_mesh (1, 1) NCCL; train_mesh_two_ranks "
-                      "(2, 1) and (1, 2) gloo",
+                      "(2, 1) and (1, 2) gloo, its EF steps on both; "
+                      "train_mesh_chaos (2, 1) gloo",
             mesh_launches=out["train_mesh"]["launches"][kernel],
             mesh_two_ranks_launches=runs_sum(kernel),
+            # rank 0's EF steps, one on (2, 1) and one on (1, 2)
+            mesh_ef_launches=runs_sum(kernel, "ef"),
+            mesh_chaos_launches=(None if chaos.get("omitted") else
+                                 chaos["launches"][0][kernel]),
             mesh_rows=[{k: r[k] for k in (
                 "leaf", "shape", "cast", "ms", "plain_ms", "unsharded_ms",
                 "bound_ms", "bound_by", "bitwise",

@@ -156,7 +156,23 @@ fault is planted in both rank processes through ``MESH_RANKS_FAULT``):
 * ``grads_not_summed_over_data`` — a gathered leaf's gradient is cut to the
   rank's block without the sum over the data ranks;
 * ``skip_gate_per_rank``         — the skip flag is decided on each rank's
-  rows alone.
+  rows alone;
+* ``ef_block_cast_across_ranks`` — EF casts a gradient block whose cut
+  splits quant blocks where it lies, without the gather (the EF rows'
+  split leaf parts from one rank).
+
+The mesh chaos tier (phase ``train_mesh_chaos``: train_chaos's two-host
+run through the launcher's ``mesh_chaos`` on (2, 1), two processes
+sharing the card; planted in both rank processes through
+``MESH_RANKS_FAULT``):
+
+* ``replica_flipped_on_rank1`` — after its first step, rank 1 flips one
+  bit of its copy of a replicated parameter (the replica audit and the
+  ranks' fingerprints must report it);
+* ``write_kill_only_on_writer`` — a sharded save's write stages are not
+  passed to the other rank's hook, so the injected mid-write kill is an
+  ``IOError`` on rank 1 (its segment ends apart from rank 0's, and the
+  phase fails within its join timeout).
 
 Sharded serving (phase ``serve_mesh_two_ranks``: two processes share the
 card over gloo, meshes (2, 1) and (1, 2), each run against one rank; the
@@ -514,13 +530,80 @@ def _collectives_patch(name, wrap):
     return ctx
 
 
-# the faults of phase train_mesh_two_ranks, applied inside each rank
-# process (scripts/mesh_ranks_torch.py reads MESH_RANKS_FAULT)
+def _blocks_always_whole(orig):
+    """whole_blocks that calls every cut whole: EF casts a block whose
+    quant blocks the cut splits where it lies, without the gather."""
+    return lambda shape, sh, block_size: True
+
+
+class _FlipOnRank1:
+    """A train step that, on rank 1, flips one bit of its copy of the
+    first parameter leaf nothing cuts, once, after its first step."""
+
+    def __init__(self, step, shardings):
+        from repro_torch.distributed import sharding
+        self.step, self.done = step, False
+        self.leaf = next(p for p, s in sharding.tree_leaves_with_path(
+            shardings) if sharding.is_replicated(s))
+        self.mesh = sharding.mesh_of(shardings)
+        for attr in ("optimizer", "grads_of"):
+            setattr(self, attr, getattr(step, attr))
+
+    def __call__(self, state, batch):
+        state, metrics = self.step(state, batch)
+        if not self.done and self.mesh.rank == 1:
+            leaf = state["params"]
+            for k in self.leaf:
+                leaf = leaf[k]
+            leaf.view(torch.int32).view(-1)[0] ^= 1
+            self.done = True
+        return state, metrics
+
+
+def _flip_on_rank1(orig):
+    """launch.train's make_train_step whose sharded step flips a bit of
+    rank 1's replica (``_FlipOnRank1``)."""
+    def make(*args, grad_shardings=None, **kw):
+        step = orig(*args, grad_shardings=grad_shardings, **kw)
+        return step if grad_shardings is None else _FlipOnRank1(
+            step, grad_shardings)
+    return make
+
+
+def _no_replay(orig):
+    """The write stages of a sharded save are not passed to the other
+    ranks' hooks: a kill on the writer is an IOError elsewhere."""
+    return lambda stages: None
+
+
+def _launcher_patch(name, wrap):
+    def ctx():
+        from repro_torch.launch import train
+        return _patched(train, name, wrap)
+    return ctx
+
+
+def _ckpt_patch(name, wrap):
+    def ctx():
+        from repro_torch.checkpoint import io
+        return _patched(io, name, wrap)
+    return ctx
+
+
+# the faults of phases train_mesh_two_ranks (the first four) and
+# train_mesh_chaos (the last two), applied inside each rank process
+# (scripts/mesh_ranks_torch.py reads MESH_RANKS_FAULT)
 MESH_FAULTS = {
     "own_absmax": _sharding_patch("matrix_absmax", _own_absmax),
     "grads_not_summed_over_data": _sharding_patch("_reduce_dp", _no_dp_sum),
     "skip_gate_per_rank": _collectives_patch("all_reduce", _gate_per_rank),
+    "ef_block_cast_across_ranks": _sharding_patch("whole_blocks",
+                                                  _blocks_always_whole),
+    "replica_flipped_on_rank1": _launcher_patch("make_train_step",
+                                                _flip_on_rank1),
+    "write_kill_only_on_writer": _ckpt_patch("_replay_stages", _no_replay),
 }
+MESH_CHAOS_FAULTS = ("replica_flipped_on_rank1", "write_kill_only_on_writer")
 
 
 def _codes_only(orig):
@@ -756,7 +839,10 @@ def main(argv=None) -> int:
                                                              reg_ops))]),
         ([("train_mesh_two_ranks", cs.train_mesh_two_ranks)], [sound] + [
             (name, _env_fault("MESH_RANKS_FAULT", name))
-            for name in MESH_FAULTS]),
+            for name in MESH_FAULTS if name not in MESH_CHAOS_FAULTS]),
+        ([("train_mesh_chaos", cs.train_mesh_chaos)], [sound] + [
+            (name, _env_fault("MESH_RANKS_FAULT", name))
+            for name in MESH_CHAOS_FAULTS]),
         ([("serve_mesh_two_ranks", cs.serve_mesh_two_ranks)], [sound] + [
             (name, _env_fault("SERVE_RANKS_FAULT", name))
             for name in SERVE_FAULTS]),
@@ -777,7 +863,7 @@ def main(argv=None) -> int:
             "routing", "dead_rows", "card_vs_cpu", "per_step_err",
             "held_steps", "codeqwen1.5-7b", "gemma3-12b", "zamba2-2.7b",
             "rwkv6-1.6b", "blocks", "cuts", "cross_kv_rel_err", "runs",
-            "nan_gate", "collectives")
+            "nan_gate", "collectives", "ef", "violations", "codes")
     if only:
         groups = [g for g in groups if only & {name for name, _ in g[0]}]
         if not groups:

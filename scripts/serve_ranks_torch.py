@@ -2,7 +2,8 @@
 Granite-3-2B at full width (2 layers, fp32 activations, int4 QTensor
 weights, an int8 KV cache), held against the same serving on one rank.
 
-    PYTHONPATH=src python3 scripts/serve_ranks_torch.py STORE RANK 2 OUT
+    PYTHONPATH=src python3 scripts/serve_ranks_torch.py STORE RANK 2 \
+        serve=OUT
 
 ``chip_smoke.py``'s phase ``serve_mesh_two_ranks`` starts both ranks
 (in a whole run, ``scripts/mesh_ranks_torch.py``'s ranks run ``run``
@@ -231,7 +232,8 @@ def fault_ctx():
 
 def main(argv):
     import torch.distributed as dist
-    store_path, rank, world, out = argv[:4]
+    store_path, rank, world = argv[:3]
+    out = dict(a.split("=", 1) for a in argv[3:])["serve"]
     rank, world = int(rank), int(world)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)

@@ -42,8 +42,9 @@ read back as bfloat16.
 On a mesh (``shardings``: the tree's ``NamedSharding``s, the leaves this
 rank's blocks) ``save`` gathers each leaf to its full shape, one leaf at
 a time in the payload order, and rank 0 alone writes (the other ranks
-take part in the gathers and wait for the publish), so the files are
-those of the one-device state; ``load`` reads every leaf on every rank
+take part in the gathers and wait for the publish, then pass the write
+stages rank 0 passed to their own write hook), so the files are those
+of the one-device state; ``load`` reads every leaf on every rank
 and keeps the rank's block, so a step saved on one mesh shape loads on
 any other.
 """
@@ -141,7 +142,14 @@ def write_fault_hook(hook: Callable[[str, str], None]):
         _write_hook = prev
 
 
+# the stages a sharded save's writer passed, for the other ranks to
+# replay (None outside the writer's save)
+_stage_log: Optional[List[Tuple[str, str]]] = None
+
+
 def _stage(stage: str, path: str) -> None:
+    if _stage_log is not None:
+        _stage_log.append((stage, path))
     if _write_hook is not None:
         _write_hook(stage, path)
 
@@ -191,15 +199,17 @@ class _Gathered:
     """A block of a sharded leaf, gathered to its full shape when the
     writer reaches it (every rank gathers, in the same order)."""
 
-    __slots__ = ("block", "sharding", "shape")
+    __slots__ = ("block", "sharding", "shape", "done")
 
     def __init__(self, block, sharding):
         from ..distributed.sharding import global_shape
         self.block, self.sharding = block, sharding
         self.shape = global_shape(sharding, tuple(block.shape))
+        self.done = False
 
     def full(self):
         from ..distributed.sharding import gather
+        self.done = True
         return gather(self.block, self.sharding)
 
 
@@ -267,36 +277,33 @@ def _gf2_square(mat) -> list:
     return [_gf2_times(mat, mat[n]) for n in range(32)]
 
 
+@functools.lru_cache(maxsize=None)
+def _zeros_op(k: int) -> tuple:
+    """The crc32 register's GF(2) matrix for ``2 ** k`` zero bytes."""
+    if k == 0:
+        op = [0xEDB88320] + [1 << i for i in range(31)]    # one zero bit
+        for _ in range(3):                                 # eight
+            op = _gf2_square(op)
+        return tuple(op)
+    return tuple(_gf2_square(_zeros_op(k - 1)))
+
+
 def _advance(crc: int, n: int) -> int:
     """The crc32 register ``crc`` carried over ``n`` zero bytes (zlib's
-    ``crc32_combine`` without its second operand)."""
-    odd = [0xEDB88320] + [1 << k for k in range(31)]   # one zero bit
-    even = _gf2_square(odd)                            # two
-    odd = _gf2_square(even)                            # four
+    ``crc32_combine`` without its second operand): one cached matrix per
+    set bit of ``n``."""
+    k = 0
     while n:
-        even = _gf2_square(odd)
         if n & 1:
-            crc = _gf2_times(even, crc)
+            crc = _gf2_times(_zeros_op(k), crc)
         n >>= 1
-        if not n:
-            break
-        odd = _gf2_square(even)
-        if n & 1:
-            crc = _gf2_times(odd, crc)
-        n >>= 1
+        k += 1
     return crc
-
-
-@functools.lru_cache(maxsize=None)
-def _advance_op(n: int) -> tuple:
-    """``_advance(., n)`` as its GF(2) matrix (it is linear in crc)."""
-    return tuple(_advance(1 << k, n) for k in range(32))
 
 
 def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
     """crc32 of A + B from crc32(A), crc32(B) and B's length."""
-    op = _advance_op(len2) if len2 == CRC_RUN else None
-    return (_gf2_times(op, crc1) if op else _advance(crc1, len2)) ^ crc2
+    return _advance(crc1, len2) ^ crc2
 
 
 def _crc(a: np.ndarray, value: int = 0) -> int:
@@ -364,6 +371,12 @@ def save(ckpt_dir: str, step: int, tree, keep: int = 3,
     if shardings is not None:
         return _save_sharded(ckpt_dir, step, tree, keep, n_shards,
                              shardings)
+    return _save(ckpt_dir, step, tree, keep, n_shards)
+
+
+def _save(ckpt_dir: str, step: int, tree, keep: int, n_shards: int) -> str:
+    """``save`` of full leaves (or ``_Gathered`` blocks, gathered as they
+    are written)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
     tmp = final + ".tmp"
@@ -433,30 +446,49 @@ def _gathered_tree(tree, shardings):
 
 
 def _save_sharded(ckpt_dir, step, tree, keep, n_shards, shardings) -> str:
+    """Rank 0 writes, every rank gathers (module docstring).  The other
+    ranks then replay the write stages rank 0 passed through their own
+    write hook, so every rank's hook sees the same stages: a hook that
+    raises at a stage on rank 0 raises there on every rank.  A failure of
+    rank 0 that no replayed stage raises is an ``IOError`` elsewhere."""
+    global _stage_log
     from ..distributed import collectives
     from ..distributed.sharding import mesh_of
     mesh = mesh_of(shardings)
     lazy = _gathered_tree(tree, shardings)
+    leaf_of = dict(_paths_and_leaves(lazy))
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
-    err = None
+    err, stages = None, []
     if mesh.rank == 0:
+        _stage_log = stages
         try:
-            save(ckpt_dir, step, lazy, keep=keep, n_shards=n_shards)
+            _save(ckpt_dir, step, lazy, keep, n_shards)
         except BaseException as e:   # the other ranks learn of it below
             err = e
-    else:
-        leaf_of = dict(_paths_and_leaves(lazy))
-        for key in _writer_order(list(leaf_of.items()), n_shards):
-            if isinstance(leaf_of[key], _Gathered):
-                leaf_of[key].full()
-    failed = collectives.broadcast_object(None if err is None
-                                          else repr(err))
+        finally:
+            _stage_log = None
+    # every gather of the writer's order, on rank 0 those a failed write
+    # left undone too, so that the ranks' collectives pair up
+    for key in _writer_order(list(leaf_of.items()), n_shards):
+        if isinstance(leaf_of[key], _Gathered) and not leaf_of[key].done:
+            leaf_of[key].full()
+    stages, failed = collectives.broadcast_object(
+        (stages, None if err is None else repr(err)))
     if err is not None:
         raise err
+    if mesh.rank != 0:
+        _replay_stages(stages)
     if failed is not None:
         raise IOError(f"checkpoint save of step {step} failed on rank 0: "
                       f"{failed}")
     return final
+
+
+def _replay_stages(stages) -> None:
+    """The write stages another rank passed, through this rank's hook."""
+    if _write_hook is not None:
+        for stage, path in stages:
+            _write_hook(stage, path)
 
 
 def _rotate(ckpt_dir: str, keep: int, protect: Optional[str] = None) -> None:

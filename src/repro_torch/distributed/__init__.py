@@ -4,10 +4,10 @@ collectives over a mesh (``collectives``), and the self-healing loop's
 cross-host agreement seam (``coordinator``: the in-process bus the JAX
 package has) and divergence audit (``audit``)."""
 
-from .audit import replica_divergence, tree_fingerprint
+from .audit import BlockDigests, replica_divergence, tree_fingerprint
 from .coordinator import (DEAD, AgreementError, Coordinator,
                           CoordinatorTimeout, InProcessBus, Straggle)
 
 __all__ = ["Coordinator", "CoordinatorTimeout", "AgreementError",
            "InProcessBus", "Straggle", "DEAD",
-           "tree_fingerprint", "replica_divergence"]
+           "tree_fingerprint", "replica_divergence", "BlockDigests"]

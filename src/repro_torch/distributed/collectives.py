@@ -15,7 +15,9 @@ bytes (the result's: the reduced tensor of an all-reduce, the gathered one
 of an all-gather, as JAX's HLO analysis reads a collective's size);
 ``issued()`` sums it by op.  The live runs report it, and the dry-run's
 trace of the same step (``launch/dryrun.py``, through ``CommDebugMode``)
-must issue the same collectives.
+must issue the same collectives.  The object collectives
+(``broadcast_object``, ``gather_objects``) carry host decisions and
+digests, not tensors, and are not counted.
 """
 
 from __future__ import annotations
@@ -142,3 +144,14 @@ def broadcast_object(obj):
     box = [obj]
     dist.broadcast_object_list(box, src=0)
     return box[0]
+
+
+def gather_objects(obj) -> list:
+    """Every rank's ``obj`` (any picklable value), in rank order, on every
+    rank of the world; ``[obj]`` in a world of one."""
+    import torch.distributed as dist
+    if dist.get_world_size() == 1:
+        return [obj]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out

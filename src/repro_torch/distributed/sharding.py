@@ -524,23 +524,32 @@ def matrix_absmax(x: torch.Tensor, sh: NamedSharding) -> torch.Tensor:
     return bits.view(torch.float32)
 
 
+def whole_blocks(shape, sh: Optional[NamedSharding], block_size: int) -> bool:
+    """True where every quant block of ``block_size`` of the full leaf (a
+    run of the flattened leaf) lies whole in one rank's block: the
+    innermost dim that is cut (its block smaller than the dim) times the
+    elements after it is a multiple of ``block_size``.  A leaf that
+    nothing cuts holds its blocks whole."""
+    if sh is None:
+        return True
+    local = local_shape(sh, shape)
+    cut = [d for d in range(len(shape)) if local[d] != shape[d]]
+    if not cut:
+        return True
+    d = cut[-1]
+    return (local[d] * math.prod(shape[d + 1:])) % block_size == 0
+
+
 def check_whole_blocks(name: str, shape, sh: NamedSharding,
                        block_size: int) -> None:
     """Blockwise scales are right on a block only where every block of
-    the full leaf lies whole in one rank's block: the innermost cut dim's
-    block times the elements after it is a multiple of ``block_size``."""
-    per = dim_axes(sh.spec, len(shape))
-    cut = [d for d, axes in enumerate(per) if axes]
-    if not cut:
-        return
-    d = cut[-1]
-    run = local_shape(sh, shape)[d] * math.prod(shape[d + 1:])
-    if run % block_size:
+    the full leaf lies whole in one rank's block (``whole_blocks``)."""
+    if not whole_blocks(shape, sh, block_size):
         raise ValueError(
             f"{name}: blockwise scales of {block_size} on a leaf of "
             f"{tuple(shape)} cut by {sh.spec} split quant blocks across "
-            f"ranks (a run of {run} elements); use per-matrix scales or a "
-            f"mesh whose cuts hold whole blocks")
+            f"ranks; use per-matrix scales or a mesh whose cuts hold "
+            f"whole blocks")
 
 
 # --------------------------------------------------------------------------
@@ -698,6 +707,7 @@ __all__ = ["P", "NamedSharding", "param_spec", "widen_dp", "fix_divisibility",
            "cache_shardings", "activation_spec", "shard", "gather",
            "gather_at_use", "matrix_absmax", "sum_all", "count_once",
            "owns", "local_shape", "shard_slices", "check_whole_blocks",
+           "whole_blocks",
            "global_shape", "full_view", "leaf_absmax",
            "sharded_batch", "mesh_of", "dp_size", "unit_shardings",
            "apply_tree", "tree_map_with_path", "tree_leaves_with_path",

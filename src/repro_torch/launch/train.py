@@ -25,14 +25,22 @@ the same command again after a kill continues the run bitwise.
 ``--chaos`` instead drives the training chaos harness
 (``train/faults.py``: seeded NaN batches, a loss spike, hard kills, a
 mid-write kill and a corrupted checkpoint, every step audited) and exits
-1 on any audit violation.
+1 on any audit violation.  With ``--mesh`` it runs on the mesh's ranks
+(``mesh_chaos``), one simulated host per slice of the non-``model``
+axes, as the JAX launcher counts them; with more than one host the
+host-level tier joins in (a killed and a straggling peer, a bitflip in
+the last host's payload shard, a torn manifest, a coordinated rollback)
+and every tier must fire and heal::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.train --arch granite-3-2b --smoke \\
+        --device cpu --mesh 2x1 --chaos --steps 18 --batch 4 --seq 32
+
+Every rank exits with the same code.
 
 The flags are those of ``repro.launch.train``, plus ``--device``
 (default ``cuda``, NCCL on a mesh; ``cpu`` runs the kernels' plain
-versions, gloo on a mesh) and ``--layers`` (cut the depth).  ``--chaos``
-on a mesh of more than one rank is refused (the mesh chaos tier is
-ROADMAP Queue 1 item 8(c)); on a mesh of one rank it runs the one-device
-harness on the rank's device.
+versions, gloo on a mesh) and ``--layers`` (cut the depth).
 """
 
 from __future__ import annotations
@@ -47,7 +55,9 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.modes import QuantConfig
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.data import DataPipeline, lm_batch, permutation_table
-from repro_torch.distributed.sharding import (state_shardings,
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import (NamedSharding, P,
+                                              state_shardings,
                                               train_batch_shardings)
 from repro_torch.launch import specs
 from repro_torch.launch.mesh import close_mesh, make_mesh, parse_mesh
@@ -93,7 +103,7 @@ def chaos_ok(summary: dict, n_hosts: int = 1) -> bool:
     return ok
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -118,22 +128,13 @@ def main(argv=None):
                          "instead of a plain run; exits nonzero on any "
                          "audit violation")
     ap.add_argument("--chaos-seed", type=int, default=1)
-    args = ap.parse_args(argv)
-    if args.chaos and args.microbatches != 1:
-        ap.error("--chaos requires --microbatches 1 (the poison scalar "
-                 "is per batch)")
-    mesh = None
-    if args.mesh:
-        shape, axes = parse_mesh(args.mesh)
-        if args.chaos and math.prod(shape) > 1:
-            ap.error("--chaos on a mesh of more than one rank (the host-level "
-                     "chaos tier over several ranks) is ROADMAP Queue 1 item "
-                     "8(c)")
-    if args.mesh and not args.chaos:
-        mesh = make_mesh(shape, axes, args.device)
-        dev = mesh.device
-    else:
-        dev = resolve_device(args.device)
+    return ap
+
+
+def configure(args):
+    """``(cfg, tcfg, opt, batch_fn)`` of the launcher's flags: the config
+    (cut to ``--layers``), LOTION (or the method) at int4, AdamW on a
+    cosine schedule with 5 warmup steps, the Markov stream from seed 0."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
@@ -149,31 +150,57 @@ def main(argv=None):
     def batch_fn(s):
         return lm_batch(0, s, args.batch, args.seq, cfg.vocab, perm)
 
+    return cfg, tcfg, opt, batch_fn
+
+
+def main(argv=None):
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.chaos and args.microbatches != 1:
+        ap.error("--chaos requires --microbatches 1 (the poison scalar "
+                 "is per batch)")
+    mesh = None
+    if args.mesh:
+        mesh = make_mesh(*parse_mesh(args.mesh), args.device)
+        dev = mesh.device
+    else:
+        dev = resolve_device(args.device)
+    cfg, tcfg, opt, batch_fn = configure(args)
+
     if args.chaos:
-        from repro_torch.train import faults as tfaults
+        ckpt_dir = args.ckpt_dir
+        if ckpt_dir is None and (mesh is None or mesh.rank == 0):
+            ckpt_dir = tempfile.mkdtemp(prefix="chaos_train_")
+        if mesh is not None:
+            # the ranks share rank 0's directory (on several hosts,
+            # --ckpt-dir names one they all see)
+            ckpt_dir = collectives.broadcast_object(ckpt_dir)
+            rank = mesh.rank
+            try:
+                summary, n_hosts = mesh_chaos(
+                    cfg, tcfg, opt, mesh, batch_fn, args.batch, args.seq,
+                    n_steps=args.steps, ckpt_dir=ckpt_dir,
+                    chaos_seed=args.chaos_seed)
+            finally:
+                close_mesh()
+        else:
+            from repro_torch.train import faults as tfaults
 
-        def make_state():
-            return init_state(lm_init(cfg, seed=0, device=dev), opt,
-                              lr_scale=True)
+            def make_state():
+                return init_state(lm_init(cfg, seed=0, device=dev), opt,
+                                  lr_scale=True)
 
-        step = make_train_step(cfg, tcfg, opt,
-                               loss_fn=tfaults.chaos_loss_fn(cfg, tcfg))
-        plan = chaos_plan(args.chaos_seed, args.steps)
-        ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="chaos_train_")
-        print(f"chaos: {plan.describe()} n_hosts=1 ckpt_dir={ckpt_dir}")
-        summary = tfaults.run_chaos(step, make_state, batch_fn, plan,
-                                    args.steps, ckpt_dir, device=dev,
-                                    log=print)
-        counters = {k: summary[k] for k in
-                    ("segments", "crashes", "resumes", "rollbacks",
-                     "skipped", "replayed_steps", "saves", "quarantined",
-                     "host_kill_timeouts", "straggler_timeouts",
-                     "divergence_checks", "data_windows_skipped")}
-        print(f"chaos done: violations={len(summary['violations'])} "
-              f"{counters} final_loss={summary['final_loss']:.4f}")
-        for v in summary["violations"]:
-            print(f"  VIOLATION: {v}")
-        raise SystemExit(0 if chaos_ok(summary) else 1)
+            step = make_train_step(cfg, tcfg, opt,
+                                   loss_fn=tfaults.chaos_loss_fn(cfg, tcfg))
+            plan = chaos_plan(args.chaos_seed, args.steps)
+            print(f"chaos: {plan.describe()} n_hosts=1 ckpt_dir={ckpt_dir}")
+            summary = tfaults.run_chaos(step, make_state, batch_fn, plan,
+                                        args.steps, ckpt_dir, device=dev,
+                                        log=print)
+            n_hosts, rank = 1, 0
+        if rank == 0:
+            print(chaos_report(summary))
+        raise SystemExit(0 if chaos_ok(summary, n_hosts) else 1)
 
     if mesh is not None:
         try:
@@ -218,6 +245,70 @@ def mesh_training(cfg, tcfg, opt, mesh, batch_fn, batch: int, seq: int,
     return state, step, pipe, state_sh
 
 
+CHAOS_COUNTERS = ("segments", "crashes", "resumes", "rollbacks", "skipped",
+                  "replayed_steps", "saves", "quarantined",
+                  "host_kill_timeouts", "straggler_timeouts",
+                  "divergence_checks", "data_windows_skipped")
+
+
+def chaos_report(summary: dict) -> str:
+    """The chaos run's closing lines: its counters, final loss and
+    violations."""
+    counters = {k: summary[k] for k in CHAOS_COUNTERS}
+    lines = [f"chaos done: violations={len(summary['violations'])} "
+             f"{counters} final_loss={summary['final_loss']:.4f}"]
+    lines += [f"  VIOLATION: {v}" for v in summary["violations"]]
+    return "\n".join(lines)
+
+
+def n_hosts_of(mesh) -> int:
+    """Simulated hosts of a mesh: one per slice of the non-``model`` axes,
+    as the JAX launcher counts them (the checkpoint's payload shards
+    too)."""
+    return math.prod(n for ax, n in mesh.shape.items() if ax != "model")
+
+
+def mesh_chaos(cfg, tcfg, opt, mesh, batch_fn, batch: int, seq: int, *,
+               n_steps: int, ckpt_dir: str, chaos_seed: int = 1,
+               seed: int = 0, log=print, wrap=None, **chaos_kw):
+    """The chaos harness of ``main`` on ``mesh`` (``--mesh ... --chaos``),
+    called on every rank; returns ``(summary, n_hosts)``.  Each segment's
+    state is drawn on the rank's blocks from ``seed`` (lr_scale included),
+    the step is the sharded step with the poison seam, the pipeline hands
+    the rank its rows, checkpoints hold ``n_hosts`` payload shards, and
+    the plan is ``chaos_plan(chaos_seed, n_steps, n_hosts)``.  Only rank 0
+    logs.  ``wrap(name, fn)`` may wrap the step (``"steps"``) and the
+    state's init (``"reinits"``), to count or time them.  ``chaos_kw``
+    goes to ``run_chaos`` (``audit_every``, ...)."""
+    from repro_torch.train import faults as tfaults
+
+    say = log if mesh.rank == 0 else (lambda *a, **k: None)
+    state_sh = dict(state_shardings(mesh, specs.state_specs(cfg, tcfg)))
+    state_sh["lr_scale"] = NamedSharding(mesh, P())
+    params_sh = state_sh["params"]
+
+    def make_state():
+        return init_state(lm_init(cfg, seed=seed, device=mesh.device,
+                                  shardings=params_sh), opt, lr_scale=True)
+
+    step = make_train_step(
+        cfg, tcfg, opt, grad_shardings=params_sh,
+        loss_fn=tfaults.chaos_loss_fn(cfg, tcfg, params_sh))
+    batch_sh = train_batch_shardings(
+        mesh, specs.train_batch_specs(cfg, batch, seq), batch)
+    n_hosts = n_hosts_of(mesh)
+    plan = chaos_plan(chaos_seed, n_steps, n_hosts)
+    say(f"chaos: {plan.describe()} n_hosts={n_hosts} mesh={mesh.shape} "
+        f"ckpt_dir={ckpt_dir}")
+    if wrap is not None:
+        step, make_state = wrap("steps", step), wrap("reinits", make_state)
+    summary = tfaults.run_chaos(
+        step, make_state, batch_fn, plan, n_steps, ckpt_dir,
+        n_hosts=n_hosts, ckpt_shards=n_hosts, batch_sharding=batch_sh,
+        shardings=state_sh, device=mesh.device, log=say, **chaos_kw)
+    return summary, n_hosts
+
+
 def train_on_mesh(args, cfg, tcfg, opt, mesh, batch_fn, log=print):
     """The sharded run of ``main`` (``--mesh``): the state placed on
     ``mesh`` from seed 0, the rank's rows of each batch, the loop's
@@ -226,9 +317,7 @@ def train_on_mesh(args, cfg, tcfg, opt, mesh, batch_fn, log=print):
     say = log if mesh.rank == 0 else (lambda *a, **k: None)
     state, step, pipe, state_sh = mesh_training(
         cfg, tcfg, opt, mesh, batch_fn, args.batch, args.seq)
-    # one payload per host: a host per slice of the non-model axes, as
-    # the JAX launcher counts them
-    n_hosts = math.prod(n for ax, n in mesh.shape.items() if ax != "model")
+    n_hosts = n_hosts_of(mesh)
     hooks = {}
     if args.ckpt_dir:
         hooks = dict(ckpt_dir=args.ckpt_dir,

@@ -26,6 +26,13 @@ restored") mean something only if they survive faults happening:
   from ``BaseException``) and a supervisor that restarts from a fresh
   state with ``auto_resume``.
 
+On a mesh (``run_chaos(shardings=, batch_sharding=)`` on every rank;
+``launch/train.py::mesh_chaos``) every rank runs the same plan: the
+global losses and skip flags, the replayed write stages and the
+per-rank buses make each fault fire on every rank at the same ordinal,
+and the audit compares the full-leaf digest and the replicas across
+ranks (``distributed.BlockDigests``).
+
 Faults enter only through public seams (the batch function, the step
 hook, the checkpoint write hook).  The poison is a 0-d fp32 tensor in
 the batch (``DataPipeline`` moves every value to the device); the
@@ -209,18 +216,26 @@ def corrupt_checkpoint(path: str, mode: str = "bitflip",
         f.write(bytes(data))
 
 
-def chaos_loss_fn(cfg, tcfg) -> Callable:
+def chaos_loss_fn(cfg, tcfg, shardings=None) -> Callable:
     """The standard LM loss with the chaos poison seam: the batch's
     ``poison`` scalar multiplies the loss, so a NaN/inf scale gives a
-    non-finite loss and gradients, while 1.0 is a bitwise identity."""
+    non-finite loss and gradients, while 1.0 is a bitwise identity.  With
+    ``shardings`` it is ``make_loss_fn(cfg, tcfg, shardings)``'s share of
+    the global objective, times the poison (every rank gets the scalar
+    whole: no batch sharding cuts a key it does not name); the sharded
+    step reads its loss metric and skip gate from ``aux`` (the ranks'
+    ``ce`` and ``ce_ex``), so the poison scales those too."""
     if tcfg.n_microbatches != 1:
         raise ValueError("chaos poison is a per-batch scalar: the "
                          "microbatch split would cut it — run chaos "
                          "with n_microbatches=1")
-    base = make_loss_fn(cfg, tcfg)
+    base = make_loss_fn(cfg, tcfg, shardings)
 
     def loss_fn(params, batch, fisher, **kw):
         loss, aux = base(params, batch, fisher, **kw)
+        if shardings is not None:
+            aux = dict(aux, ce=aux["ce"] * batch["poison"],
+                       ce_ex=aux["ce_ex"] * batch["poison"])
         return loss * batch["poison"], aux
 
     return loss_fn
@@ -231,11 +246,16 @@ class ChaosInjector:
     applies the plan through the public seams.  ``plan=None`` counts
     ordinals and stamps ``poison=1.0`` but injects nothing (the
     fault-free parity arm).  With a ``bus`` the plan's host-level faults
-    mark simulated peers dead or straggling at their hook ordinal."""
+    mark simulated peers dead or straggling at their hook ordinal.  On a
+    mesh every rank runs one injector on the same plan; only the
+    checkpoint's writer (``writes``) damages the files, and every rank
+    counts the damage."""
 
-    def __init__(self, plan: Optional[TrainFaultPlan], bus=None):
+    def __init__(self, plan: Optional[TrainFaultPlan], bus=None,
+                 writes: bool = True):
         self.plan = plan or TrainFaultPlan(seed=0)
         self.bus = bus
+        self.writes = writes
         self.fetches = 0
         self.hook_calls = 0
         self.saves = 0
@@ -304,7 +324,8 @@ class ChaosInjector:
                 spec = self.plan.corrupt_saves[n]
                 mode, shard = (spec if isinstance(spec, tuple)
                                else (spec, 0))
-                corrupt_checkpoint(path, mode, self._rng, shard=shard)
+                if self.writes:
+                    corrupt_checkpoint(path, mode, self._rng, shard=shard)
                 self.corrupted.append(path)
 
         return hook
@@ -322,11 +343,16 @@ class TrainAuditor:
     the params+opt fingerprint is compared across hosts (the round is
     also the liveness heartbeat: a killed host surfaces here as
     ``CoordinatorTimeout``), and with ``replica_audit`` the replicas of
-    each parameter are compared."""
+    each parameter are compared.  On a mesh (``shardings``: the state's
+    NamedShardings) the digest is that of the full leaves
+    (``distributed.BlockDigests``, one gather); a rank whose view of the
+    state differs from rank 0's is a violation that names it, and the
+    replicas compared are the copies of a window that ranks hold."""
 
     def __init__(self, coordinator=None, audit_every: int = 1,
-                 replica_audit: bool = True):
+                 replica_audit: bool = True, shardings=None):
         self.coordinator = coordinator
+        self.shardings = shardings
         self.audit_every = max(1, int(audit_every))
         self.replica_audit = replica_audit
         self.violations: List[str] = []
@@ -387,14 +413,27 @@ class TrainAuditor:
                 and self.steps_seen % self.audit_every == 0):
             # a dead or straggling host raises CoordinatorTimeout out of
             # this hook; run_chaos (the supervisor) catches it
-            from ..distributed import replica_divergence, tree_fingerprint
-            digest = tree_fingerprint({"params": state["params"],
-                                       "opt": state["opt"]})
+            from .. import distributed
+            core = {"params": state["params"], "opt": state["opt"]}
+            sh = self.shardings
+            if sh is None:
+                digest = distributed.tree_fingerprint(core)
+            else:
+                blocks = distributed.BlockDigests(
+                    core, {"params": sh["params"], "opt": sh["opt"]})
+                views = blocks.rank_digests()
+                digest = views[blocks.rank]
+                self.violations.extend(
+                    f"rank {r} state fingerprint diverged at step {step}: "
+                    f"{v!r} != rank 0's {views[0]!r}"
+                    for r, v in enumerate(views) if v != views[0])
             self.divergence_checks += 1
             self.violations.extend(
                 self.coordinator.check_fingerprint(step, digest))
             if self.replica_audit:
-                self.violations.extend(replica_divergence(state["params"]))
+                self.violations.extend(
+                    distributed.replica_divergence(state["params"])
+                    if sh is None else blocks.divergence())
 
     def on_segment_end(self, result: Dict[str, Any]) -> None:
         """``run_loop``'s returned counters against the audit's tally for
@@ -428,7 +467,7 @@ def run_chaos(train_step, make_state: Callable[[], dict], batch_fn,
               n_hosts: int = 1, audit_every: int = 1,
               replica_audit: bool = True,
               coordinator_timeout: float = 30.0,
-              device=None,
+              device=None, batch_sharding=None, shardings=None,
               max_segments: int = 32,
               log: Callable = lambda *a, **k: None) -> Dict[str, Any]:
     """Drive ``run_loop`` to completion under a fault plan, emulating a
@@ -441,14 +480,27 @@ def run_chaos(train_step, make_state: Callable[[], dict], batch_fn,
     segment like SIGKILL; a ``CoordinatorTimeout`` (dead or straggling
     host) the same way, and the bus is healed at the next segment start.
     Anything else propagates.  Returns the auditor's violations and the
-    counters."""
-    from ..distributed import Coordinator, CoordinatorTimeout, InProcessBus
+    counters.
 
+    On a mesh (``shardings``: the state's NamedShardings, with an entry
+    for ``lr_scale``; ``make_state`` builds the rank's blocks and
+    ``train_step`` is the sharded step) every rank runs this function:
+    ``batch_sharding`` hands the pipeline the rank's rows, the loop
+    checkpoints from and into the blocks, and each rank keeps its own
+    ``InProcessBus`` of ``n_hosts`` simulated peers.  Every fault fires on
+    every rank at the same ordinal: the plan, the losses and the skip
+    flags are the same on every rank, and a checkpoint's write stages
+    reach every rank's hook (``checkpoint.io``), so a segment ends on
+    every rank with the same exception."""
+    from ..distributed import Coordinator, CoordinatorTimeout, InProcessBus
+    from ..distributed.sharding import mesh_of
+
+    mesh = mesh_of(shardings)
     bus = InProcessBus(n_hosts)
     coord = Coordinator(bus, timeout=coordinator_timeout)
-    inj = ChaosInjector(plan, bus=bus)
+    inj = ChaosInjector(plan, bus=bus, writes=mesh is None or mesh.rank == 0)
     auditor = TrainAuditor(coordinator=coord, audit_every=audit_every,
-                           replica_audit=replica_audit)
+                           replica_audit=replica_audit, shardings=shardings)
     chaos_batch_fn = inj.wrap_batch_fn(batch_fn)
     crash = inj.crash_hook()
 
@@ -470,7 +522,8 @@ def run_chaos(train_step, make_state: Callable[[], dict], batch_fn,
                 break
             auditor.on_segment_start()
             bus.heal_all()      # the supervisor replaces failed hosts
-            pipe = DataPipeline(chaos_batch_fn, prefetch=0, device=device)
+            pipe = DataPipeline(chaos_batch_fn, prefetch=0, device=device,
+                                sharding=batch_sharding)
             state = make_state()
             try:
                 result = run_loop(
@@ -487,7 +540,7 @@ def run_chaos(train_step, make_state: Callable[[], dict], batch_fn,
                     max_rollbacks=max_rollbacks,
                     rollback_reorder=rollback_reorder,
                     coordinator=coord,
-                    step_hook=hook)
+                    step_hook=hook, shardings=shardings)
             except InjectedCrash as e:
                 log(f"chaos segment {segments}: {e}")
             except CoordinatorTimeout as e:

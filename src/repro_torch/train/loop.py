@@ -302,15 +302,13 @@ def make_train_step(cfg: LMConfig, tcfg: TrainConfig, optimizer,
     of every ``opt_step``, ``lotion_reg`` and ``quant`` call are global;
     the skip flag is decided over every rank's rows (a NaN on one rank
     skips the step on all); loss and aux metrics are means over the data
-    ranks.  ``loss_fn`` then follows ``make_loss_fn(..., shardings=)``'s
-    convention.  On a mesh of one rank the step is bitwise the
-    one-device step."""
+    ranks.  EF compression casts each gradient block (or, where the cut
+    splits its quant blocks, the gathered leaf: ``train/compress.py``),
+    bitwise the one-device cast of the same gradient.  ``loss_fn`` then
+    follows ``make_loss_fn(..., shardings=)``'s convention.  On a mesh of
+    one rank the step is bitwise the one-device step."""
     tx = make_optimizer(tcfg, optimizer)
     mesh = mesh_of(grad_shardings)
-    if mesh is not None and tcfg.ef_compress:
-        raise ValueError("EF gradient compression is not ported to a mesh "
-                         "(its int8 blocks of a gradient block): ROADMAP "
-                         "Queue 1 item 8(e)")
     n_dp = dp_size(mesh) if mesh is not None else 1
     roles = model_constraints(grad_shardings) if mesh is not None else None
     loss_fn = loss_fn or make_loss_fn(cfg, tcfg, grad_shardings)

@@ -284,11 +284,3 @@ def test_launcher_one_rank_mesh_needs_no_torchrun(tmp_path):
     assert sorted(os.listdir(tmp_path / "c")) == ["step_0000000000",
                                                   "step_0000000001",
                                                   "step_0000000002"]
-
-
-def test_launcher_refuses_chaos_on_several_ranks():
-    from repro_torch.launch.train import main
-    with pytest.raises(SystemExit) as e:
-        main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu",
-              "--mesh", "2x1", "--chaos"])
-    assert e.value.code == 2
